@@ -1,0 +1,9 @@
+"""Model layer (mirrors ``geconpy_tpu/models``): the compiled model, the
+analytic steady state and the symbolic linearization."""
+
+from .model import Model, model_from_gcn
+from .perturbation import make_linearizer, spectral_radius
+from .steady_state import SteadyStateSolution, make_steady_state_solver
+
+__all__ = ["Model", "model_from_gcn", "make_linearizer", "spectral_radius",
+           "SteadyStateSolution", "make_steady_state_solver"]

@@ -1,0 +1,153 @@
+"""Build and bind the hand-written CUDA kernels (``geconpy_torch/csrc``).
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, bound with :mod:`ctypes`.  The build runs at
+first use and again whenever the sources change: the library lives under
+``build/geconpy_torch/<hash of the sources>/`` beside the package, and the
+compiler's output (including ``-Xptxas -v`` register and spill counts) is
+kept there as ``nvcc.log``.  Nothing here runs at import, so the CPU tests
+import every module without ``nvcc``.
+
+Each C entry point returns ``cudaGetLastError()`` right after its launch;
+:func:`check` raises on anything but 0.  Kernels launch on PyTorch's
+current stream and do not synchronise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+__all__ = ["library", "check", "stream_handle", "dtype_code",
+           "smem_limit", "require_cuda_inputs", "CSRC", "BUILD_ROOT"]
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "geconpy_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LIB_NAME = "libgeconpy_torch_kernels.so"
+
+_LIB: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "gcp_cr_policy": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                      ctypes.c_int),
+    "gcp_cr_policy_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_settle": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_settle_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_filter_tail": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_filter_tail_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "gcp_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        candidate = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if candidate.exists():
+            return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _build_dir() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _build(out_dir: pathlib.Path) -> None:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, out_dir / _LIB_NAME)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use (raises if it cannot be)."""
+    global _LIB
+    if _LIB is None:
+        out_dir = _build_dir()
+        path = out_dir / _LIB_NAME
+        if not path.exists():
+            _build(out_dir)
+        lib = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _LIB = lib
+    return _LIB
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().gcp_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as an integer handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.float64:
+        return 1
+    raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
+
+
+def smem_limit(device: torch.device) -> int:
+    """Largest dynamic shared memory a block may opt in to on ``device``."""
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", 232448))
+
+
+def require_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype,
+                        device: torch.device) -> None:
+    """Check that every tensor has its expected shape, is contiguous and is
+    on ``device`` in ``dtype``; ``tensors`` maps a name to (tensor, shape)."""
+    for key, (t, shape) in tensors.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")

@@ -1,0 +1,90 @@
+"""Batched constant-gain Kalman filter tail: CUDA kernel K3 and its plain twin.
+
+Mirrors ``geconpy_tpu/ops/pallas_filter.py:65`` (``pallas_filter_tail``)
+as :func:`filter_tail`.  Per draw and step t:
+
+    v   = y_t - d - Z x
+    ll += const - v' F^{-1} v / 2
+    x   = M x + TK (y_t - d)
+
+Kernel source note.  ``csrc/filter_tail.cu`` replaces the TPU kernel
+``_tail_kernel`` (``ops/pallas_filter.py:34``).  On the H100 each step is
+~1.3 kFMA per draw that depends on the previous step, so the recursion is
+latency-bound; the design reads each draw's matrices from device memory
+once into shared memory, runs one 64-thread block per draw for all steps,
+and reads the shared observations ``y_tail`` straight from device memory.
+
+:func:`_filter_tail_plain` is the plain PyTorch version of the same
+recursion.  The wrapper uses it for CPU tensors; a CUDA tensor goes to the
+kernel or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+__all__ = ["filter_tail"]
+
+
+def _filter_tail_plain(y_tail, M, TK, Z, d, Finv, const, x0):
+    """Plain PyTorch version of the K3 kernel (batch-first)."""
+    x = x0
+    ll = torch.zeros_like(const)
+    for t in range(y_tail.shape[0]):
+        yd = y_tail[t] - d
+        v = yd - (Z @ x[..., None])[..., 0]
+        quad = (v[..., :, None] * Finv * v[..., None, :]).sum(dim=(-2, -1))
+        ll = ll + const - 0.5 * quad
+        x = (M @ x[..., None])[..., 0] + (TK @ yd[..., None])[..., 0]
+    return ll
+
+
+def _filter_tail_cuda(y_tail, M, TK, Z, d, Finv, const, x0):
+    """Launch the K3 kernel."""
+    Bn, n, _ = M.shape
+    k = Z.shape[1]
+    _cuda.require_cuda_inputs(
+        "filter_tail",
+        {"y_tail": (y_tail, (y_tail.shape[0], k)), "M": (M, (Bn, n, n)),
+         "TK": (TK, (Bn, n, k)), "Z": (Z, (Bn, k, n)), "d": (d, (Bn, k)),
+         "Finv": (Finv, (Bn, k, k)), "const": (const, (Bn,)),
+         "x0": (x0, (Bn, n))}, M.dtype, M.device)
+    lib = _cuda.library()
+    smem = lib.gcp_filter_tail_smem_bytes(n, k, M.element_size())
+    if smem > _cuda.smem_limit(M.device):
+        raise ValueError(
+            f"filter_tail: n={n}, k={k} in {M.dtype} needs {smem} bytes of "
+            f"shared memory per block, above the device's "
+            f"{_cuda.smem_limit(M.device)}")
+    ll = torch.empty((Bn,), dtype=M.dtype, device=M.device)
+    if Bn:
+        code = lib.gcp_filter_tail(
+            _cuda.dtype_code(M.dtype), y_tail.data_ptr(), M.data_ptr(),
+            TK.data_ptr(), Z.data_ptr(), d.data_ptr(), Finv.data_ptr(),
+            const.data_ptr(), x0.data_ptr(), ll.data_ptr(), Bn, n, k,
+            y_tail.shape[0], _cuda.stream_handle(M.device))
+        _cuda.check(code, "filter_tail")
+        filter_tail.launches += 1
+    return ll
+
+
+def filter_tail(y_tail, M, TK, Z, d, Finv, const, x0):
+    """Run the constant-gain tail for a batch of draws.
+
+    ``y_tail`` (steps, k) shared observations; ``M`` (Bn, n, n), ``TK``
+    (Bn, n, k), ``Z`` (Bn, k, n), ``d`` (Bn, k), ``Finv`` (Bn, k, k),
+    ``const`` (Bn,), ``x0`` (Bn, n).  Returns per-draw tail
+    log-likelihoods (Bn,).
+    """
+    args = tuple(X.contiguous() for X in (y_tail, M, TK, Z, d, Finv, const, x0))
+    if M.device.type == "cpu":
+        return _filter_tail_plain(*args)
+    if M.device.type == "cuda":
+        return _filter_tail_cuda(*args)
+    raise ValueError(f"filter_tail: no kernel for {M.device}")
+
+
+#: launches of the CUDA kernel since the count was last set to 0
+filter_tail.launches = 0

@@ -1,0 +1,147 @@
+"""Batched Kalman settle phase: CUDA kernel K2 and its plain twin.
+
+Mirrors ``geconpy_tpu/ops/pallas_settle.py:248`` (``pallas_settle_parts``)
+as :func:`settle_parts`: P0 by 10 Lyapunov doublings, ``n_settle`` exact
+Riccati steps (Joseph form; per-step log-likelihood with log det F from the
+Gauss-Jordan pivots), then the frozen-gain quantities (M, TK, F^{-1},
+const) of the constant-gain tail.  Fully observed data only.
+
+Kernel source note.  ``csrc/settle.cu`` replaces the TPU kernel
+``_settle_kernel`` (``ops/pallas_settle.py:40``).  On the H100 it is
+bound by the per-draw chain of ~6 dependent n x n products per Riccati
+step (~5 MFMA per draw at n = 26, 32 steps), not by device memory; the
+design keeps P and all intermediates in shared memory, one thread block per
+draw, and reads ``y_head`` directly from device memory in place of the
+TPU's one-hot row extraction and lane padding.  It takes and returns the
+caller's dtype but runs the recursion in float64, and so does the plain
+version: without measurement error F is ill-conditioned, and two float32
+recursions differed by up to 2.7e-3 relative in ll_head on the SW-2007
+sweep (H100 run).
+
+:func:`_settle_plain` is the plain PyTorch version of the same schedule.
+The wrapper uses it for CPU tensors; a CUDA tensor goes to the kernel or the
+wrapper raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _cuda
+from .batched_cycle_reduction import gj_solve
+from .precision import highest_precision
+
+__all__ = ["settle_parts", "LYAP_ITERS"]
+
+_LOG2PI = float(math.log(2.0 * math.pi))
+
+#: Lyapunov doublings for P0: the error is ~rho(T)^(2^(m+1)), ~1e-22 at
+#: rho = 0.975 and 1e-9 at rho = 0.99 (the settle steps finish the rest)
+LYAP_ITERS = 10
+
+
+def _mT(X: torch.Tensor) -> torch.Tensor:
+    return X.transpose(-1, -2)
+
+
+@highest_precision()
+def _settle_plain(y_head, T, RQR, Z, H, d, lyap_iters: int):
+    """Plain PyTorch version of the K2 kernel (batch-first); like the kernel
+    it computes in float64 and returns the inputs' dtype."""
+    out = _settle_recursion(*(X.to(torch.float64)
+                              for X in (y_head, T, RQR, Z, H, d)), lyap_iters)
+    return tuple(X.to(T.dtype) for X in out)
+
+
+def _settle_recursion(y_head, T, RQR, Z, H, d, lyap_iters: int):
+    n = T.shape[-1]
+    k = Z.shape[-2]
+    batch = T.shape[:-2]
+    eye_n = torch.eye(n, dtype=T.dtype, device=T.device)
+    eye_k = torch.eye(k, dtype=T.dtype, device=T.device).expand(batch + (k, k))
+    A, P = T, RQR
+    for _ in range(lyap_iters):
+        P = P + (A @ P) @ _mT(A)
+        A = A @ A
+    x = T.new_zeros(batch + (n, 1))
+    ll = T.new_zeros(batch)
+    for t in range(y_head.shape[0]):
+        x_pred = T @ x
+        P_pred = (T @ P) @ _mT(T) + RQR
+        v = y_head[t][:, None] - Z @ x_pred - d[..., None]
+        PZt = P_pred @ _mT(Z)
+        F = Z @ PZt + H
+        sol, _mp, logdet = gj_solve(F, torch.cat([v, eye_k], dim=-1))
+        w = sol[..., :1]
+        Finv = sol[..., 1:]
+        K = PZt @ Finv
+        x = x_pred + K @ v
+        IKZ = eye_n - K @ Z
+        P = (IKZ @ P_pred) @ _mT(IKZ) + (K @ H) @ _mT(K)
+        vFv = (v * w).sum(dim=(-2, -1))
+        ll = ll - 0.5 * (k * _LOG2PI + logdet + vFv)
+    P_pred = (T @ P) @ _mT(T) + RQR
+    PZt = P_pred @ _mT(Z)
+    F = Z @ PZt + H
+    Finv, _mp, logdet = gj_solve(F, eye_k)
+    K = PZt @ Finv
+    TK = T @ K
+    M = T - TK @ Z
+    const = -0.5 * (k * _LOG2PI + logdet)
+    return ll, (T @ x)[..., 0], M, TK, Finv, const
+
+
+def _settle_cuda(y_head, T, RQR, Z, H, d, lyap_iters: int):
+    """Launch the K2 kernel."""
+    Bn, n, _ = T.shape
+    k = Z.shape[1]
+    n_settle = y_head.shape[0]
+    _cuda.require_cuda_inputs(
+        "settle_parts",
+        {"y_head": (y_head, (n_settle, k)), "T": (T, (Bn, n, n)),
+         "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)), "H": (H, (Bn, k, k)),
+         "d": (d, (Bn, k))}, T.dtype, T.device)
+    lib = _cuda.library()
+    smem = lib.gcp_settle_smem_bytes(n, k)
+    if smem > _cuda.smem_limit(T.device):
+        raise ValueError(
+            f"settle_parts: n={n}, k={k} in {T.dtype} needs {smem} bytes of "
+            f"shared memory per block, above the device's "
+            f"{_cuda.smem_limit(T.device)}")
+    empty = lambda *shape: torch.empty(shape, dtype=T.dtype,  # noqa: E731
+                                       device=T.device)
+    ll, xp, M, TK, Finv, const = (empty(Bn), empty(Bn, n), empty(Bn, n, n),
+                                  empty(Bn, n, k), empty(Bn, k, k), empty(Bn))
+    if Bn:
+        code = lib.gcp_settle(
+            _cuda.dtype_code(T.dtype), T.data_ptr(), RQR.data_ptr(),
+            Z.data_ptr(), H.data_ptr(), d.data_ptr(), y_head.data_ptr(),
+            ll.data_ptr(), xp.data_ptr(), M.data_ptr(), TK.data_ptr(),
+            Finv.data_ptr(), const.data_ptr(), Bn, n, k, n_settle,
+            lyap_iters, _cuda.stream_handle(T.device))
+        _cuda.check(code, "settle_parts")
+        settle_parts.launches += 1
+    return ll, xp, M, TK, Finv, const
+
+
+def settle_parts(y_head, T, RQR, Z, H, d):
+    """Batched settle phase: returns (ll_head, x_pred0, M, TK, Finv, const).
+
+    Batch-first inputs: T/RQR (Bn, n, n), Z (Bn, k, n), H (Bn, k, k),
+    d (Bn, k); ``y_head`` (n_settle, k) is shared across the batch and fully
+    observed.  Output conventions match the reference's
+    ``steady_state_filter_parts``.
+    """
+    y_head, T, RQR, Z, H, d = (X.contiguous()
+                               for X in (y_head, T, RQR, Z, H, d))
+    if T.device.type == "cpu":
+        return _settle_plain(y_head, T, RQR, Z, H, d, LYAP_ITERS)
+    if T.device.type == "cuda":
+        return _settle_cuda(y_head, T, RQR, Z, H, d, LYAP_ITERS)
+    raise ValueError(f"settle_parts: no kernel for {T.device}")
+
+
+#: launches of the CUDA kernel since the count was last set to 0
+settle_parts.launches = 0

@@ -1,0 +1,521 @@
+"""DSGE state-space model: the batched forward likelihood sweep.
+
+Mirrors ``geconpy_tpu/stats/statespace.py`` (``DSGEStateSpace``) as a
+subset: ``configure`` (:102-336, directly observed variables only, diagonal
+shock covariance), ``unconstrain``/``constrain``/``initial_position``/
+``param_labels``, ``_solution_pieces`` (:544), ``_build_design`` (:394),
+``_augment_lags`` (:457), ``_static_pivot_order`` (:1092),
+``_build_pallas_policy_batch`` (:1154, here :meth:`_build_policy_batch`),
+``build_batched_loglik`` (:860) and ``data_from_prior`` (:1252).
+
+The sweep ``f(U) -> (B,)`` runs batched torch code for the priors, the
+analytic steady state, the symbolic linearization and the static
+reduction, then the three CUDA kernels: cycle reduction
+(:mod:`~geconpy_torch.ops.batched_cycle_reduction`), the Riccati settle
+(:mod:`~geconpy_torch.ops.batched_settle`) and the constant-gain tail
+(:mod:`~geconpy_torch.ops.batched_filter`).  On CPU tensors the kernels'
+plain PyTorch versions run instead.  Failed draws (steady state, policy,
+stability, non-finite likelihood) get -inf; failures are flags, never
+exceptions.  The TPU-only knobs (``cr_tile``, ``pallas_tile``,
+``interpret``) are gone.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .._frontend import frontend
+from ..dists.core import Distribution, HalfNormal
+from ..models.model import Model
+from ..models.perturbation import _ZERO_TOL, make_loglin_mask, spectral_radius
+from ..ops.batched_cycle_reduction import (cycle_reduction_policy,
+                                           static_pivot_order)
+from ..ops.batched_filter import filter_tail
+from ..ops.batched_settle import settle_parts
+from ..ops.precision import highest_precision
+from ..ops.static_reduction import expand_reduced_policy, reduce_pencil
+
+_log = logging.getLogger(__name__)
+
+__all__ = ["DSGEStateSpace", "EstimatedParameter", "CR_ITERS"]
+
+_ROADMAP = "ROADMAP Queue 1"
+
+#: cycle-reduction doublings of the sweep's policy solve (the reference's
+#: ``cr_iters`` default)
+CR_ITERS = 14
+
+
+@dataclass(frozen=True)
+class EstimatedParameter:
+    name: str
+    prior: Distribution
+    kind: str                     # "model" | "measurement_error"
+    initial: float | None = None
+
+
+class DSGEStateSpace:
+    """Estimation-ready state-space wrapper around a :class:`Model`."""
+
+    def __init__(self, model: Model):
+        self.model = model
+        self._configured = False
+
+    # ------------------------------------------------------------- configure
+    def configure(
+        self,
+        observed_states: list[str],
+        measurement_error: list[str] | dict | None = None,
+        shock_std: dict | float | None = None,
+        filter_type: str = "steady_state",
+        kalman_settle: int = 48,
+        loglin_variables="auto",
+        me_prior: Distribution | None = None,
+        constant_params: list[str] | None = None,
+        ss_obs_intercept: bool = False,
+        observation_equations: dict[str, str] | None = None,
+        full_shock_covariance: bool = False,
+    ) -> "DSGEStateSpace":
+        """Choose observables, measurement error and estimated parameters.
+
+        The same rules as the reference: parameters with GCN priors are
+        estimated unless frozen by ``constant_params``; shock standard
+        deviations come from GCN shock priors (hyper-parameter links) or
+        ``shock_std``; ``measurement_error`` is a list of observed names
+        (each with an estimated std, prior ``me_prior``, default
+        HalfNormal(0.1)) or a dict name -> float | Distribution.
+        Observation equations, a full shock covariance and filters other
+        than ``"steady_state"`` are not ported yet.
+        """
+        if observation_equations:
+            raise NotImplementedError(
+                f"observation equations are not ported yet ({_ROADMAP} item 6)")
+        if full_shock_covariance:
+            raise NotImplementedError(
+                f"a full shock covariance is not ported yet ({_ROADMAP} item 6)")
+        if filter_type != "steady_state":
+            raise NotImplementedError(
+                f"filter_type={filter_type!r} is not ported yet: only the "
+                f"batched 'steady_state' sweep is ({_ROADMAP} items 6-7)")
+        model = self.model
+        mf = model.functions
+
+        unknown_obs = set(observed_states) - set(mf.variable_names)
+        if unknown_obs:
+            raise ValueError(f"observed_states not in model: {sorted(unknown_obs)}")
+        self.observed_states = list(observed_states)
+        self.filter_type = filter_type
+        self.kalman_settle = int(kalman_settle)
+        self.ss_obs_intercept = ss_obs_intercept
+        self.loglin_variables = loglin_variables
+        self._obs_max_lag = 0
+
+        from_ast = frontend().from_ast
+        param_priors, shock_dists = from_ast.resolve_priors(
+            model.primitives.priors, model.primitives.shock_priors)
+        constant = set(constant_params or ())
+
+        self.estimated: list[EstimatedParameter] = []
+        free_names = [p.name for p in mf.free_params]
+        defaults = model.default_theta().numpy()
+        self._theta_default = defaults
+        est_idx: list[int] = []
+        for i, name in enumerate(free_names):
+            if name in param_priors and name not in constant:
+                self.estimated.append(EstimatedParameter(
+                    name, param_priors[name], "model", float(defaults[i])))
+                est_idx.append(i)
+        self._est_idx = np.asarray(est_idx, dtype=np.int64) if est_idx else None
+
+        sigma_source: list[tuple[str, object]] = []
+        for s in mf.shock_names:
+            dist = shock_dists.get(s)
+            if isinstance(dist, from_ast.CompositeDistribution) and dist.sigma_param:
+                pname = dist.sigma_param
+                if pname not in free_names:
+                    raise ValueError(
+                        f"shock {s!r} references hyper-parameter {pname!r} "
+                        f"which is not a model parameter")
+                sigma_source.append(("param", free_names.index(pname)))
+            elif isinstance(dist, Distribution):
+                sigma_source.append(("fixed", float(dist.std())))
+            elif isinstance(shock_std, dict):
+                sigma_source.append(("fixed", float(shock_std.get(s, 0.01))))
+            elif shock_std is not None:
+                sigma_source.append(("fixed", float(shock_std)))
+            else:
+                sigma_source.append(("fixed", 0.01))
+        self._sigma_source = sigma_source
+
+        me_prior = me_prior or HalfNormal(sigma=0.1)
+        self._me_fixed: dict[int, float] = {}
+        me_estimated: list[tuple[int, EstimatedParameter]] = []
+        if measurement_error:
+            if isinstance(measurement_error, dict):
+                items = measurement_error.items()
+            else:
+                items = [(name, me_prior) for name in measurement_error]
+            for name, spec in items:
+                if name not in self.observed_states:
+                    raise ValueError(
+                        f"measurement error on {name!r} but it is not observed")
+                j = self.observed_states.index(name)
+                if isinstance(spec, (int, float)):
+                    self._me_fixed[j] = float(spec)
+                else:
+                    me_estimated.append((j, EstimatedParameter(
+                        f"sigma_obs_{name}", spec, "measurement_error")))
+        self._me_estimated = me_estimated
+        self.estimated.extend(p for _, p in me_estimated)
+
+        n_me = len(self._me_fixed) + len(me_estimated)
+        if len(self.observed_states) > mf.n_shocks + n_me:
+            raise ValueError(
+                f"stochastic singularity: {len(self.observed_states)} observables "
+                f"but only {mf.n_shocks} shocks + {n_me} measurement errors. "
+                f"Add shocks or measurement error.")
+
+        # the Kalman state is the dynamic core when every observable is a
+        # dynamic variable (statics are outputs, not states)
+        plan = model.static_reduction
+        dynamic_names = {mf.variable_names[i] for i in plan.dynamic_idx}
+        if set(self.observed_states) <= dynamic_names and len(plan.static_idx):
+            self._filter_core = np.asarray(plan.dynamic_idx)
+        else:
+            self._filter_core = np.arange(mf.n_variables)
+        self._pivot_order = None
+        self._configured = True
+        _log.info("configured: %d observables, %d estimated parameters "
+                  "(%d model + %d meas. error)", len(self.observed_states),
+                  len(self.estimated), len(est_idx), len(me_estimated))
+        return self
+
+    # ------------------------------------------------------------ design
+    def _build_design(self, x_ss, core):
+        """(Z (B, k, n_core), d (B, k)): design over the filter state and the
+        steady-state intercept (log(v_ss) for a log-linearized variable with
+        positive steady state, else v_ss; zero unless ``ss_obs_intercept``)."""
+        mf = self.model.functions
+        batch = x_ss.shape[:-1]
+        lv = self.loglin_variables
+        if isinstance(lv, str) and lv == "auto":
+            lv = self.model.default_loglin
+        loglin_mask = make_loglin_mask(mf, lv)
+        core = list(np.asarray(core))
+        k = len(self.observed_states)
+        Z0 = torch.zeros((k, len(core)), dtype=x_ss.dtype, device=x_ss.device)
+        intercepts = []
+        for row, name in enumerate(self.observed_states):
+            idx = mf.variable_names.index(name)
+            if idx in core:
+                Z0[row, core.index(idx)] = 1.0
+            x_v = x_ss[..., idx]
+            if loglin_mask[idx]:
+                x_v = torch.where(x_v > _ZERO_TOL,
+                                  torch.log(torch.clamp(x_v, min=1e-30)), x_v)
+            intercepts.append(x_v)
+        Z = Z0.expand(batch + Z0.shape)
+        if self.ss_obs_intercept:
+            d = torch.stack(intercepts, dim=-1)
+        else:
+            d = x_ss.new_zeros(batch + (k,))
+        return Z, d
+
+    @staticmethod
+    def _augment_lags(T, R, L):
+        """Companion augmentation [y_t, ..., y_{t-L}]; L = 0 without
+        observation equations (the only case the port configures)."""
+        if L:
+            raise NotImplementedError(
+                f"lag augmentation needs observation equations ({_ROADMAP} item 6)")
+        return T, R
+
+    # ----------------------------------------------------------------- sizes
+    @property
+    def param_labels(self) -> list[str]:
+        """Estimated-parameter names, the column order of draws."""
+        return [p.name for p in self.estimated]
+
+    # ------------------------------------------------------------ transforms
+    def unconstrain(self, values) -> torch.Tensor:
+        """Constrained parameter values (array or name dict) -> unconstrained
+        float64 vector."""
+        if isinstance(values, dict):
+            values = [values[p.name] for p in self.estimated]
+        vals = np.asarray(values, dtype=np.float64)
+        return torch.stack([p.prior.to_unconstrained(torch.as_tensor(v))
+                            for p, v in zip(self.estimated, vals)])
+
+    def constrain(self, u: torch.Tensor) -> torch.Tensor:
+        """Unconstrained vector (..., n_est) -> constrained values."""
+        return torch.stack([p.prior.from_unconstrained(u[..., i])[0]
+                            for i, p in enumerate(self.estimated)], dim=-1)
+
+    def initial_position(self) -> torch.Tensor:
+        """Unconstrained start: GCN initial value or prior mean."""
+        vals = []
+        for p in self.estimated:
+            v = p.initial if p.initial is not None else p.prior.mean()
+            if not np.isfinite(v):
+                v = float(p.prior.ppf(0.5))
+            vals.append(v)
+        return self.unconstrain(np.asarray(vals))
+
+    # ------------------------------------------------------ solution pieces
+    def _solution_pieces(self):
+        """The batched solution pipeline split at the policy solve:
+        (pre_policy, post_policy), both over a leading batch dimension."""
+        if not self._configured:
+            raise RuntimeError("call .configure(...) first")
+        model = self.model
+        ss_solver = model.ss_solver
+        linearize = model.linearizer(self.loglin_variables)
+        k = len(self.observed_states)
+        n_model_est = len([p for p in self.estimated if p.kind == "model"])
+        est_idx = self._est_idx
+        priors = [p.prior for p in self.estimated]
+        sigma_source = self._sigma_source
+        me_fixed = self._me_fixed
+        me_estimated = self._me_estimated
+        core = torch.as_tensor(self._filter_core, dtype=torch.int64)
+
+        @highest_precision()
+        def pre_policy(U: torch.Tensor) -> dict:
+            batch = U.shape[:-1]
+            logprior = U.new_zeros(batch)
+            xs = []
+            for i, prior in enumerate(priors):
+                x_i, logjac = prior.from_unconstrained(U[..., i])
+                logprior = logprior + prior.logpdf(x_i) + logjac
+                xs.append(x_i)
+            x = torch.stack(xs, dim=-1) if xs else U.new_zeros(batch + (0,))
+            theta_free = torch.as_tensor(self._theta_default, dtype=U.dtype,
+                                         device=U.device).expand(
+                batch + (len(self._theta_default),)).clone()
+            if est_idx is not None:
+                theta_free[..., torch.as_tensor(est_idx, device=U.device)] = \
+                    x[..., :n_model_est]
+            ss = ss_solver(theta_free)
+            lin = linearize(ss.x_ss, ss.theta_full)
+            return {"x": x, "logprior": logprior, "theta_full": ss.theta_full,
+                    "x_ss": ss.x_ss, "ss_success": ss.success,
+                    "A": lin.A, "B": lin.B, "C": lin.C, "D": lin.D,
+                    "loglin_scale": lin.loglin_scale}
+
+        @highest_precision()
+        def post_policy(pre: dict, T, R, solver_ok) -> dict:
+            x = pre["x"]
+            batch = x.shape[:-1]
+            rho = spectral_radius(T)
+            stable = torch.isfinite(rho) & (rho < 1.0 - 1e-9)
+            sigmas = []
+            for kind, val in sigma_source:
+                if kind == "param":
+                    sigmas.append(pre["theta_full"][..., val])
+                else:
+                    sigmas.append(x.new_full(batch, val))
+            Q = torch.diag_embed(torch.stack(sigmas, dim=-1) ** 2)
+            h_diag = x.new_zeros(batch + (k,))
+            for j, v in me_fixed.items():
+                h_diag[..., j] = v**2
+            for slot, (j, _p) in enumerate(me_estimated):
+                h_diag[..., j] = x[..., n_model_est + slot] ** 2
+            H = torch.diag_embed(h_diag)
+            c = core.to(T.device)
+            T_f = T[..., c[:, None], c]
+            R_f = R[..., c, :]
+            Z, d_vec = self._build_design(pre["x_ss"], self._filter_core)
+            T_safe = torch.where(stable[..., None, None], T_f,
+                                 torch.zeros_like(T_f))
+            T_aug, R_aug = self._augment_lags(T_safe, R_f, self._obs_max_lag)
+            return {"x": x, "theta_full": pre["theta_full"],
+                    "x_ss": pre["x_ss"], "T": T, "R": R, "T_aug": T_aug,
+                    "R_aug": R_aug, "Z": Z, "d": d_vec, "Q": Q, "H": H,
+                    "logprior": pre["logprior"],
+                    "ss_success": pre["ss_success"],
+                    "solver_success": solver_ok, "stable": stable,
+                    "spectral_radius": rho}
+
+        return pre_policy, post_policy
+
+    def _static_pivot_order(self) -> np.ndarray:
+        """Host-side static GJ row ordering from the calibration pencil."""
+        if self._pivot_order is None:
+            pre_policy, _ = self._solution_pieces()
+            pre = pre_policy(self.initial_position()[None])
+            plan = self.model.static_reduction
+            if len(plan.static_idx) > 0:
+                red = reduce_pencil(pre["A"], pre["B"], pre["C"], pre["D"], plan)
+                B2 = red.B2[0].numpy()
+            else:
+                B2 = pre["B"][0].numpy()
+            self._pivot_order = static_pivot_order(B2)
+        return self._pivot_order
+
+    def _build_policy_batch(self):
+        """Batched policy solve: QR static reduction -> one cycle-reduction
+        kernel launch over the whole batch (T, R, flags) -> static
+        back-substitution.  The kernel's pivot/tail/residual flags carry the
+        success evidence; only the stability check runs outside."""
+        plan = self.model.static_reduction
+        order = self._static_pivot_order()
+        n = self.model.functions.n_variables
+        has_statics = len(plan.static_idx) > 0
+
+        @highest_precision()
+        def solve_batch(pre, kernel_dtype: torch.dtype | None = None,
+                        record: dict | None = None):
+            """The pencil's algebra runs in its own dtype; the kernel in
+            ``kernel_dtype`` (default: the same)."""
+            A, B, C, D = pre["A"], pre["B"], pre["C"], pre["D"]
+            if has_statics:
+                red = reduce_pencil(A, B, C, D, plan)
+                A2, B2, C2, D2 = red.A2, red.B2, red.C2, red.D2
+            else:
+                A2, B2, C2, D2 = A, B, C, D
+            pencil = tuple(X.to(kernel_dtype or A.dtype) for X in (A2, B2, C2, D2))
+            if record is not None:
+                idx = torch.as_tensor(order, dtype=torch.int64, device=A.device)
+                record["cycle_reduction_policy"] = tuple(
+                    X[..., idx, :].contiguous() for X in pencil)
+            T_d, R_d, cr_ok, _resid = cycle_reduction_policy(
+                *pencil, order=order, n_iter=CR_ITERS)
+            T_d, R_d = T_d.to(A.dtype), R_d.to(A.dtype)
+            rho = spectral_radius(T_d)
+            stable_ok = torch.isfinite(rho) & (rho < 1.0 + 1e-6)
+            if has_statics:
+                T, R = expand_reduced_policy(T_d, R_d, red, plan, n)
+            else:
+                T, R = T_d, R_d
+            success = cr_ok & stable_ok & torch.isfinite(R).all(dim=(-2, -1))
+            return T, R, success
+
+        return solve_batch
+
+    # ----------------------------------------------------- batched sweep
+    def build_batched_loglik(self, data: np.ndarray, n_settle: int = 32):
+        """Gradient-free batched log-posterior ``f(U) -> (B,)`` for sweeps.
+
+        ``U`` is (B, n_estimated) unconstrained draws on any device; the
+        result is on U's device in U's dtype.  The three kernels work in
+        U's dtype; the algebra around them (priors, steady state,
+        linearization, static reduction, covariances) runs in float64:
+        in float32 that algebra alone moved the SW-2007 likelihood by
+        ~3e-4 relative, where the float32 kernels fed float64 algebra
+        stay near 1e-4 (see PERF.md).  Pipeline: batched priors,
+        steady state and linearization -> static reduction -> cycle
+        reduction kernel -> settle kernel over ``data[:n_settle]`` ->
+        constant-gain tail kernel over the rest.  Rejected draws get -inf.
+        """
+        data = np.asarray(data)
+        if data.ndim != 2 or data.shape[1] != len(self.observed_states):
+            raise ValueError(f"data must be (periods, "
+                             f"{len(self.observed_states)}), got {data.shape}")
+        if bool(np.isnan(data).any()):
+            raise ValueError("build_batched_loglik requires fully observed data")
+        pre_policy, post_policy = self._solution_pieces()
+        solve_batch = self._build_policy_batch()
+        y_np = np.ascontiguousarray(data, dtype=np.float64)
+
+        @highest_precision()
+        def batched(U: torch.Tensor, record: dict | None = None
+                    ) -> torch.Tensor:
+            """``record``, when given, receives each kernel's inputs (for
+            kernel-vs-plain checks at the sweep's own shapes)."""
+            kdt = U.dtype
+            y = torch.as_tensor(y_np, device=U.device).to(kdt)
+            pre = pre_policy(U.to(torch.float64))
+            T, R, solver_ok = solve_batch(pre, kdt, record)
+            sol = post_policy(pre, T, R, solver_ok)
+            R_aug = sol["R_aug"]
+            RQR = R_aug @ sol["Q"] @ R_aug.transpose(-1, -2)
+            settle_in = (y[:n_settle],) + tuple(
+                X.to(kdt).contiguous() for X in (sol["T_aug"], RQR, sol["Z"],
+                                                  sol["H"], sol["d"]))
+            ll_head, x_pred0, M, TK, Finv, const = settle_parts(*settle_in)
+            tail_in = (y[n_settle:], M, TK, settle_in[3], settle_in[5], Finv,
+                       const, x_pred0)
+            ll_tail = filter_tail(*tail_in)
+            ok = sol["ss_success"] & sol["solver_success"] & sol["stable"]
+            if record is not None:
+                record["settle_parts"] = settle_in
+                record["filter_tail"] = tail_in
+                record["accepted"] = ok
+            ll = ll_head.to(torch.float64) + ll_tail.to(torch.float64) \
+                + sol["logprior"]
+            return torch.where(ok & torch.isfinite(ll), ll,
+                               torch.full_like(ll, -math.inf)).to(kdt)
+
+        return batched
+
+    # ------------------------------------------------------- prior utilities
+    def data_from_prior(self, generator: torch.Generator, periods: int = 200,
+                        params: dict | None = None):
+        """Simulate an artificial dataset from one prior draw.
+
+        Draws every estimated parameter from its prior with ``generator``
+        (``params`` pins chosen ones), solves the model at that point in
+        float64 on the generator's device through the port's own policy
+        solve, and simulates ``periods`` observations.  A prior draw without
+        a stable first-order solution is replaced by the generator's next
+        draw (at most 100 draws; then it raises).  Returns
+        (data (periods, k_obs) numpy float64, draw dict).
+        """
+        device = generator.device
+        mf = self.model.functions
+        free_names = [p.name for p in mf.free_params]
+        solve_batch = self._build_policy_batch()
+        max_draws = 100
+        for _ in range(max_draws):
+            draw = {p.name: float(p.prior.sample(generator, ()))
+                    for p in self.estimated}
+            if params:
+                unknown = set(params) - set(draw)
+                if unknown:
+                    raise ValueError(
+                        f"params not estimated here: {sorted(unknown)}")
+                draw.update({k_: float(v) for k_, v in params.items()})
+            theta_free = self._theta_default.copy()
+            for p in self.estimated:
+                if p.kind == "model":
+                    theta_free[free_names.index(p.name)] = draw[p.name]
+            with highest_precision():
+                theta = torch.as_tensor(theta_free, device=device)[None]
+                ss = self.model.ss_solver(theta)
+                lin = self.model.linearizer(self.loglin_variables)(
+                    ss.x_ss, ss.theta_full)
+                T, R, ok = solve_batch({"A": lin.A, "B": lin.B, "C": lin.C,
+                                        "D": lin.D})
+            if bool(ss.success[0]) and bool(ok[0]) \
+                    and float(spectral_radius(T)[0]) < 1.0 - 1e-9:
+                break
+        else:
+            raise RuntimeError(f"data_from_prior: no prior draw of {max_draws} "
+                               "has a stable first-order solution")
+        with highest_precision():
+            T, R = T[0], R[0]
+            sigmas = torch.tensor(
+                [float(ss.theta_full[0, val]) if kind == "param" else val
+                 for kind, val in self._sigma_source],
+                dtype=T.dtype, device=device)
+            eps = torch.randn((periods, mf.n_shocks), generator=generator,
+                              device=device, dtype=T.dtype) * sigmas
+            Z, d = self._build_design(ss.x_ss[0], np.arange(mf.n_variables))
+            x = T.new_zeros(mf.n_variables)
+            path = []
+            for t in range(periods):
+                x = T @ x + R @ eps[t]
+                path.append(x)
+            data = torch.stack(path) @ Z.T + d
+            for j, v in self._me_fixed.items():
+                data[:, j] += v * torch.randn(periods, generator=generator,
+                                              device=device, dtype=T.dtype)
+            for j, p in self._me_estimated:
+                data[:, j] += draw[p.name] * torch.randn(
+                    periods, generator=generator, device=device, dtype=T.dtype)
+        return data.cpu().numpy(), draw

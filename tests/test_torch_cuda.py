@@ -1,0 +1,103 @@
+"""The CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
+skips elsewhere; the decision is taken inside a fixture, never at import.
+On the GPU: ``python -m pytest tests/test_torch_cuda.py -q``.  The inputs
+are SW-2007's own kernel inputs from the sweep at a small batch; float64
+outputs agree at rel 1e-9 (min |pivot| aside: near-tied pivots may take
+another row at rounding level) and each wrapper counts its launches.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import geconpy_torch
+from geconpy_torch.ops.batched_cycle_reduction import (
+    _cr_policy_plain, cr_policy_raw, cycle_reduction_policy)
+from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
+from geconpy_torch.ops.batched_settle import LYAP_ITERS, _settle_plain, settle_parts
+from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
+
+pytestmark = pytest.mark.gpu
+
+SW_EST = ["crhoa", "sigma_ea", "crr", "crpi", "chabb", "crhob", "sigma_eb"]
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc) to build and run the kernels")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def kernel_inputs(device):
+    model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
+    ss = DSGEStateSpace(model).configure(
+        observed_states=["y", "c", "inve", "w", "pinf", "r", "lab"],
+        kalman_settle=32,
+        constant_params=[p for p in model.param_names if p not in SW_EST])
+    data, draw = ss.data_from_prior(torch.Generator().manual_seed(0),
+                                    periods=80)
+    u0 = ss.unconstrain(draw)
+    rng = np.random.default_rng(0)
+    U = u0[None] + 0.05 * torch.as_tensor(rng.standard_normal((64, len(u0))))
+    record: dict = {}
+    ss.build_batched_loglik(data, n_settle=32)(U.to(device), record=record)
+    return record
+
+
+def _rel(a, b):
+    both = torch.isfinite(a) & torch.isfinite(b)
+    assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    return float(((a - b).abs() / (1 + b.abs()))[both].max())
+
+
+def test_cycle_reduction_kernel_matches_plain(kernel_inputs):
+    args = kernel_inputs["cycle_reduction_policy"]
+    before = cycle_reduction_policy.launches
+    T, R, flags = cr_policy_raw(*args, CR_ITERS)
+    torch.cuda.synchronize()
+    assert cycle_reduction_policy.launches == before + 1
+    T0, R0, flags0 = _cr_policy_plain(*args, CR_ITERS)
+    assert _rel(T, T0) < 1e-9 and _rel(R, R0) < 1e-9
+    assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
+
+
+def test_settle_kernel_matches_plain(kernel_inputs):
+    args = kernel_inputs["settle_parts"]
+    before = settle_parts.launches
+    got = settle_parts(*args)
+    torch.cuda.synchronize()
+    assert settle_parts.launches == before + 1
+    for g, r in zip(got, _settle_plain(*args, LYAP_ITERS)):
+        assert _rel(g, r) < 1e-9
+
+
+def test_filter_tail_kernel_matches_plain(kernel_inputs):
+    args = kernel_inputs["filter_tail"]
+    before = filter_tail.launches
+    got = filter_tail(*args)
+    torch.cuda.synchronize()
+    assert filter_tail.launches == before + 1
+    assert _rel(got, _filter_tail_plain(*args)) < 1e-9
+
+
+def test_float32_kernels_agree_with_float64(kernel_inputs):
+    args = [x.float() for x in kernel_inputs["filter_tail"]]
+    got = filter_tail(*args).double()
+    ref = filter_tail(*kernel_inputs["filter_tail"])
+    assert _rel(got, ref) < 5e-4
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(kernel_inputs):
+    args = list(kernel_inputs["filter_tail"])
+    with pytest.raises(TypeError):
+        filter_tail(*[a.half() for a in args])
+    mixed = [args[0].float()] + args[1:]
+    with pytest.raises(TypeError):
+        filter_tail(*mixed)
+    short = args[:5] + [args[5][:-1]] + args[6:]        # Finv of one draw fewer
+    with pytest.raises(ValueError, match="shape"):
+        filter_tail(*short)
