@@ -9,20 +9,32 @@ Phases, one line each (plus one line per kernel in phase 3):
    sympy and nvcc versions;
 2. the build of the CUDA kernels from ``geconpy_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, on SW-2007's
-   own intermediates at batch 4096: float64 (max rel diff <= 1e-9, equal
-   success flags) and float32 (rel <= 5e-4 on the likelihood pieces,
-   success flags equal on >= 99% of draws), with both times;
-4. the slice: the SW-2007 batched likelihood sweep (22 estimated
-   parameters, 7 observables, steady-state filter, 32 settle steps, 200
-   periods, batch 4096, float32) through ``build_batched_loglik``; every
-   kernel's launch count over that run must be > 0, >= 99% of draws finite,
-   the first 512 within rel 5e-4 of the port's plain float64 path on the
-   CPU; then evals/s over 20 repetitions and the peak device memory.
+   own intermediates: K1-K3 from the sweep at batch 4096, K4 and K6 from
+   the value+grad path at batch 512.  Float64: max rel diff <= 1e-9 and
+   equal success flags; float32: rel <= 5e-4 on the likelihood pieces and
+   K6's P, success flags (K1, K4) and settle flags (K6) equal on >= 99% of
+   draws; with both times;
+4. the forward sweep: SW-2007 (22 estimated parameters, 7 observables,
+   steady-state filter, 32 settle steps, 200 periods, batch 4096, float32)
+   through ``build_batched_loglik``; every kernel's launch count over that
+   run must be > 0, >= 99% of draws finite, the first 512 within rel 5e-4
+   of the port's float64 path on the CPU; then evals/s over 20
+   repetitions and the peak device memory;
+5. the value+grad path: the same model with the stationary filter, batch
+   512, float32 draws (the path computes in float64, K4 and K6 included),
+   through ``build_batched_logpost_and_grad`` with
+   ``settle="xla"`` (Hewer) and ``settle="pallas"`` (K6); >= 99% of values
+   finite, every gradient finite, K4 launched (and K6 in the "pallas"
+   run), the first 64 draws within rel 5e-4 (value) and 1e-3 (gradient)
+   of the port's float64 path on the CPU, the two settles within rel 5e-4
+   of each other; then us/draw over 10 repetitions, the peak device
+   memory and a stage breakdown.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
 line is ``{"ok": true, "device": {...}}``; the line before the ``nvidia-smi``
-line is one JSON object with each kernel's launches, error and times.
+line is one JSON object with each kernel's launches, error, times and
+bound.
 """
 
 from __future__ import annotations
@@ -41,17 +53,31 @@ SW_ESTIMATED = [
     "sigma_em", "sigma_epinf", "sigma_ew", "crpi", "crr", "cry", "chabb",
     "csigma"]
 BATCH, PERIODS, N_SETTLE, N_REPS, N_CHECK = 4096, 200, 32, 20, 512
+VG_BATCH, VG_CHECK, VG_REPS = 512, 64, 10
 
+# NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
+# float32 outside them, and the HBM3 rate.  The float64 kernels use no
+# tensor cores, so the float64 tensor-core peak is the least time the card
+# could take for their work (the float64 vector peak is 34 TFLOP/s).
+PEAK_FP64_TC, PEAK_FP32, HBM_BYTES_S = 67e12, 67e12, 3.35e12
+
+# name -> (label, source, TPU kernel it replaces)
 KERNELS = {
     "cycle_reduction_policy": (
-        "geconpy_torch/csrc/cycle_reduction.cu",
+        "K1", "geconpy_torch/csrc/cycle_reduction.cu",
         "geconpy_tpu/ops/pallas_cycle_reduction.py:176"),
     "settle_parts": (
-        "geconpy_torch/csrc/settle.cu",
+        "K2", "geconpy_torch/csrc/settle.cu",
         "geconpy_tpu/ops/pallas_settle.py:40"),
     "filter_tail": (
-        "geconpy_torch/csrc/filter_tail.cu",
+        "K3", "geconpy_torch/csrc/filter_tail.cu",
         "geconpy_tpu/ops/pallas_filter.py:34"),
+    "cycle_reduction": (
+        "K4", "geconpy_torch/csrc/cycle_reduction.cu",
+        "geconpy_tpu/ops/pallas_cycle_reduction.py:145"),
+    "dare_settle": (
+        "K6", "geconpy_torch/csrc/dare.cu",
+        "geconpy_tpu/ops/pallas_dare.py:37"),
 }
 
 
@@ -90,6 +116,105 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def work(name: str, args, n_iter: int, lyap_iters: int) -> tuple[float, float, float]:
+    """(flops, bytes, peak flop/s) of one call on ``args``: the operations
+    of the kernel's fixed schedule (2 per multiply-add; a Gauss-Jordan
+    elimination of an r x w system is r * r * w), and each input read and
+    each output written once, at the call's element size."""
+    from geconpy_torch.ops.batched_dare import HEWER_ITERS, INNER_ITERS
+    from geconpy_torch.ops.batched_dare import LYAP_ITERS as DARE_LYAP
+
+    el = args[1].element_size() if name in ("settle_parts", "filter_tail") \
+        else args[0].element_size()
+    if name == "cycle_reduction_policy":
+        A, _B, _C, D = args
+        bn, n, m = A.shape[0], A.shape[-1], D.shape[-1]
+        fma = n_iter * 7 * n**3 + 2 * n**3 + n**3 + n * n * (n + m) + n**3
+        elems = bn * (3 * n * n + n * m + n * n + n * m + 3)
+        return 2.0 * fma * bn, float(elems * el), PEAK_FP64_TC
+    if name == "cycle_reduction":
+        A = args[0]
+        bn, n = A.shape[0], A.shape[-1]
+        fma = n_iter * 7 * n**3 + 2 * n**3
+        return 2.0 * fma * bn, float(bn * (4 * n * n + 2) * el), PEAK_FP64_TC
+    if name == "settle_parts":
+        y, T, _RQR, Z = args[:4]
+        bn, n, k, s = T.shape[0], T.shape[-1], Z.shape[-2], y.shape[0]
+        step = 4 * n**3 + 3 * n * n * k + 3 * n * k * k + k * k * (2 * k + 1) \
+            + n * n + 2 * n * k
+        final = 2 * n**3 + 3 * n * n * k + 2 * n * k * k + 2 * k**3 + n * n
+        fma = lyap_iters * 3 * n**3 + s * step + final
+        elems = s * k + bn * (2 * n * n + k * n + k * k + k) \
+            + bn * (2 + n + n * n + n * k + k * k)
+        return 2.0 * fma * bn, float(elems * el), PEAK_FP64_TC
+    if name == "filter_tail":
+        y, M, _TK, Z = args[:4]
+        bn, n, k, s = M.shape[0], M.shape[-1], Z.shape[-2], y.shape[0]
+        fma = s * (n * n + 2 * n * k + k * k + k)
+        elems = s * k + bn * (n * n + 2 * n * k + k + k * k + 1 + n) + bn
+        return 2.0 * fma * bn, float(elems * el), PEAK_FP32
+    if name == "dare_settle":
+        T, _RQR, Z, _H = args
+        bn, n, k = T.shape[0], T.shape[-1], Z.shape[-2]
+        fma = (DARE_LYAP + HEWER_ITERS * INNER_ITERS) * 3 * n**3 \
+            + HEWER_ITERS * (4 * n * n * k + 3 * n * k * k + 2 * k**3)
+        elems = bn * (2 * n * n + k * n + k * k + n * n)
+        return 2.0 * fma * bn, float(elems * el), PEAK_FP64_TC
+    raise KeyError(name)
+
+
+def bound(name, args, n_iter, lyap_iters) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for one call on ``args``."""
+    flops, nbytes, peak = work(name, args, n_iter, lyap_iters)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
+                     threads: dict) -> str:
+    """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
+    the resident blocks per SM that they and the shared memory at the path's
+    shapes allow (H100: 64K registers, 2048 threads and 228 KB of shared
+    memory per SM, 1 KB of it reserved per block)."""
+    import re
+
+    import torch
+
+    regs, spills, current = {}, {}, None
+    for line in (build_dir / "nvcc.log").read_text().splitlines():
+        found = re.search(r"entry function '_ZN3gcp(\d+)(\w+)", line)
+        if found:
+            size, rest = int(found.group(1)), found.group(2)
+            name, args = rest[:size], rest[size:]
+            io = "f64" if args.startswith("Id") else "f32"
+            sel = {"Lb1E": "+sel", "Lb0E": ""}
+            tag = next((v for k_, v in sel.items() if k_ in args), "")
+            current = f"{name}{tag}<{io}>"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and current:
+            regs[current] = int(used.group(1))
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and current:
+            spills[current] = int(spill.group(1))
+    props = torch.cuda.get_device_properties(0)
+    sm_smem = int(getattr(props, "shared_memory_per_multiprocessor", 233472))
+    smem = {"cr_kernel+sel": lib.gcp_cr_policy_smem_bytes(n, m),
+            "cr_kernel": lib.gcp_cr_smem_bytes(n),
+            "settle_kernel": lib.gcp_settle_smem_bytes(n, k),
+            "filter_tail_kernel": lib.gcp_filter_tail_smem_bytes(n, k, 4),
+            "dare_kernel": lib.gcp_dare_smem_bytes(n, k)}
+    parts = []
+    for key in sorted(regs):
+        base = key.split("<")[0]
+        nthreads = threads[base]
+        blocks = min(2048 // nthreads, 65536 // (regs[key] * nthreads),
+                     sm_smem // (smem[base] + 1024))
+        parts.append(f"{key} {regs[key]} regs, {spills.get(key, 0)} B spilled, "
+                     f"{smem[base]} B smem x {nthreads} threads -> {blocks} "
+                     f"blocks/SM")
+    return "; ".join(parts)
+
+
 def main() -> int:
     import torch
 
@@ -103,16 +228,24 @@ def main() -> int:
     import geconpy_torch
     from geconpy_torch.ops import _cuda
     from geconpy_torch.ops.batched_cycle_reduction import (
-        _cr_policy_plain, cr_policy_raw, cycle_reduction_policy)
+        _cr_plain, _cr_policy_plain, cr_policy_raw, cr_raw, cycle_reduction,
+        cycle_reduction_policy)
+    from geconpy_torch.ops.batched_dare import _dare_plain, dare_settle
     from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
     from geconpy_torch.ops.batched_settle import (LYAP_ITERS, _settle_plain,
                                                   settle_parts)
+    from geconpy_torch.ops.kalman import (_hewer_settle,
+                                          dare_residual_settled,
+                                          stationary_loglik_from_P)
     from geconpy_torch.ops.tolerances import success_tol
     from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    counted = {"cycle_reduction_policy": cycle_reduction_policy,
+               "settle_parts": settle_parts, "filter_tail": filter_tail,
+               "cycle_reduction": cycle_reduction, "dare_settle": dare_settle}
 
     # ---- phase 1: the card and the software
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
@@ -129,20 +262,43 @@ def main() -> int:
           f"({'cached' if cached else 'nvcc'}; {_cuda._build_dir()})",
           flush=True)
 
-    # ---- the SW-2007 configuration of the sweep
+    # ---- the SW-2007 configurations: the sweep and the value+grad path
     model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
     constant = [p for p in model.param_names if p not in SW_ESTIMATED]
-    ss = DSGEStateSpace(model).configure(
+    ss = DSGEStateSpace(model, device="cuda").configure(
+        observed_states=SW_OBS, constant_params=constant,
+        filter_type="steady_state", kalman_settle=N_SETTLE)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(
         observed_states=SW_OBS, constant_params=constant,
         filter_type="steady_state", kalman_settle=N_SETTLE)
     data, draw = ss.data_from_prior(
         torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
-    u0 = ss.unconstrain(draw).to(dev, torch.float32)
+    u0 = ss.unconstrain(draw).to(torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(1)
     batch = u0[None, :] + 0.05 * torch.randn(
         (BATCH, u0.shape[0]), generator=gen, device=dev, dtype=torch.float32)
     data32 = data.astype("float32")
     sweep = ss.build_batched_loglik(data32, n_settle=N_SETTLE)
+
+    vg_kw = dict(observed_states=SW_OBS, constant_params=constant,
+                 filter_type="stationary", kalman_settle=N_SETTLE)
+    ss_vg = DSGEStateSpace(model, device="cuda").configure(**vg_kw)
+    ss_vg_cpu = DSGEStateSpace(model, device="cpu").configure(**vg_kw)
+    vg_data, vg_draw = ss_vg.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+    vg_u0 = ss_vg.unconstrain(vg_draw).to(torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vg_batch = vg_u0[None, :] + 0.05 * torch.randn(
+        (VG_BATCH, vg_u0.shape[0]), generator=gen, device=dev,
+        dtype=torch.float32)
+    vag = {s: ss_vg.build_batched_logpost_and_grad(vg_data, settle=s)
+           for s in ("xla", "pallas")}
+    n_core = len(ss._filter_core)
+    print("phase 2 resources at the path's shapes: " + kernel_resources(
+        _cuda.library(), _cuda._build_dir(), n_core, model.functions.n_shocks,
+        len(SW_OBS), threads={"cr_kernel+sel": 256, "cr_kernel": 256,
+                              "settle_kernel": 256, "filter_tail_kernel": 64,
+                              "dare_kernel": 256}), flush=True)
 
     # ---- phase 3: each kernel against its plain version, same inputs
     report = {}
@@ -150,23 +306,39 @@ def main() -> int:
         "cycle_reduction_policy": lambda *a: _cr_policy_plain(*a, CR_ITERS),
         "settle_parts": lambda *a: _settle_plain(*a, LYAP_ITERS),
         "filter_tail": _filter_tail_plain,
+        "cycle_reduction": lambda *a: _cr_plain(*a, CR_ITERS),
+        "dare_settle": _dare_plain,
     }
     kernel = {
         "cycle_reduction_policy": lambda *a: cr_policy_raw(*a, CR_ITERS),
         "settle_parts": settle_parts,
         "filter_tail": filter_tail,
+        "cycle_reduction": lambda *a: cr_raw(*a, CR_ITERS),
+        "dare_settle": dare_settle,
     }
-
-    def cr_success(flags, dtype):
-        tol = 200 * float(torch.finfo(dtype).eps)
-        return (torch.isfinite(flags[:, 1]) & (flags[:, 1] < tol)
-                & (flags[:, 0] > 1e-7) & torch.isfinite(flags[:, 2])
-                & (flags[:, 2] < success_tol(dtype, 1e-6)))
-
     outputs = {"cycle_reduction_policy": ("T", "R", "flags"),
                "settle_parts": ("ll_head", "x_pred0", "M", "TK", "Finv",
                                 "const"),
-               "filter_tail": ("ll_tail",)}
+               "filter_tail": ("ll_tail",),
+               "cycle_reduction": ("T", "flags"),
+               "dare_settle": ("P",)}
+
+    def cr_success(flags, dtype):
+        tol = 200 * float(torch.finfo(dtype).eps)
+        ok = (torch.isfinite(flags[:, 1]) & (flags[:, 1] < tol)
+              & (flags[:, 0] > 1e-7))
+        if flags.shape[1] == 3:
+            ok = ok & torch.isfinite(flags[:, 2]) \
+                & (flags[:, 2] < success_tol(dtype, 1e-6))
+        return ok
+
+    # the value+grad path runs K4 and K6 in float64 whatever U's dtype (see
+    # build_batched_logpost); their float32 I/O is checked on its inputs
+    # rounded to float32
+    vg_rec: dict = {}
+    vag["pallas"](vg_batch, record=vg_rec)
+    working = {name: torch.float32 for name in KERNELS}
+    working.update(cycle_reduction=torch.float64, dare_settle=torch.float64)
     failures = []
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
@@ -175,13 +347,16 @@ def main() -> int:
         sweep(batch.to(dtype), record=rec)
         torch.cuda.synchronize()
         for name in KERNELS:
-            args = rec[name]
+            sweep_kernel = name in ("cycle_reduction_policy", "settle_parts",
+                                    "filter_tail")
+            args = rec[name] if sweep_kernel else tuple(
+                X.to(dtype) for X in vg_rec[name])
             got = kernel[name](*args)
             ref = plain[name](*args)
             torch.cuda.synchronize()
             got = dict(zip(outputs[name], got if isinstance(got, tuple) else (got,)))
             ref = dict(zip(outputs[name], ref if isinstance(ref, tuple) else (ref,)))
-            if name == "cycle_reduction_policy":
+            if "flags" in got:
                 ok_k = cr_success(got["flags"], dtype)
                 ok_p = cr_success(ref["flags"], dtype)
                 agree = int((ok_k == ok_p).sum()) / ok_k.numel()
@@ -189,10 +364,17 @@ def main() -> int:
                 both = ok_k & ok_p
                 for d in (got, ref):
                     flags = d.pop("flags")
-                    d.update(minpiv=flags[:, 0], tail=flags[:, 1],
-                             resid=flags[:, 2])
+                    d.update(minpiv=flags[:, 0], tail=flags[:, 1])
+                    if flags.shape[1] == 3:
+                        d["resid"] = flags[:, 2]
                     for key in d:
                         d[key] = d[key][both]
+            elif name == "dare_settle":
+                set_k = dare_residual_settled(*args, got["P"])
+                set_p = dare_residual_settled(*args, ref["P"])
+                agree = int((set_k == set_p).sum()) / set_k.numel()
+                detail = (f"settled flags agree on {agree:.4f} of draws "
+                          f"({int(set_k.sum())}/{set_k.numel()} settled)")
             else:
                 # the draws the sweep accepts (the rest become -inf)
                 acc = rec["accepted"]
@@ -206,50 +388,58 @@ def main() -> int:
                 detail = (f"{int(acc.sum())} accepted draws, entries finite in "
                           f"one only: {sum(differ.values())} {differ}")
             errs = {k_: compare(got[k_], ref[k_])[0] for k_ in got}
+            # min|pivot| aside (below), as for the relative check
             abs_err = max(float((got[k_] - ref[k_])[
                 torch.isfinite(got[k_]) & torch.isfinite(ref[k_])].abs().max())
-                for k_ in got)
+                for k_ in got if k_ != "minpiv")
             # float64: every output but min|pivot| (near-tied pivots may
             # take another row at rounding level; T and R are checked);
-            # float32: the success flags (K1) and the likelihood (K2, K3)
+            # float32: the success flags (K1, K4), the likelihood (K2, K3)
+            # and P (K6)
             if f64:
                 checked = {k_: v for k_, v in errs.items() if k_ != "minpiv"}
             else:
-                checked = {k_: v for k_, v in errs.items() if k_.startswith("ll")}
-            bound = 1e-9 if f64 else 5e-4
+                checked = {k_: v for k_, v in errs.items()
+                           if k_.startswith("ll") or k_ == "P"}
+            tol = 1e-9 if f64 else 5e-4
             if agree < (1.0 if f64 else 0.99):
                 failures.append(f"{name} {tag}: {detail}")
-            if checked and max(checked.values()) > bound:
-                failures.append(f"{name} {tag}: rel diff {checked} > {bound}")
+            if checked and max(checked.values()) > tol:
+                failures.append(f"{name} {tag}: rel diff {checked} > {tol}")
             entry = report.setdefault(name, {})
             entry[f"abs_{tag}"] = abs_err
             ms = cuda_time_ms(lambda: kernel[name](*args), 10)
             plain_ms = cuda_time_ms(lambda: plain[name](*args), 3)
-            if not f64:   # the sweep's working dtype goes into the JSON line
+            bn = args[1].shape[0] if name in ("settle_parts", "filter_tail") \
+                else args[0].shape[0]
+            if dtype == working[name]:   # the path's dtype goes into the JSON
                 entry["ms"], entry["plain_ms"] = ms, plain_ms
+                entry["bound_ms"], entry["bound_by"] = bound(
+                    name, args, CR_ITERS, LYAP_ITERS)
+            label = KERNELS[name][0]
             rels = ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
-            print(f"phase 3 {name} {tag}: max rel [{rels}], max abs "
+            print(f"phase 3 {label} {name} {tag}: max rel [{rels}], max abs "
                   f"{abs_err:.3e}, {detail}; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms at batch {BATCH} [{card}]", flush=True)
+                  f"{plain_ms:.3f} ms at batch {bn} [{card}]", flush=True)
     if failures:
         raise AssertionError("kernel vs plain: " + "; ".join(failures))
 
-    # ---- phase 4: the slice, through the user's entry point
-    for fn in (cycle_reduction_policy, settle_parts, filter_tail):
+    # ---- phase 4: the forward sweep, through the user's entry point
+    for fn in counted.values():
         fn.launches = 0
     out = sweep(batch)
     torch.cuda.synchronize()
-    launches = {"cycle_reduction_policy": cycle_reduction_policy.launches,
-                "settle_parts": settle_parts.launches,
-                "filter_tail": filter_tail.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path did not launch: {launches}")
+    launches = {name: counted[name].launches for name in counted}
+    path = ("cycle_reduction_policy", "settle_parts", "filter_tail")
+    if min(launches[k_] for k_ in path) < 1:
+        raise AssertionError(f"a kernel of the sweep did not launch: {launches}")
     if out.shape != (BATCH,) or out.dtype != torch.float32:
         raise AssertionError(f"sweep output {tuple(out.shape)} {out.dtype}")
     frac = float(torch.isfinite(out).float().mean())
     if frac < 0.99:
         raise AssertionError(f"only {frac:.4f} of draws finite")
-    ref = sweep(batch[:N_CHECK].double().cpu())
+    sweep_cpu = ss_cpu.build_batched_loglik(data32, n_settle=N_SETTLE)
+    ref = sweep_cpu(batch[:N_CHECK].double().cpu())
     got = out[:N_CHECK].double().cpu()
     both = torch.isfinite(ref) & torch.isfinite(got)
     if float(both.double().mean()) < 0.99:
@@ -266,22 +456,217 @@ def main() -> int:
     elapsed = time.perf_counter() - start
     peak = torch.cuda.max_memory_allocated(dev)
     evals = N_REPS * BATCH / elapsed
-    print(f"phase 4 sweep: launches {launches}; finite {frac:.4f}; rel vs "
-          f"float64 plain path {rel:.3e} on {int(both.sum())}/{N_CHECK}; "
-          f"{evals:.1f} evals/s ({N_REPS} reps of batch {BATCH}, "
-          f"{elapsed:.3f} s); peak device memory {peak} B [{card}]",
-          flush=True)
+    print(f"phase 4 sweep: launches { {k_: launches[k_] for k_ in path} }; "
+          f"finite {frac:.4f}; rel vs float64 plain path {rel:.3e} on "
+          f"{int(both.sum())}/{N_CHECK}; {evals:.1f} evals/s ({N_REPS} reps "
+          f"of batch {BATCH}, {elapsed:.3f} s); peak device memory {peak} B "
+          f"[{card}]", flush=True)
+    path_launches = {k_: launches[k_] for k_ in path}
 
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                "launches": launches[name],
-                "max_abs_err": report[name]["abs_f64"],
-                "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
-               for name, (src, tpu) in KERNELS.items()]
+    # ---- phase 5: the value+grad path, through the user's entry point
+    results = {}
+    for settle in ("xla", "pallas"):
+        for fn in counted.values():
+            fn.launches = 0
+        vals, grads = vag[settle](vg_batch)
+        torch.cuda.synchronize()
+        launches = {name: counted[name].launches for name in counted}
+        if launches["cycle_reduction"] < 1 or (
+                settle == "pallas" and launches["dare_settle"] < 1):
+            raise AssertionError(
+                f"value+grad ({settle}): a kernel of the path did not launch: "
+                f"{launches}")
+        path_launches["cycle_reduction" if settle == "xla" else
+                      "dare_settle"] = launches[
+            "cycle_reduction" if settle == "xla" else "dare_settle"]
+        if vals.shape != (VG_BATCH,) or grads.shape != vg_batch.shape \
+                or vals.dtype != torch.float32:
+            raise AssertionError(f"value+grad ({settle}) output "
+                                 f"{tuple(vals.shape)} {tuple(grads.shape)} "
+                                 f"{vals.dtype}")
+        frac = float(torch.isfinite(vals).float().mean())
+        if frac < 0.99 or not bool(torch.isfinite(grads).all()):
+            raise AssertionError(f"value+grad ({settle}): {frac:.4f} of values "
+                                 f"finite, gradients finite: "
+                                 f"{bool(torch.isfinite(grads).all())}")
+        vag_cpu = ss_vg_cpu.build_batched_logpost_and_grad(vg_data, settle=settle)
+        t0 = time.perf_counter()
+        v_ref, g_ref = vag_cpu(vg_batch[:VG_CHECK].double().cpu())
+        cpu_s = time.perf_counter() - t0
+        v_got = vals[:VG_CHECK].double().cpu()
+        g_got = grads[:VG_CHECK].double().cpu()
+        both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+        if float(both.double().mean()) < 0.99:
+            raise AssertionError(f"value+grad ({settle}): finiteness mismatch "
+                                 f"({float(both.double().mean()):.3f})")
+        rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
+        rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                       / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+        if rel_v > 5e-4 or rel_g > 1e-3:
+            raise AssertionError(
+                f"value+grad ({settle}) off the float64 path: value rel "
+                f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(VG_REPS):
+            vals_r, _grads_r = vag[settle](vg_batch)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated(dev)
+        us = elapsed / (VG_REPS * VG_BATCH) * 1e6
+        results[settle] = vals
+        print(f"phase 5 value+grad settle={settle}: launches "
+              f"{ {k_: v for k_, v in launches.items() if v} }; finite "
+              f"{frac:.4f} ({VG_BATCH - int(torch.isfinite(vals).sum())} "
+              f"rejected); vs float64 CPU path on {int(both.sum())}/"
+              f"{VG_CHECK}: value rel {rel_v:.3e}, gradient rel {rel_g:.3e} "
+              f"(CPU {cpu_s:.1f} s); {us:.2f} us/draw ({VG_REPS} reps of "
+              f"batch {VG_BATCH}, {elapsed:.3f} s); peak device memory "
+              f"{peak} B [{card}]", flush=True)
+    vx, vp = results["xla"].double(), results["pallas"].double()
+    both = torch.isfinite(vx) & torch.isfinite(vp)
+    rel = float(((vp - vx).abs() / (1.0 + vx.abs()))[both].max())
+    if rel > 5e-4:
+        raise AssertionError(f"settle='pallas' off settle='xla' by rel {rel:.3e}")
+    # the two settles' float64 values, before the rounding to float32
+    v64 = {s: vag[s](vg_batch.double())[0] for s in ("xla", "pallas")}
+    both64 = torch.isfinite(v64["xla"]) & torch.isfinite(v64["pallas"])
+    rel64 = float(((v64["pallas"] - v64["xla"]).abs()
+                   / (1.0 + v64["xla"].abs()))[both64].max())
+    print(f"phase 5 pallas vs xla settle: value rel {rel:.3e} (float64 "
+          f"draws: {rel64:.3e}) on {int(both.sum())}/{VG_BATCH} draws both "
+          f"accept; rejected: xla {int((~torch.isfinite(vx)).sum())}, pallas "
+          f"{int((~torch.isfinite(vp)).sum())}", flush=True)
+    stage_breakdown(ss_vg, vg_data, vg_batch, card, _hewer_settle,
+                    dare_residual_settled, dare_settle,
+                    stationary_loglik_from_P, CR_ITERS)
+    float32_io_effect(ss_vg, vg_data, vg_batch, card, dare_residual_settled,
+                      dare_settle, stationary_loglik_from_P, CR_ITERS)
+
+    kernels = []
+    for name, (_label, src, tpu) in KERNELS.items():
+        entry = report[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": path_launches[name], "max_abs_err": entry["abs_f64"],
+            "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
+                    dare_settle, loglik_from_P, cr_iters, reps: int = 5):
+    """Host-clock time of each stage of one value+grad call (a synchronize
+    after each; mean of ``reps`` runs after one warm-up), and the device's
+    kernel time and launch count over one call from ``torch.profiler``."""
+    import torch
+
+    pre_policy, post_policy = ss._solution_pieces()
+    solve_batch = ss._build_policy_batch_diff(cr_iters)
+    y, _loglik = ss._data_and_loglik(data)
+    names = ("pre-policy", "K4 + finalize", "post-policy", "Hewer settle",
+             "K6 + gate", "forward scan", "backward")
+    sums = dict.fromkeys(names, 0.0)
+
+    def step(stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if timing:
+            sums[stage] += (time.perf_counter() - t0) * 1e3 / reps
+        return out
+
+    for r in range(reps + 1):
+        timing = r > 0
+        U = batch.detach().requires_grad_(True)
+        with torch.enable_grad():
+            pre = step("pre-policy", lambda: pre_policy(U.double()))
+            T, R, ok = step("K4 + finalize", lambda: solve_batch(pre))
+            sol = step("post-policy", lambda: post_policy(pre, T, R, ok))
+            T_aug, Z, H = sol["T_aug"], sol["Z"], sol["H"]
+            RQR = sol["R_aug"] @ sol["Q"] @ sol["R_aug"].mT
+            P, _settled = step("Hewer settle", lambda: hewer_settle(
+                *(X.detach() for X in (T_aug, RQR, Z, H)), ss.kalman_settle))
+            k_in = tuple(X.detach().contiguous() for X in (T_aug, RQR, Z, H))
+            step("K6 + gate", lambda: settled_gate(*k_in, dare_settle(*k_in)))
+            ll = step("forward scan", lambda: loglik_from_P(
+                y, T_aug, RQR, Z, H, sol["d"], P))
+            total = torch.where(torch.isfinite(ll), ll + sol["logprior"],
+                                torch.zeros_like(ll)).sum()
+            step("backward", lambda: torch.autograd.grad(total, U))
+    parts = ", ".join(f"{k_} {v:.3f} ms" for k_, v in sums.items())
+    print(f"phase 5 stages (batch {batch.shape[0]}, float32 draws, host clock, "
+          f"{reps}-run means): {parts} [{card}]", flush=True)
+
+    vag = ss.build_batched_logpost_and_grad(data)
+    vag(batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vag(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us, n_kernels = 0.0, 0
+    for ev in prof.key_averages():
+        t_us = getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0))
+        if t_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us += t_us
+            n_kernels += ev.count
+    print(f"phase 5 profile (settle=xla, one call): wall {wall:.3f} ms, "
+          f"device kernel time {dev_us / 1e3:.3f} ms, busy share "
+          f"{dev_us / 1e3 / wall:.3f}, {n_kernels} kernel launches [{card}]",
+          flush=True)
+
+
+def float32_io_effect(ss, data, batch, card, settled_gate, dare_settle,
+                      loglik_from_P, cr_iters):
+    """Why the value+grad path runs K4 and K6 in float64: the log-posterior
+    (settle="pallas", forward only) with one kernel's inputs and outputs in
+    float32 (its recursion stays float64), against the path's float64 one,
+    as max |a - b| / (1 + |b|) over the draws both accept."""
+    import torch
+
+    pre_policy, post_policy = ss._solution_pieces()
+    solve_batch = ss._build_policy_batch_diff(cr_iters)
+    y, _loglik = ss._data_and_loglik(data)
+    f32, f64 = torch.float32, torch.float64
+    vals = {}
+    with torch.no_grad():
+        pre = pre_policy(batch.double())
+        for k4, k6 in ((f64, f64), (f32, f64), (f64, f32)):
+            T, R, ok = solve_batch(pre, k4)
+            sol = post_policy(pre, T, R, ok)
+            T_aug = sol["T_aug"]
+            RQR = sol["R_aug"] @ sol["Q"] @ sol["R_aug"].mT
+            d_in = tuple(X.to(k6).contiguous()
+                         for X in (T_aug, RQR, sol["Z"], sol["H"]))
+            P = dare_settle(*d_in)
+            ok = ok & sol["ss_success"] & sol["stable"] & settled_gate(*d_in, P)
+            ll = loglik_from_P(y, T_aug, RQR, sol["Z"], sol["H"], sol["d"],
+                               P.double())
+            vals[(k4, k6)] = torch.where(ok & torch.isfinite(ll),
+                                         ll + sol["logprior"],
+                                         torch.full_like(ll, -torch.inf))
+    ref = vals[(f64, f64)]
+    parts = []
+    for key, label in (((f32, f64), "K4"), ((f64, f32), "K6")):
+        both = torch.isfinite(vals[key]) & torch.isfinite(ref)
+        rel = ((vals[key] - ref).abs() / (1.0 + ref.abs()))[both]
+        parts.append(f"{label} in float32: value rel {float(rel.max()):.3e} "
+                     f"(draw {int(rel.argmax())}), {int((~both).sum())} "
+                     f"rejected")
+    print(f"phase 5 kernel I/O in float32 (not the path's): "
+          f"{'; '.join(parts)} [{card}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,18 +2,35 @@
 Hopper GPUs.
 
 The JAX package stays the reference; this package mirrors its module names
-and is held against it in ``tests/test_torch_*.py``.  Its first slice is the
-batched forward likelihood sweep (``DSGEStateSpace.build_batched_loglik``)
-with hand-written CUDA kernels for cycle reduction, the Riccati settle and
-the constant-gain filter tail.  The sympy front-end is the reference's own,
-loaded without JAX by :mod:`geconpy_torch._frontend`.  This package imports
-``torch`` and never ``jax``.
+and is held against it in ``tests/test_torch_*.py``.  It carries its own
+copy of the sympy front-end (``lang/``, ``symbolic/``, the model primitives
+and ``dists/from_ast.py``) and of the bundled example models (``data/``),
+and imports ``torch``, never ``jax`` nor anything of ``geconpy_tpu``.
+
+Ported so far: the batched forward likelihood sweep
+(``DSGEStateSpace.build_batched_loglik``) and the batched value+gradient
+(``build_batched_logpost_and_grad``), with hand-written CUDA kernels for
+cycle reduction, the Riccati settle, the filter tail and the DARE settle.
+A ``DSGEStateSpace`` runs on the GPU unless it is built with
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from ._frontend import get_example_gcn
+import pathlib as _pathlib
+
 from .models.model import Model, model_from_gcn
 from .stats.statespace import DSGEStateSpace
 
 __all__ = ["DSGEStateSpace", "Model", "get_example_gcn", "model_from_gcn"]
+
+
+def get_example_gcn(name: str = "rbc") -> str:
+    """Return the source of a bundled example model (``geconpy_torch/data``;
+    mirrors ``geconpy_tpu/__init__.py:59``)."""
+    data_dir = _pathlib.Path(__file__).parent / "data"
+    path = data_dir / f"{name}.gcn"
+    if not path.exists():
+        available = sorted(p.stem for p in data_dir.glob("*.gcn"))
+        raise FileNotFoundError(f"no example model {name!r}; available: {available}")
+    return path.read_text()

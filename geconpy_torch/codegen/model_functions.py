@@ -2,8 +2,8 @@
 
 Mirrors ``geconpy_tpu/codegen/model_functions.py:115``
 (``build_model_functions``, ``ModelFunctions``): the single seam between the
-symbolic world (sympy primitives, loaded through
-:mod:`geconpy_torch._frontend`) and the numeric world.  The functions and
+symbolic world (sympy primitives, from the port's copy of the
+front-end) and the numeric world.  The functions and
 their static index metadata are the same as the JAX bundle's; every function
 takes a leading batch dimension (see :mod:`geconpy_torch.codegen.lower`).
 """
@@ -15,7 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import sympy as sp
 
-from .._frontend import frontend
+from ..models.timing import natural_sort_key
+from ..symbolic import TimeAwareSymbol
 from ..ops.bijectors import VectorBijector, make_bijector
 from .lower import CompiledFunction, lower_to_torch
 
@@ -90,10 +91,6 @@ class ModelFunctions:
 
 def build_model_functions(primitives) -> ModelFunctions:
     """Lower ``ModelPrimitives`` to the per-model torch function bundle."""
-    fe = frontend()
-    natural_sort_key = fe.timing.natural_sort_key
-    TimeAwareSymbol = fe.symbolic.TimeAwareSymbol
-
     variables = list(primitives.variables)
     shocks = list(primitives.shocks)
     n = len(variables)

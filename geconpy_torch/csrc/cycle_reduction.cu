@@ -1,12 +1,16 @@
-// Batched cycle-reduction policy solve: one thread block per draw.
+// Batched cycle reduction: one thread block per draw.
 //
-// Replaces the TPU kernel _cr_sel_kernel (geconpy_tpu/ops/
-// pallas_cycle_reduction.py:176, reached through
-// pallas_cycle_reduction_policy).  For each draw: n_iter cycle-reduction
-// doublings, each a partially pivoted Gauss-Jordan solve of A1 against
-// [A0 | A2] and four n x n products; the solvent T = -Ahat^{-1} A0; the
-// selection R = -(B + C T)^{-1} D; and the flags
-// [min |pivot|, max|A0_final| + max|A2_final|, max|A + B T + C T^2|].
+// One kernel body for two TPU kernels of geconpy_tpu/ops/
+// pallas_cycle_reduction.py, switched at compile time by kSelect:
+//   kSelect = true  replaces _cr_sel_kernel (:176, reached through
+//                   pallas_cycle_reduction_policy; the forward sweep, K1);
+//   kSelect = false replaces _cr_kernel (:145, reached through
+//                   pallas_cycle_reduction; the value+grad path, K4).
+// For each draw: n_iter cycle-reduction doublings, each a partially
+// pivoted Gauss-Jordan solve of A1 against [A0 | A2] and four n x n
+// products; the solvent T = -Ahat^{-1} A0; flags [min |pivot|,
+// max|A0_final| + max|A2_final|].  With kSelect also the selection
+// R = -(B + C T)^{-1} D and a third flag max|A + B T + C T^2|.
 //
 // Precision: the kernel reads and writes the caller's dtype but runs the
 // recursion in float64.  With float32 arithmetic the SW-2007 sweep's
@@ -41,14 +45,11 @@ __host__ __device__ inline size_t cr_smem_elems(int n, int m) {
   return (size_t)6 * n * n + (size_t)n * W + n + W + 48;
 }
 
-template <typename S>
-__global__ void cr_policy_kernel(const S* __restrict__ gA,
-                                 const S* __restrict__ gB,
-                                 const S* __restrict__ gC,
-                                 const S* __restrict__ gD,
-                                 S* __restrict__ gT, S* __restrict__ gR,
-                                 S* __restrict__ gflags, int n, int m,
-                                 int n_iter) {
+template <typename S, bool kSelect>
+__global__ void cr_kernel(const S* __restrict__ gA, const S* __restrict__ gB,
+                          const S* __restrict__ gC, const S* __restrict__ gD,
+                          S* __restrict__ gT, S* __restrict__ gR,
+                          S* __restrict__ gflags, int n, int m, int n_iter) {
   using Acc = double;  // the recursion runs in float64 for either I/O type
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Acc* sm = reinterpret_cast<Acc*>(smem_raw);
@@ -75,7 +76,7 @@ __global__ void cr_policy_kernel(const S* __restrict__ gA,
   const S* A = gA + b * nn;
   const S* B = gB + b * nn;
   const S* C = gC + b * nn;
-  const S* D = gD + b * (size_t)n * m;
+  const S* D = kSelect ? gD + b * (size_t)n * m : nullptr;
 
   for (int e = tid; e < nn; e += blockDim.x) {
     A0[e] = A[e];
@@ -133,7 +134,7 @@ __global__ void cr_policy_kernel(const S* __restrict__ gA,
   }
   const Acc tail = block_max(m0, red) + block_max(m2, red);
 
-  // T = Ahat^{-1} (-A)   (aug n x 2n)
+  // T = Ahat^{-1} (-A)   (aug n x 2n); T -> N0 (shared) and device memory
   {
     const int w = 2 * n;
     for (int e = tid; e < n * w; e += blockDim.x) {
@@ -144,15 +145,21 @@ __global__ void cr_policy_kernel(const S* __restrict__ gA,
     __syncthreads();
     gj_solve(aug, n, w, gj, &scal[1], &scal[2]);
     if (tid == 0) scal[3] = nan_min(scal[3], scal[1]);
-    // T -> N0 (shared) and to device memory; C -> N2
     for (int e = tid; e < nn; e += blockDim.x) {
       const int i = e / n, j = e - i * n;
       const Acc t = aug[i * w + n + j];
       N0[e] = t;
       gT[b * nn + e] = t;
-      N2[e] = C[e];
+      if (kSelect) N2[e] = C[e];
     }
     __syncthreads();
+  }
+  if constexpr (!kSelect) {
+    if (tid == 0) {
+      gflags[b * 2 + 0] = scal[3];
+      gflags[b * 2 + 1] = tail;
+    }
+    return;
   }
   Acc* Tm = N0;
   // M = B + C T -> A1;  aug = [M | -D]  (n x (n + m))
@@ -188,16 +195,16 @@ __global__ void cr_policy_kernel(const S* __restrict__ gA,
   }
 }
 
-template <typename S>
-int launch_cr_policy(const void* A, const void* B, const void* C,
-                     const void* D, void* T, void* R, void* flags, int batch,
-                     int n, int m, int n_iter, cudaStream_t stream) {
+template <typename S, bool kSelect>
+int launch_cr(const void* A, const void* B, const void* C, const void* D,
+              void* T, void* R, void* flags, int batch, int n, int m,
+              int n_iter, cudaStream_t stream) {
   const size_t bytes = cr_smem_elems(n, m) * sizeof(double);
   cudaError_t err = cudaFuncSetAttribute(
-      cr_policy_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cr_kernel<S, kSelect>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  cr_policy_kernel<S><<<batch, 256, bytes, stream>>>(
+  cr_kernel<S, kSelect><<<batch, 256, bytes, stream>>>(
       static_cast<const S*>(A), static_cast<const S*>(B),
       static_cast<const S*>(C), static_cast<const S*>(D), static_cast<S*>(T),
       static_cast<S*>(R), static_cast<S*>(flags), n, m, n_iter);
@@ -214,15 +221,30 @@ int gcp_cr_policy(int dtype, const void* A, const void* B, const void* C,
                   int n, int m, int n_iter, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return gcp::launch_cr_policy<float>(A, B, C, D, T, R, flags, batch, n, m,
-                                        n_iter, s);
-  return gcp::launch_cr_policy<double>(A, B, C, D, T, R, flags, batch, n, m,
+    return gcp::launch_cr<float, true>(A, B, C, D, T, R, flags, batch, n, m,
                                        n_iter, s);
+  return gcp::launch_cr<double, true>(A, B, C, D, T, R, flags, batch, n, m,
+                                      n_iter, s);
+}
+
+// K4: T and flags [min|pivot|, tail] only (no D, no R).
+int gcp_cr(int dtype, const void* A, const void* B, const void* C, void* T,
+           void* flags, int batch, int n, int n_iter, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gcp::launch_cr<float, false>(A, B, C, nullptr, T, nullptr, flags,
+                                        batch, n, 0, n_iter, s);
+  return gcp::launch_cr<double, false>(A, B, C, nullptr, T, nullptr, flags,
+                                       batch, n, 0, n_iter, s);
 }
 
 // shared memory per block; the recursion is float64 for either I/O type
 size_t gcp_cr_policy_smem_bytes(int n, int m) {
   return gcp::cr_smem_elems(n, m) * sizeof(double);
+}
+
+size_t gcp_cr_smem_bytes(int n) {
+  return gcp::cr_smem_elems(n, 0) * sizeof(double);
 }
 
 }  // extern "C"

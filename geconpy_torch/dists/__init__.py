@@ -1,8 +1,8 @@
 """Torch priors (mirrors ``geconpy_tpu/dists``).
 
 ``CompositeDistribution``, ``ast_to_distribution`` and ``resolve_priors``
-are the reference's own ``dists/from_ast.py``, loaded through
-:func:`geconpy_torch._frontend.frontend` so that they build these classes.
+come from ``from_ast.py``, the port's copy of the reference's, whose
+``from .core import ...`` builds these torch classes.
 """
 
 from .core import (
@@ -22,10 +22,12 @@ from .core import (
     get_distribution_class,
     maxent,
 )
+from .from_ast import CompositeDistribution, ast_to_distribution, resolve_priors
 
 __all__ = [
-    "Beta", "DIST_REGISTRY", "Distribution", "Exponential", "Gamma",
+    "Beta", "CompositeDistribution", "DIST_REGISTRY", "Distribution", "Exponential", "Gamma",
     "HalfNormal", "InverseGamma", "LogNormal", "Normal",
     "StudentT", "Truncated", "TruncatedNormal",
-    "Uniform", "get_distribution_class", "maxent",
+    "Uniform", "ast_to_distribution", "get_distribution_class", "maxent",
+    "resolve_priors",
 ]

@@ -1,10 +1,8 @@
 """Torch probability distributions for priors and shock laws.
 
 Mirrors ``geconpy_tpu/dists/core.py``: the same families, fields, registry
-and host-side helpers (``Truncated``, ``maxent``), so the shared
-``geconpy_tpu/dists/from_ast.py`` (loaded through
-:mod:`geconpy_torch._frontend`) builds these classes from GCN prior
-statements.  Each family provides ``logpdf`` (tensor in, tensor out; -inf
+and host-side helpers (``Truncated``, ``maxent``), so the port's copy of
+``dists/from_ast.py`` builds these classes from GCN prior statements.  Each family provides ``logpdf`` (tensor in, tensor out; -inf
 outside the support), ``from_unconstrained`` with its log-Jacobian,
 ``sample(generator, shape)`` from an explicit ``torch.Generator``, host
 ``ppf``/``mean``/``std``.  Distribution parameters are host floats, so the

@@ -13,9 +13,9 @@ from functools import cached_property
 
 import torch
 
-from .._frontend import frontend
 from ..codegen.model_functions import ModelFunctions, build_model_functions
 from .perturbation import make_linearizer
+from .primitives import load_gcn, load_gcn_file
 from .steady_state import make_steady_state_solver
 
 __all__ = ["Model", "model_from_gcn"]
@@ -86,10 +86,9 @@ class Model:
 
 def model_from_gcn(source_or_path, **kwargs) -> Model:
     """Build a Model from GCN source text or a ``.gcn`` file path."""
-    primitives_mod = frontend().primitives
     text = str(source_or_path)
     if "\n" not in text and text.endswith(".gcn"):
-        primitives = primitives_mod.load_gcn_file(text, **kwargs)
+        primitives = load_gcn_file(text, **kwargs)
     else:
-        primitives = primitives_mod.load_gcn(text, **kwargs)
+        primitives = load_gcn(text, **kwargs)
     return Model(primitives)

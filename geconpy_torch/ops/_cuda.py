@@ -42,6 +42,11 @@ _SIGNATURES = {
     "gcp_cr_policy": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                       ctypes.c_int),
     "gcp_cr_policy_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_cr": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_cr_smem_bytes": ([_I], ctypes.c_size_t),
+    "gcp_dare": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                 ctypes.c_int),
+    "gcp_dare_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "gcp_settle": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_smem_bytes": ([_I, _I], ctypes.c_size_t),

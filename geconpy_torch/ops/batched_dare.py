@@ -1,0 +1,120 @@
+"""Batched DARE settle: CUDA kernel K6 and its plain twin.
+
+Mirrors ``geconpy_tpu/ops/pallas_dare.py:76`` (``pallas_dare_settle``) as
+:func:`dare_settle`: the predictive-covariance fixed point P of the
+discrete algebraic Riccati equation per draw, by the same fixed schedule —
+a Lyapunov start of ``LYAP_ITERS`` doublings from (T, RQR), the open-loop
+unconditional covariance, then ``HEWER_ITERS`` Hewer polishes, each a
+pivoted Gauss-Jordan inverse of S = Z P Zᵀ + H, the predictive gain
+Kp = T P Zᵀ S⁻¹, the closed loop A_cl = T − Kp Z, the noise
+Q_c = sym(RQR + Kp H Kpᵀ) and ``INNER_ITERS`` doublings of (A_cl, Q_c).
+Primal only: gradients re-attach at the fixed point through the implicit
+DARE adjoint (``ops/kalman.py::_ImplicitDareP``), and the caller gates
+convergence with ``dare_residual_settled``, since the schedule cannot stop
+early per draw.
+
+Kernel source note.  ``csrc/dare.cu`` replaces the TPU kernel
+``_dare_kernel`` (``ops/pallas_dare.py:37``).  On the H100 it is bound by
+the per-draw chain of ~(12 + 8·16)·3 dependent n × n products (~7.4 MFMA
+per draw at n = 26) in shared memory, not by device memory; the design
+keeps every matrix in shared memory for the whole schedule, one thread
+block per draw.  The TPU wrapper's lane padding (H = I in the padded
+slots) has no counterpart: the grid is exactly one block per draw.  It
+takes and returns the caller's dtype but runs the recursion in float64, as
+the settle kernel K2 does, and so does the plain version.
+
+:func:`_dare_recursion` is the plain PyTorch version of the same schedule.
+The wrapper uses it for CPU tensors; a CUDA tensor goes to the kernel or
+the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .linalg import gj_eliminate
+from .precision import highest_precision
+
+__all__ = ["dare_settle", "LYAP_ITERS", "HEWER_ITERS", "INNER_ITERS"]
+
+#: the reference's fixed schedule (``pallas_dare.py:77-78``): 2^12 periods
+#: of Lyapunov start, 8 Hewer polishes of 2^16-period inner doublings
+LYAP_ITERS, HEWER_ITERS, INNER_ITERS = 12, 8, 16
+
+
+def _sym(X: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (X + X.mT)
+
+
+def _lyap(A, P, iters: int):
+    for _ in range(iters):
+        P = P + (A @ P) @ A.mT
+        A = A @ A
+    return P
+
+
+def _dare_recursion(T, RQR, Z, H, lyap_iters: int, hewer_iters: int,
+                    inner_iters: int):
+    k = Z.shape[-2]
+    eye_k = torch.eye(k, dtype=T.dtype, device=T.device).expand(H.shape)
+    # K = 0 start: the unconditional covariance of the stable transition
+    P = _lyap(T, RQR, lyap_iters)
+    for _ in range(hewer_iters):
+        PZt = P @ Z.mT
+        Sinv = gj_eliminate(Z @ PZt + H, eye_k)[0]
+        Kp = T @ (PZt @ Sinv)
+        A_cl = T - Kp @ Z
+        Qc = _sym(RQR + (Kp @ H) @ Kp.mT)
+        P = _sym(_lyap(A_cl, Qc, inner_iters))
+    return P
+
+
+@highest_precision()
+def _dare_plain(T, RQR, Z, H, lyap_iters: int = LYAP_ITERS,
+                hewer_iters: int = HEWER_ITERS, inner_iters: int = INNER_ITERS):
+    """Plain PyTorch version of the K6 kernel (batch-first); like the kernel
+    it computes in float64 and returns the inputs' dtype."""
+    P = _dare_recursion(*(X.to(torch.float64) for X in (T, RQR, Z, H)),
+                        lyap_iters, hewer_iters, inner_iters)
+    return P.to(T.dtype)
+
+
+def _dare_cuda(T, RQR, Z, H):
+    """Launch the K6 kernel with the fixed schedule."""
+    Bn, n, _ = T.shape
+    k = Z.shape[1]
+    _cuda.require_cuda_inputs(
+        "dare_settle",
+        {"T": (T, (Bn, n, n)), "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)),
+         "H": (H, (Bn, k, k))}, T.dtype, T.device)
+    lib = _cuda.library()
+    smem = lib.gcp_dare_smem_bytes(n, k)
+    if smem > _cuda.smem_limit(T.device):
+        raise ValueError(
+            f"dare_settle: n={n}, k={k} needs {smem} bytes of shared memory "
+            f"per block, above the device's {_cuda.smem_limit(T.device)}")
+    P = torch.empty((Bn, n, n), dtype=T.dtype, device=T.device)
+    if Bn:
+        code = lib.gcp_dare(
+            _cuda.dtype_code(T.dtype), T.data_ptr(), RQR.data_ptr(),
+            Z.data_ptr(), H.data_ptr(), P.data_ptr(), Bn, n, k, LYAP_ITERS,
+            HEWER_ITERS, INNER_ITERS, _cuda.stream_handle(T.device))
+        _cuda.check(code, "dare_settle")
+        dare_settle.launches += 1
+    return P
+
+
+def dare_settle(T, RQR, Z, H) -> torch.Tensor:
+    """Batched predictive DARE fixed point: T, RQR (Bn, n, n), Z (Bn, k, n),
+    H (Bn, k, k) -> P (Bn, n, n), by the fixed schedule above."""
+    T, RQR, Z, H = (X.contiguous() for X in (T, RQR, Z, H))
+    if T.device.type == "cpu":
+        return _dare_plain(T, RQR, Z, H)
+    if T.device.type == "cuda":
+        return _dare_cuda(T, RQR, Z, H)
+    raise ValueError(f"dare_settle: no kernel for {T.device}")
+
+
+#: launches of the CUDA kernel since the count was last set to 0
+dare_settle.launches = 0

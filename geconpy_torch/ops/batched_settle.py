@@ -30,7 +30,7 @@ import math
 import torch
 
 from . import _cuda
-from .batched_cycle_reduction import gj_solve
+from .linalg import gj_eliminate
 from .precision import highest_precision
 
 __all__ = ["settle_parts", "LYAP_ITERS"]
@@ -73,7 +73,7 @@ def _settle_recursion(y_head, T, RQR, Z, H, d, lyap_iters: int):
         v = y_head[t][:, None] - Z @ x_pred - d[..., None]
         PZt = P_pred @ _mT(Z)
         F = Z @ PZt + H
-        sol, _mp, logdet = gj_solve(F, torch.cat([v, eye_k], dim=-1))
+        sol, _mp, logdet = gj_eliminate(F, torch.cat([v, eye_k], dim=-1))
         w = sol[..., :1]
         Finv = sol[..., 1:]
         K = PZt @ Finv
@@ -85,7 +85,7 @@ def _settle_recursion(y_head, T, RQR, Z, H, d, lyap_iters: int):
     P_pred = (T @ P) @ _mT(T) + RQR
     PZt = P_pred @ _mT(Z)
     F = Z @ PZt + H
-    Finv, _mp, logdet = gj_solve(F, eye_k)
+    Finv, _mp, logdet = gj_eliminate(F, eye_k)
     K = PZt @ Finv
     TK = T @ K
     M = T - TK @ Z

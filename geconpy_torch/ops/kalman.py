@@ -1,0 +1,252 @@
+"""The stationary Kalman filter of the value+grad path, batched.
+
+Mirrors ``geconpy_tpu/ops/kalman.py`` as a subset: ``_spd_inverse`` and
+``_spd_inverse_logdet`` (:161-184), ``_dare_step`` (:220),
+``dare_residual_settled`` (:232), ``_stein_adjoint`` (:369), the implicit
+DARE adjoint ``_implicit_dare_P`` (:393-425), the Hewer settle
+``_make_hewer_stage`` (:428) and ``_hewer_settle`` (:452),
+``stationary_kalman_loglik`` (:565, ``settle_method="hewer"``) and
+``stationary_loglik_from_P`` (:643).  Every function takes leading batch
+dimensions (the reference's ``vmap``); the observations ``y`` (periods, k)
+are shared by the batch.
+
+The reference's ``while_loop``s stop each draw on its own criterion under
+``vmap``.  Here a finished draw is frozen by a per-draw mask and the loop
+runs while any draw is unfinished, so the ``settled`` flags equal the
+reference's and a NaN in one rejected draw stops or poisons no other.
+The settles are primal only (the callers detach T, RQR, Z, H); gradients
+re-attach at the fixed point through :class:`_ImplicitDareP`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .lyapunov import _doubling, amax_abs
+from .precision import highest_precision
+
+__all__ = ["dare_residual_settled", "stationary_kalman_loglik",
+           "stationary_loglik_from_P"]
+
+_ROADMAP = "ROADMAP Queue 1"
+
+# Hewer stage schedule (``kalman.py:32-45``): _N_HEWER unconditional
+# stages, then adaptive stages (capped by ``n_settle`` in total) until
+# successive iterates agree to _HEWER_RTOL_EPS machine epsilons, or plateau
+# at a small update
+_N_HEWER = 4
+_HEWER_RTOL_EPS = 5.0
+
+_LOG2PI = 1.8378770664093453
+
+#: doubling cap of the Stein adjoint (the reference's)
+_STEIN_ITERS = 30
+
+
+def _spd_inverse_logdet(S: torch.Tensor):
+    """(S⁻¹, log det S) by unpivoted Gauss-Jordan (SPD diagonal pivots are
+    safe); a non-PD S gives a NaN log det, which the callers reject.
+    Differentiable (plain tensor ops)."""
+    k = S.shape[-1]
+    A = torch.cat([S, torch.eye(k, dtype=S.dtype, device=S.device)
+                   .expand(S.shape)], dim=-1)
+    logdet = S.new_zeros(S.shape[:-2])
+    rows = torch.arange(k, device=S.device)
+    for i in range(k):
+        d = A[..., i, i]
+        logdet = logdet + torch.log(d)
+        piv = A[..., i, :] / d[..., None]
+        A = A - A[..., :, i:i + 1] * piv[..., None, :]
+        A = torch.where((rows == i)[:, None], piv[..., None, :], A)
+    return A[..., k:], logdet
+
+
+def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
+    return _spd_inverse_logdet(S)[0]
+
+
+def _dare_step(P, T, RQR, Z, H):
+    """One predictive Riccati step  P⁺ = T (P − P Zᵀ S⁻¹ Z P) Tᵀ + RQR,
+    S = Z P Zᵀ + H, symmetrised."""
+    PZt = P @ Z.mT
+    S = Z @ PZt + H
+    K = PZt @ _spd_inverse(S)
+    P_upd = P - K @ PZt.mT
+    P_next = T @ P_upd @ T.mT + RQR
+    return 0.5 * (P_next + P_next.mT)
+
+
+@highest_precision()
+def dare_residual_settled(T, RQR, Z, H, P) -> torch.Tensor:
+    """Per draw: one Riccati step moves P by at most sqrt(eps)·max|P| of
+    P's dtype, and stays finite.  Gates the fixed-length DARE kernel."""
+    delta = amax_abs(_dare_step(P, T, RQR, Z, H) - P)
+    rtol = float(torch.finfo(P.dtype).eps) ** 0.5
+    return torch.isfinite(delta) & (delta <= rtol * amax_abs(P))
+
+
+@highest_precision()
+def _stein_adjoint(A_cl, G):
+    """W = Σ_k (A_clᵀ)^k G A_cl^k by Smith doubling with a per-draw exit:
+    the adjoint of the DARE's Fréchet derivative dP⁺ = A_cl dP A_clᵀ."""
+    eps = float(torch.finfo(G.dtype).eps)
+    W, A_k = G, A_cl
+    done = torch.zeros(G.shape[:-2], dtype=torch.bool, device=G.device)
+    for _ in range(_STEIN_ITERS):
+        if bool(done.all()):
+            break
+        delta = A_k.mT @ W @ A_k
+        W_new = W + delta
+        dmax = amax_abs(delta)
+        small = dmax <= eps * amax_abs(W_new)
+        live = ~done[..., None, None]
+        W = torch.where(live, W_new, W)
+        A_k = torch.where(live, A_k @ A_k, A_k)
+        done = done | small | ~torch.isfinite(dmax)
+    return W
+
+
+class _ImplicitDareP(torch.autograd.Function):
+    """Identity on the converged DARE solution P whose backward is the
+    implicit fixed-point adjoint (``kalman.py:393-425``): one Stein doubling
+    solve with the closed loop A_cl = T − Kp Z, then the VJP of one
+    ``_dare_step`` at P held fixed."""
+
+    @staticmethod
+    def forward(ctx, T, RQR, Z, H, P):
+        ctx.save_for_backward(T, RQR, Z, H, P)
+        return P.clone()
+
+    @staticmethod
+    def backward(ctx, P_bar):
+        T, RQR, Z, H, P = ctx.saved_tensors
+        with highest_precision():
+            PZt = P @ Z.mT
+            S = Z @ PZt + H
+            Kp = T @ (PZt @ _spd_inverse(S))        # predictive gain
+            A_cl = T - Kp @ Z
+            w = _stein_adjoint(A_cl, 0.5 * (P_bar + P_bar.mT))
+            with torch.enable_grad():
+                leaves = [X.detach().requires_grad_(True)
+                          for X in (T, RQR, Z, H)]
+                step = _dare_step(P, *leaves)
+                grads = torch.autograd.grad(step, leaves, w)
+        return (*grads, None)
+
+
+def _make_hewer_stage(Ts, RQRs, Zs, Hs):
+    """One Hewer/Kleinman stage (closed-loop Lyapunov solve by doubling),
+    falling back to one exact Riccati step where that solve blew up."""
+
+    def hewer_stage(P):
+        PZt = P @ Zs.mT
+        S_h = Zs @ PZt + Hs
+        Kp = Ts @ (PZt @ _spd_inverse(S_h))
+        A_cl = Ts - Kp @ Zs
+        Qc = RQRs + Kp @ Hs @ Kp.mT
+        P_new = _doubling(A_cl, 0.5 * (Qc + Qc.mT), 1e-14, 30)
+        # keeping the previous iterate would freeze P and read as converged
+        ok = torch.isfinite(P_new).all(dim=(-2, -1))[..., None, None]
+        return torch.where(ok, 0.5 * (P_new + P_new.mT),
+                           _dare_step(P, Ts, RQRs, Zs, Hs))
+
+    return hewer_stage
+
+
+@highest_precision()
+def _hewer_settle(Ts, RQRs, Zs, Hs, n_settle: int):
+    """Hewer settle to the DARE fixed point (primal only): the open-loop
+    unconditional covariance, _N_HEWER unconditional stages, then adaptive
+    stages (``n_settle`` in total, at least one adaptive) until the update
+    is a few machine epsilons of |P|, or has stopped contracting while
+    already below sqrt(eps)·|P|.  Returns (P, settled)."""
+    P = _doubling(Ts, RQRs, 1e-14, 40)
+    hewer_stage = _make_hewer_stage(Ts, RQRs, Zs, Hs)
+    for _ in range(_N_HEWER):
+        P = hewer_stage(P)
+
+    eps = float(torch.finfo(Ts.dtype).eps)
+    rtol_hard = _HEWER_RTOL_EPS * eps
+    rtol_soft = eps ** 0.5
+    extra_cap = max(1, int(n_settle) - _N_HEWER)
+    batch = Ts.shape[:-2]
+    prev_delta = torch.full(batch, float("inf"), dtype=Ts.dtype,
+                            device=Ts.device)
+    settled = torch.zeros(batch, dtype=torch.bool, device=Ts.device)
+    stop = torch.zeros_like(settled)
+    for _ in range(extra_cap):
+        if bool(stop.all()):
+            break
+        P_new = hewer_stage(P)
+        delta = amax_abs(P_new - P)
+        scale = amax_abs(P_new)
+        plateau = (delta >= 0.5 * prev_delta) & (delta <= rtol_soft * scale)
+        finite = torch.isfinite(delta)
+        # a non-finite delta ends the draw's loop but is NOT settled
+        now_settled = finite & ((delta <= rtol_hard * scale) | plateau)
+        live = ~stop
+        P = torch.where(live[..., None, None], P_new, P)
+        prev_delta = torch.where(live, delta, prev_delta)
+        settled = torch.where(live, now_settled, settled)
+        stop = stop | (live & (now_settled | ~finite))
+    return P, settled
+
+
+@highest_precision()
+def stationary_loglik_from_P(y, T, RQR, Z, H, d, P):
+    """Constant-gain log-likelihood given a (primal) DARE fixed point P,
+    from the predicted state 0 (the reference's ``x0``, which every caller
+    leaves at zero); gradients re-attach through :class:`_ImplicitDareP`.
+
+    ``y`` (periods, k) is shared; T, RQR (..., n, n), Z (..., k, n),
+    H (..., k, k), d (..., k).  The scan's backward pass is
+    plain autograd over the 200-step recursion, as the reference's is XLA
+    autodiff of its ``lax.scan``.
+    """
+    k = Z.shape[-2]
+    P = _ImplicitDareP.apply(T, RQR, Z, H, P)
+    PZt = P @ Z.mT
+    S = Z @ PZt + H
+    Sinv, logdet = _spd_inverse_logdet(S)
+    K = PZt @ Sinv
+    TK = T @ K
+    M = T - TK @ Z
+    const = -0.5 * (k * _LOG2PI + logdet)
+    # y - d for every period at once, and its gain term TK (y_t - d)
+    yd = y.to(T.dtype) - d[..., None, :]  # (..., periods, k)
+    gain = yd @ TK.mT  # (..., periods, n)
+    x = T.new_zeros(T.shape[:-1])
+    vs = []
+    for t in range(y.shape[0]):
+        vs.append(yd[..., t, :] - (Z @ x[..., None])[..., 0])
+        x = (M @ x[..., None])[..., 0] + gain[..., t, :]
+    v = torch.stack(vs, dim=-2)  # (..., periods, k)
+    quad = (v * (v @ Sinv.mT)).sum(dim=(-2, -1))
+    ll = y.shape[0] * const - 0.5 * quad
+    return torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -torch.inf))
+
+
+@highest_precision()
+def stationary_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 32,
+                             settle_method: str = "hewer"):
+    """Stationary (constant gain from t = 0) Kalman log-likelihood.
+
+    The predictive covariance is pinned at the DARE fixed point, reached by
+    the primal Hewer settle on detached (T, RQR, Z, H); draws whose settle
+    did not converge within ``n_settle`` stages get -inf.  Only
+    ``settle_method="hewer"`` is ported.
+    """
+    if settle_method in ("sda", "auto"):
+        raise NotImplementedError(
+            f"settle_method={settle_method!r} is not ported yet: only 'hewer' "
+            f"is ({_ROADMAP} item 7)")
+    if settle_method != "hewer":
+        raise ValueError(f"settle_method must be 'auto', 'sda' or 'hewer', "
+                         f"got {settle_method!r}")
+    if d is None:
+        d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
+    RQR = R @ Q @ R.mT
+    P, settled = _hewer_settle(*(X.detach() for X in (T, RQR, Z, H)),
+                               n_settle)
+    ll = stationary_loglik_from_P(y, T, RQR, Z, H, d, P)
+    return torch.where(settled, ll, torch.full_like(ll, -torch.inf))

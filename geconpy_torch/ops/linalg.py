@@ -1,0 +1,88 @@
+"""Batched small-matrix Gauss-Jordan solves.
+
+Mirrors ``geconpy_tpu/ops/linalg.py``: ``gj_solve`` (:47) and
+``gj_inverse`` (:75), over any leading batch dimensions.  The elimination
+:func:`gj_eliminate` is partially pivoted with ``jnp.argmax``'s rule (the
+first maximal |entry| among rows >= k, ``linalg.py:31-33``; NaN counts as
+largest), and is also the plain schedule of the CUDA kernels' Gauss-Jordan
+helper (``csrc/small_linalg.cuh``).  Singular inputs give inf/NaN that the
+callers' success flags catch, never an exception.
+
+:func:`gj_solve` differentiates as ``jax.lax.custom_linear_solve`` does
+(``linalg.py:63-72``): the backward pass is one more elimination with Mᵀ,
+never the elimination's own derivative.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["gj_eliminate", "gj_solve", "gj_inverse"]
+
+
+def gj_eliminate(A: torch.Tensor, RHS: torch.Tensor):
+    """Partially pivoted Gauss-Jordan, batched:
+    (..., n, n), (..., n, m) -> (A^{-1} RHS, min|pivot|, log|det A|).
+
+    Step k picks the first maximal |aug[i, k]| over rows i >= k, swaps rows
+    k and p, divides the pivot row by the pivot and eliminates it from every
+    other row over all columns — the schedule of ``_gj_solve``
+    (``pallas_cycle_reduction.py:90``) and of ``csrc/small_linalg.cuh``.
+    """
+    aug = torch.cat([A, RHS], dim=-1)
+    n = A.shape[-1]
+    batch = aug.shape[:-2]
+    rows = torch.arange(n, device=A.device)
+    minpiv = torch.full(batch, float("inf"), dtype=A.dtype, device=A.device)
+    logdet = torch.zeros(batch, dtype=A.dtype, device=A.device)
+    for k in range(n):
+        colk = aug[..., :, k]
+        mag = torch.where(rows >= k, colk.abs(), torch.full_like(colk, -1.0))
+        p = torch.argmax(mag, dim=-1)
+        pmask = rows == p[..., None]
+        row_p = torch.take_along_dim(aug, p[..., None, None], dim=-2)[..., 0, :]
+        row_k = aug[..., k, :]
+        # swap rows k and p (identical writes when p == k)
+        swapped = torch.where(pmask[..., None], row_k[..., None, :], aug)
+        swapped[..., k, :] = row_p
+        piv = row_p[..., k]
+        r = row_p / piv[..., None]
+        # column k after the swap: entry p picks up the old aug[k, k]
+        col = torch.where(pmask, colk[..., k:k + 1], colk)
+        col = torch.where(rows == k, torch.zeros_like(col), col)
+        aug = swapped - col[..., :, None] * r[..., None, :]
+        aug[..., k, :] = r
+        minpiv = torch.minimum(minpiv, piv.abs())
+        logdet = logdet + torch.log(piv.abs())
+    return aug[..., n:], minpiv, logdet
+
+
+class _GJSolve(torch.autograd.Function):
+    """X = M^{-1} B with the implicit linear-solve adjoint:
+    B̄ = M^{-T} X̄ (one more elimination), M̄ = -B̄ Xᵀ."""
+
+    @staticmethod
+    def forward(ctx, M, B):
+        X = gj_eliminate(M, B)[0]
+        ctx.save_for_backward(M, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, X_bar):
+        M, X = ctx.saved_tensors
+        B_bar = gj_eliminate(M.transpose(-1, -2), X_bar)[0]
+        M_bar = -B_bar @ X.transpose(-1, -2)
+        return M_bar, B_bar
+
+
+def gj_solve(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve ``M X = B`` by pivoted Gauss-Jordan; (..., n, n), (..., n, k).
+    Differentiable in both arguments (see :class:`_GJSolve`)."""
+    return _GJSolve.apply(M, B)
+
+
+def gj_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of a general (..., n, n) matrix by pivoted Gauss-Jordan."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)
+    return gj_solve(M, eye)

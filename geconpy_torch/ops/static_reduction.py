@@ -1,7 +1,10 @@
 """Static-variable elimination before the policy solve, batched.
 
 Mirrors ``geconpy_tpu/ops/static_reduction.py``: ``plan_static_reduction``
-(:42), ``reduce_pencil`` (:95) and ``expand_reduced_policy`` (:121).  A
+(:42), ``reduce_pencil`` (:95), ``expand_reduced_policy`` (:121) for the
+sweep, and for the value+grad path ``policy_from_reduced`` (:147),
+``finalize_reduced_policy`` (:165) and the implicit policy adjoint
+``_implicit_policy_T`` (:54-78).  A
 variable that appears neither lagged nor led contributes zero columns to A
 and C, so a complete-QR row transform of B's static columns splits the
 system into rows that back out the statics and a pure quadratic pencil in
@@ -18,11 +21,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._frontend import frontend
+from ..models.timing import structural_incidence
 from .precision import highest_precision
 
 __all__ = ["StaticReduction", "ReducedPencil", "plan_static_reduction",
-           "reduce_pencil", "expand_reduced_policy"]
+           "reduce_pencil", "expand_reduced_policy", "policy_from_reduced",
+           "finalize_reduced_policy"]
 
 
 class StaticReduction(NamedTuple):
@@ -32,7 +36,7 @@ class StaticReduction(NamedTuple):
 
 def plan_static_reduction(equations, variables) -> StaticReduction:
     """Classify variables by structural incidence (host-side, build time)."""
-    inc = frontend().timing.structural_incidence(equations, variables)
+    inc = structural_incidence(equations, variables)
     has_lag = inc["lag"].any(axis=0)
     has_lead = inc["lead"].any(axis=0)
     static = np.flatnonzero(~has_lag & ~has_lead)
@@ -101,6 +105,76 @@ def reduce_pencil(A, B, C, D, plan: StaticReduction) -> ReducedPencil:
                          D_t[..., n_s:, :], D_t[..., :n_s, :])
 
 
+def _scatter_policy(T_d, T_s, plan: StaticReduction, n: int):
+    s_idx = _idx(plan.static_idx, T_d.device)
+    d_idx = _idx(plan.dynamic_idx, T_d.device)
+    T = T_d.new_zeros(T_d.shape[:-2] + (n, n))
+    T[..., d_idx[:, None], d_idx] = T_d
+    T[..., s_idx[:, None], d_idx] = T_s
+    return T
+
+
+@highest_precision()
+def policy_from_reduced(T_d, red: ReducedPencil, plan: StaticReduction,
+                        n: int):
+    """Back out the statics and scatter T_d into the original variable
+    order (``static_reduction.py:147``); static columns are zero."""
+    M = red.B1 + red.C1 @ T_d
+    T_s = -torch.linalg.solve_triangular(red.R_s, red.A1 + M @ T_d,
+                                         upper=True)
+    return _scatter_policy(T_d, T_s, plan, n)
+
+
+class _ImplicitPolicyT(torch.autograd.Function):
+    """Identity on ``T_primal`` whose backward is the full-system implicit
+    adjoint of A + B T + C T² = 0 (``static_reduction.py:54-78``): with
+    M = B + C T, solve Mᵀ W + Cᵀ W Tᵀ = T̄, then Ā = −W, B̄ = −W Tᵀ,
+    C̄ = −W Tᵀ Tᵀ.  The reduced primal (QR transform, cycle-reduction
+    kernel) is never differentiated."""
+
+    @staticmethod
+    def forward(ctx, A, B, C, T_primal):
+        ctx.save_for_backward(B, C, T_primal)
+        return T_primal.clone()
+
+    @staticmethod
+    def backward(ctx, T_bar):
+        from .cycle_reduction import solve_adjoint_sylvester
+
+        B, C, T = ctx.saved_tensors
+        with highest_precision():
+            W = solve_adjoint_sylvester(B + C @ T, C, T, T_bar)
+            WTt = W @ T.mT
+            return -W, -WTt, -WTt @ T.mT, None
+
+
+@highest_precision()
+def finalize_reduced_policy(A, B, C, D, T, T_d, cr_success):
+    """Gradient re-attachment, selection matrix and success flag
+    (``static_reduction.py:165``): T through the implicit adjoint, R through
+    the differentiable selection solve; success needs the kernel's flag,
+    ρ(T_d) < 1 + 1e-6 and max|A + B T + C T²| below
+    ``success_tol(dtype, 1e-6)`` (the reference's rule at its default
+    ``tol``).  ``dtype`` is T_d's: the
+    kernel's working type, which is A's in the reference (where every array
+    shares one dtype) and bounds how exact a T from the kernel can be."""
+    from ..models.perturbation import spectral_radius
+    from .cycle_reduction import selection_matrix
+    from .tolerances import success_tol
+
+    As, Bs, Cs = (X.detach() for X in (A, B, C))
+    T = _ImplicitPolicyT.apply(A, B, C, T)
+    R = selection_matrix(B, C, T, D)
+    rho = spectral_radius(T_d.detach().to(A.dtype))
+    stable = torch.isfinite(rho) & (rho < 1.0 + 1e-6)
+    Tsg = T.detach()
+    resid = torch.amax((As + Bs @ Tsg + Cs @ Tsg @ Tsg).abs(), dim=(-2, -1))
+    success = cr_success & stable & torch.isfinite(resid) & (
+        resid < success_tol(T_d.dtype, 1e-6)) \
+        & torch.isfinite(R).all(dim=(-2, -1))
+    return T, R, success, resid
+
+
 @highest_precision()
 def expand_reduced_policy(T_d, R_d, red: ReducedPencil,
                           plan: StaticReduction, n: int):
@@ -113,11 +187,8 @@ def expand_reduced_policy(T_d, R_d, red: ReducedPencil,
                                          upper=True)
     R_s_rows = -torch.linalg.solve_triangular(red.R_s, M1 @ R_d + red.D1,
                                               upper=True)
-    batch = T_d.shape[:-2]
-    T = T_d.new_zeros(batch + (n, n))
-    T[..., d_idx[:, None], d_idx] = T_d
-    T[..., s_idx[:, None], d_idx] = T_s
-    R = T_d.new_zeros(batch + (n, R_d.shape[-1]))
+    T = _scatter_policy(T_d, T_s, plan, n)
+    R = T_d.new_zeros(T_d.shape[:-2] + (n, R_d.shape[-1]))
     R[..., d_idx, :] = R_d
     R[..., s_idx, :] = R_s_rows
     return T, R

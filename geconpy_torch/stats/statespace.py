@@ -1,22 +1,32 @@
-"""DSGE state-space model: the batched forward likelihood sweep.
+"""DSGE state-space model: the batched likelihood sweep and the batched
+value+gradient.
 
 Mirrors ``geconpy_tpu/stats/statespace.py`` (``DSGEStateSpace``) as a
 subset: ``configure`` (:102-336, directly observed variables only, diagonal
-shock covariance), ``unconstrain``/``constrain``/``initial_position``/
-``param_labels``, ``_solution_pieces`` (:544), ``_build_design`` (:394),
-``_augment_lags`` (:457), ``_static_pivot_order`` (:1092),
-``_build_pallas_policy_batch`` (:1154, here :meth:`_build_policy_batch`),
-``build_batched_loglik`` (:860) and ``data_from_prior`` (:1252).
+shock covariance, the ``steady_state`` and ``stationary`` filters),
+``unconstrain``/``constrain``/``initial_position``/``param_labels``,
+``_solution_pieces`` (:544), ``_data_and_loglik`` (:717, the stationary
+fully observed branch), ``_build_design`` (:394), ``_augment_lags`` (:457),
+``_static_pivot_order`` (:1092), ``_build_pallas_policy_batch`` (:1154, here
+:meth:`_build_policy_batch`), ``_build_pallas_policy_batch_diff`` (:1109,
+here :meth:`_build_policy_batch_diff`), ``build_batched_loglik`` (:860),
+``build_batched_logpost`` (:965), ``build_batched_logpost_and_grad``
+(:1076) and ``data_from_prior`` (:1252).
 
-The sweep ``f(U) -> (B,)`` runs batched torch code for the priors, the
-analytic steady state, the symbolic linearization and the static
-reduction, then the three CUDA kernels: cycle reduction
+A state space lives on one device, the GPU unless it is built with
+``device="cpu"``: its results are put there, and an input on another device
+raises.  The sweep ``f(U) -> (B,)`` runs batched torch code for the priors,
+the analytic steady state, the symbolic linearization and the static
+reduction, then three CUDA kernels: cycle reduction
 (:mod:`~geconpy_torch.ops.batched_cycle_reduction`), the Riccati settle
 (:mod:`~geconpy_torch.ops.batched_settle`) and the constant-gain tail
-(:mod:`~geconpy_torch.ops.batched_filter`).  On CPU tensors the kernels'
-plain PyTorch versions run instead.  Failed draws (steady state, policy,
-stability, non-finite likelihood) get -inf; failures are flags, never
-exceptions.  The TPU-only knobs (``cr_tile``, ``pallas_tile``,
+(:mod:`~geconpy_torch.ops.batched_filter`).  The value+grad path runs the
+cycle-reduction kernel K4 and, with ``settle="pallas"``, the DARE kernel
+(:mod:`~geconpy_torch.ops.batched_dare`); gradients re-attach through the
+implicit policy and DARE adjoints.  On CPU tensors the kernels' plain
+PyTorch versions run instead.  Failed draws (steady state, policy,
+stability, settle, non-finite likelihood) get -inf; failures are flags,
+never exceptions.  The TPU-only knobs (``cr_tile``, ``pallas_tile``,
 ``interpret``) are gone.
 """
 
@@ -29,16 +39,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._frontend import frontend
+from ..dists import from_ast
 from ..dists.core import Distribution, HalfNormal
 from ..models.model import Model
 from ..models.perturbation import _ZERO_TOL, make_loglin_mask, spectral_radius
-from ..ops.batched_cycle_reduction import (cycle_reduction_policy,
+from ..ops.batched_cycle_reduction import (cycle_reduction,
+                                           cycle_reduction_policy,
                                            static_pivot_order)
+from ..ops.batched_dare import dare_settle
 from ..ops.batched_filter import filter_tail
 from ..ops.batched_settle import settle_parts
+from ..ops.kalman import (dare_residual_settled, stationary_kalman_loglik,
+                          stationary_loglik_from_P)
 from ..ops.precision import highest_precision
-from ..ops.static_reduction import expand_reduced_policy, reduce_pencil
+from ..ops.static_reduction import (expand_reduced_policy,
+                                    finalize_reduced_policy,
+                                    policy_from_reduced, reduce_pencil)
 
 _log = logging.getLogger(__name__)
 
@@ -60,11 +76,36 @@ class EstimatedParameter:
 
 
 class DSGEStateSpace:
-    """Estimation-ready state-space wrapper around a :class:`Model`."""
+    """Estimation-ready state-space wrapper around a :class:`Model`.
 
-    def __init__(self, model: Model):
+    ``device`` (default ``"cuda"``) is where every result is put and every
+    input must lie; without a GPU a ``"cuda"`` state space raises on first
+    use, and never carries on on the CPU.
+    """
+
+    def __init__(self, model: Model, device: str | torch.device = "cuda"):
         self.model = model
+        self.device = torch.device(device)
         self._configured = False
+
+    # --------------------------------------------------------------- device
+    def _device(self) -> torch.device:
+        """The state space's device, resolved (raises without a GPU)."""
+        dev = self.device
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "DSGEStateSpace is on 'cuda' but no CUDA device is "
+                    "available; build it with device='cpu' to run on the CPU")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+
+    def _check_device(self, t: torch.Tensor, name: str) -> None:
+        dev = self._device()
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, but this state space "
+                             f"is on {dev}; move it there first")
 
     # ------------------------------------------------------------- configure
     def configure(
@@ -74,6 +115,7 @@ class DSGEStateSpace:
         shock_std: dict | float | None = None,
         filter_type: str = "steady_state",
         kalman_settle: int = 48,
+        kalman_settle_method: str = "hewer",
         loglin_variables="auto",
         me_prior: Distribution | None = None,
         constant_params: list[str] | None = None,
@@ -89,8 +131,10 @@ class DSGEStateSpace:
         ``shock_std``; ``measurement_error`` is a list of observed names
         (each with an estimated std, prior ``me_prior``, default
         HalfNormal(0.1)) or a dict name -> float | Distribution.
-        Observation equations, a full shock covariance and filters other
-        than ``"steady_state"`` are not ported yet.
+        ``filter_type`` is ``"steady_state"`` (the forward sweep) or
+        ``"stationary"`` (the value+grad path, with the ``"hewer"`` settle).
+        Observation equations, a full shock covariance, the other filters
+        and settle methods are not ported yet.
         """
         if observation_equations:
             raise NotImplementedError(
@@ -98,10 +142,17 @@ class DSGEStateSpace:
         if full_shock_covariance:
             raise NotImplementedError(
                 f"a full shock covariance is not ported yet ({_ROADMAP} item 6)")
-        if filter_type != "steady_state":
+        if filter_type not in ("steady_state", "stationary"):
             raise NotImplementedError(
-                f"filter_type={filter_type!r} is not ported yet: only the "
-                f"batched 'steady_state' sweep is ({_ROADMAP} items 6-7)")
+                f"filter_type={filter_type!r} is not ported yet: only "
+                f"'steady_state' and 'stationary' are ({_ROADMAP} items 6-7)")
+        if kalman_settle_method in ("sda", "auto"):
+            raise NotImplementedError(
+                f"kalman_settle_method={kalman_settle_method!r} is not ported "
+                f"yet: only 'hewer' is ({_ROADMAP} item 7)")
+        if kalman_settle_method != "hewer":
+            raise ValueError("kalman_settle_method must be 'auto', 'sda' or "
+                             f"'hewer', got {kalman_settle_method!r}")
         model = self.model
         mf = model.functions
 
@@ -111,11 +162,11 @@ class DSGEStateSpace:
         self.observed_states = list(observed_states)
         self.filter_type = filter_type
         self.kalman_settle = int(kalman_settle)
+        self.kalman_settle_method = kalman_settle_method
         self.ss_obs_intercept = ss_obs_intercept
         self.loglin_variables = loglin_variables
         self._obs_max_lag = 0
 
-        from_ast = frontend().from_ast
         param_priors, shock_dists = from_ast.resolve_priors(
             model.primitives.priors, model.primitives.shock_priors)
         constant = set(constant_params or ())
@@ -243,16 +294,21 @@ class DSGEStateSpace:
 
     # ------------------------------------------------------------ transforms
     def unconstrain(self, values) -> torch.Tensor:
-        """Constrained parameter values (array or name dict) -> unconstrained
-        float64 vector."""
+        """Constrained parameter values (array or name dict, on the host) ->
+        unconstrained float64 vector on the state space's device."""
         if isinstance(values, dict):
             values = [values[p.name] for p in self.estimated]
+        if isinstance(values, torch.Tensor):
+            self._check_device(values, "values")
+            values = values.detach().cpu()
         vals = np.asarray(values, dtype=np.float64)
-        return torch.stack([p.prior.to_unconstrained(torch.as_tensor(v))
-                            for p, v in zip(self.estimated, vals)])
+        u = torch.stack([p.prior.to_unconstrained(torch.as_tensor(v))
+                         for p, v in zip(self.estimated, vals)])
+        return u.to(self._device())
 
     def constrain(self, u: torch.Tensor) -> torch.Tensor:
         """Unconstrained vector (..., n_est) -> constrained values."""
+        self._check_device(u, "u")
         return torch.stack([p.prior.from_unconstrained(u[..., i])[0]
                             for i, p in enumerate(self.estimated)], dim=-1)
 
@@ -311,7 +367,7 @@ class DSGEStateSpace:
         def post_policy(pre: dict, T, R, solver_ok) -> dict:
             x = pre["x"]
             batch = x.shape[:-1]
-            rho = spectral_radius(T)
+            rho = spectral_radius(T.detach())
             stable = torch.isfinite(rho) & (rho < 1.0 - 1e-9)
             sigmas = []
             for kind, val in sigma_source:
@@ -351,9 +407,9 @@ class DSGEStateSpace:
             plan = self.model.static_reduction
             if len(plan.static_idx) > 0:
                 red = reduce_pencil(pre["A"], pre["B"], pre["C"], pre["D"], plan)
-                B2 = red.B2[0].numpy()
+                B2 = red.B2[0].cpu().numpy()
             else:
-                B2 = pre["B"][0].numpy()
+                B2 = pre["B"][0].cpu().numpy()
             self._pivot_order = static_pivot_order(B2)
         return self._pivot_order
 
@@ -401,8 +457,8 @@ class DSGEStateSpace:
     def build_batched_loglik(self, data: np.ndarray, n_settle: int = 32):
         """Gradient-free batched log-posterior ``f(U) -> (B,)`` for sweeps.
 
-        ``U`` is (B, n_estimated) unconstrained draws on any device; the
-        result is on U's device in U's dtype.  The three kernels work in
+        ``U`` is (B, n_estimated) unconstrained draws on the state space's
+        device; the result is there in U's dtype.  The three kernels work in
         U's dtype; the algebra around them (priors, steady state,
         linearization, static reduction, covariances) runs in float64:
         in float32 that algebra alone moved the SW-2007 likelihood by
@@ -427,6 +483,7 @@ class DSGEStateSpace:
                     ) -> torch.Tensor:
             """``record``, when given, receives each kernel's inputs (for
             kernel-vs-plain checks at the sweep's own shapes)."""
+            self._check_device(U, "U")
             kdt = U.dtype
             y = torch.as_tensor(y_np, device=U.device).to(kdt)
             pre = pre_policy(U.to(torch.float64))
@@ -453,20 +510,171 @@ class DSGEStateSpace:
 
         return batched
 
+    # ------------------------------------------- batched value + gradient
+    def _data_and_loglik(self, data: np.ndarray):
+        """Validate the dataset and pick the differentiable Kalman
+        log-likelihood of the configured filter: the stationary filter on
+        fully observed data (``statespace.py:717-763``)."""
+        data = np.asarray(data, dtype=np.float64)
+        if data.ndim != 2 or data.shape[1] != len(self.observed_states):
+            raise ValueError(f"data must be (periods, "
+                             f"{len(self.observed_states)}), got {data.shape}")
+        if self.filter_type != "stationary":
+            raise NotImplementedError(
+                f"the differentiable likelihood of filter_type="
+                f"{self.filter_type!r} is not ported yet: only 'stationary' "
+                f"is ({_ROADMAP} items 6-7)")
+        if bool(np.isnan(data).any()):
+            raise NotImplementedError(
+                "filter_type='stationary' with missing data needs the "
+                f"cyclostationary filter, not ported yet ({_ROADMAP} item 11)")
+        y = torch.as_tensor(data, device=self._device())
+        n_settle, method = self.kalman_settle, self.kalman_settle_method
+
+        def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
+            return stationary_kalman_loglik(y_, T_, R_, Q_, Z_, H_, d=d,
+                                            n_settle=n_settle,
+                                            settle_method=method)
+
+        return y, _loglik
+
+    def _build_policy_batch_diff(self, cr_iters: int):
+        """Differentiable batched policy solve: the QR reduction and the
+        cycle-reduction kernel K4 run on detached pencils (primal only);
+        gradients re-attach at the full-system level through the implicit
+        policy adjoint, and R comes from the differentiable selection solve
+        (``finalize_reduced_policy``)."""
+        plan = self.model.static_reduction
+        order = self._static_pivot_order()
+        n = self.model.functions.n_variables
+        has_statics = len(plan.static_idx) > 0
+
+        @highest_precision()
+        def solve_batch(pre, kernel_dtype: torch.dtype | None = None,
+                        record: dict | None = None):
+            """The pencil's algebra runs in its own dtype; K4 in
+            ``kernel_dtype`` (default: the same)."""
+            A, B, C, D = pre["A"], pre["B"], pre["C"], pre["D"]
+            As, Bs, Cs = (X.detach() for X in (A, B, C))
+            if has_statics:
+                red = reduce_pencil(As, Bs, Cs, D.detach(), plan)
+                pencil = (red.A2, red.B2, red.C2)
+            else:
+                pencil = (As, Bs, Cs)
+            pencil = tuple(X.to(kernel_dtype or A.dtype) for X in pencil)
+            if record is not None:
+                idx = torch.as_tensor(order, dtype=torch.int64, device=A.device)
+                record["cycle_reduction"] = tuple(
+                    X[..., idx, :].contiguous() for X in pencil)
+            T_d, cr_ok = cycle_reduction(*pencil, order=order, n_iter=cr_iters)
+            T_primal = T_d.to(A.dtype)
+            if has_statics:
+                T_primal = policy_from_reduced(T_primal, red, plan, n)
+            T, R, success, _resid = finalize_reduced_policy(
+                A, B, C, D, T_primal, T_d, cr_ok)
+            return T, R, success
+
+        return solve_batch
+
+    def build_batched_logpost(self, data: np.ndarray, cr_iters: int = CR_ITERS,
+                              settle: str = "xla"):
+        """Differentiable batched log-posterior ``f(U) -> (B,)``.
+
+        ``U`` is (B, n_estimated) unconstrained draws on the state space's
+        device; the result is there in U's dtype.  The forward pass runs the
+        cycle-reduction kernel K4 (``cr_iters`` doublings) and the
+        stationary filter; with ``settle="pallas"`` the DARE fixed point
+        comes from the DARE kernel K6, gated per draw by
+        ``dare_residual_settled`` (un-settled draws get -inf), and with
+        ``settle="xla"`` (the default) from the adaptive Hewer settle.  The
+        backward pass is the implicit policy and DARE adjoints plus autograd
+        of the constant-gain scan.  The whole path runs in float64, the two
+        kernels' inputs and outputs included, and U's dtype sets only the
+        result's: rounding the kernels' float64 inputs to float32 moved the
+        SW-2007 log-posterior by up to 1.2e-3 (K4's reduced pencil) and
+        8.0e-4 (K6's system) relative to the float64 path, over the 5e-4
+        bar, while their recursions are float64 anyway (see PERF.md).
+        """
+        if settle not in ("pallas", "xla"):
+            raise ValueError(f"settle must be 'pallas' or 'xla', got {settle!r}")
+        y, _loglik = self._data_and_loglik(data)
+        pre_policy, post_policy = self._solution_pieces()
+        solve_batch = self._build_policy_batch_diff(cr_iters)
+
+        @highest_precision()
+        def batched(U: torch.Tensor, record: dict | None = None
+                    ) -> torch.Tensor:
+            """``record``, when given, receives each kernel's inputs (for
+            kernel-vs-plain checks at the path's own shapes)."""
+            self._check_device(U, "U")
+            pre = pre_policy(U.to(torch.float64))
+            T, R, solver_ok = solve_batch(pre, record=record)
+            sol = post_policy(pre, T, R, solver_ok)
+            ok = sol["ss_success"] & sol["solver_success"] & sol["stable"]
+            if settle == "pallas":
+                R_aug, T_aug = sol["R_aug"], sol["T_aug"]
+                RQR = R_aug @ sol["Q"] @ R_aug.mT
+                dare_in = tuple(X.detach().contiguous()
+                                for X in (T_aug, RQR, sol["Z"], sol["H"]))
+                if record is not None:
+                    record["dare_settle"] = dare_in
+                P = dare_settle(*dare_in)
+                # the fixed-length schedule cannot stop per draw: un-settled
+                # draws are rejected, never returned biased
+                ok = ok & dare_residual_settled(*dare_in, P)
+                loglik = stationary_loglik_from_P(
+                    y, T_aug, RQR, sol["Z"], sol["H"], sol["d"], P)
+            else:
+                loglik = _loglik(y, sol["T_aug"], sol["R_aug"], sol["Q"],
+                                 sol["Z"], sol["H"], d=sol["d"])
+            logprior = sol["logprior"]
+            ok = ok & torch.isfinite(loglik) & torch.isfinite(logprior)
+            if record is not None:
+                record["accepted"] = ok
+            out = torch.where(ok, loglik + logprior,
+                              torch.full_like(loglik, -math.inf))
+            return out.to(U.dtype)
+
+        return batched
+
+    def build_batched_logpost_and_grad(self, data: np.ndarray, **kwargs):
+        """``f(U) -> (logpost (B,), grad (B, dim))``: one forward pass over
+        the batch and one backward pass.  Non-finite gradient rows (rejected
+        draws) are zeroed, the NUTS kernel's convention.  ``kwargs`` go to
+        :meth:`build_batched_logpost`."""
+        f = self.build_batched_logpost(data, **kwargs)
+
+        def value_and_grad(U: torch.Tensor, record: dict | None = None):
+            U = U.detach().requires_grad_(True)
+            with torch.enable_grad():
+                vals = f(U, record)
+                (grads,) = torch.autograd.grad(vals, U, torch.ones_like(vals))
+            grads = torch.where(torch.isfinite(grads), grads,
+                                torch.zeros_like(grads))
+            return vals.detach(), grads
+
+        return value_and_grad
+
     # ------------------------------------------------------- prior utilities
     def data_from_prior(self, generator: torch.Generator, periods: int = 200,
                         params: dict | None = None):
         """Simulate an artificial dataset from one prior draw.
 
         Draws every estimated parameter from its prior with ``generator``
-        (``params`` pins chosen ones), solves the model at that point in
-        float64 on the generator's device through the port's own policy
-        solve, and simulates ``periods`` observations.  A prior draw without
+        (``params`` pins chosen ones; the generator must be on the state
+        space's device), solves the model at that point in float64 through
+        the port's own policy solve, and simulates ``periods`` observations.  A prior draw without
         a stable first-order solution is replaced by the generator's next
         draw (at most 100 draws; then it raises).  Returns
         (data (periods, k_obs) numpy float64, draw dict).
         """
-        device = generator.device
+        device = self._device()
+        gen_device = generator.device
+        if gen_device.type == "cuda" and gen_device.index is None:
+            gen_device = torch.device("cuda", torch.cuda.current_device())
+        if gen_device != device:
+            raise ValueError(f"the generator is on {generator.device}, but "
+                             f"this state space is on {device}")
         mf = self.model.functions
         free_names = [p.name for p in mf.free_params]
         solve_batch = self._build_policy_batch()

@@ -3,9 +3,10 @@
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips elsewhere; the decision is taken inside a fixture, never at import.
 On the GPU: ``python -m pytest tests/test_torch_cuda.py -q``.  The inputs
-are SW-2007's own kernel inputs from the sweep at a small batch; float64
-outputs agree at rel 1e-9 (min |pivot| aside: near-tied pivots may take
-another row at rounding level) and each wrapper counts its launches.
+are SW-2007's own kernel inputs from the sweep (K1-K3) and from the
+value+grad path (K4, K6) at a small batch; float64 outputs agree at rel
+1e-9 (min |pivot| aside: near-tied pivots may take another row at rounding
+level) and each wrapper counts its launches.
 """
 
 import numpy as np
@@ -14,9 +15,12 @@ import torch
 
 import geconpy_torch
 from geconpy_torch.ops.batched_cycle_reduction import (
-    _cr_policy_plain, cr_policy_raw, cycle_reduction_policy)
+    _cr_plain, _cr_policy_plain, cr_policy_raw, cr_raw, cycle_reduction,
+    cycle_reduction_policy)
+from geconpy_torch.ops.batched_dare import _dare_plain, dare_settle
 from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
 from geconpy_torch.ops.batched_settle import LYAP_ITERS, _settle_plain, settle_parts
+from geconpy_torch.ops.kalman import dare_residual_settled
 from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
 pytestmark = pytest.mark.gpu
@@ -34,17 +38,22 @@ def device():
 @pytest.fixture(scope="module")
 def kernel_inputs(device):
     model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
-    ss = DSGEStateSpace(model).configure(
-        observed_states=["y", "c", "inve", "w", "pinf", "r", "lab"],
-        kalman_settle=32,
-        constant_params=[p for p in model.param_names if p not in SW_EST])
-    data, draw = ss.data_from_prior(torch.Generator().manual_seed(0),
-                                    periods=80)
+    kw = dict(observed_states=["y", "c", "inve", "w", "pinf", "r", "lab"],
+              kalman_settle=32,
+              constant_params=[p for p in model.param_names if p not in SW_EST])
+    ss = DSGEStateSpace(model, device=device).configure(**kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device=device).manual_seed(0), periods=80)
     u0 = ss.unconstrain(draw)
     rng = np.random.default_rng(0)
-    U = u0[None] + 0.05 * torch.as_tensor(rng.standard_normal((64, len(u0))))
+    U = u0[None] + 0.05 * torch.as_tensor(rng.standard_normal((64, len(u0))),
+                                          device=device)
     record: dict = {}
-    ss.build_batched_loglik(data, n_settle=32)(U.to(device), record=record)
+    ss.build_batched_loglik(data, n_settle=32)(U, record=record)
+    ss_vg = DSGEStateSpace(model, device=device).configure(
+        **kw, filter_type="stationary")
+    ss_vg.build_batched_logpost_and_grad(data, settle="pallas")(
+        U, record=record)
     return record
 
 
@@ -63,6 +72,29 @@ def test_cycle_reduction_kernel_matches_plain(kernel_inputs):
     T0, R0, flags0 = _cr_policy_plain(*args, CR_ITERS)
     assert _rel(T, T0) < 1e-9 and _rel(R, R0) < 1e-9
     assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
+
+
+def test_policy_kernel_matches_plain(kernel_inputs):
+    args = kernel_inputs["cycle_reduction"]
+    before = cycle_reduction.launches
+    T, flags = cr_raw(*args, CR_ITERS)
+    torch.cuda.synchronize()
+    assert cycle_reduction.launches == before + 1
+    T0, flags0 = _cr_plain(*args, CR_ITERS)
+    assert _rel(T, T0) < 1e-9
+    assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
+
+
+def test_dare_kernel_matches_plain(kernel_inputs):
+    args = kernel_inputs["dare_settle"]
+    before = dare_settle.launches
+    P = dare_settle(*args)
+    torch.cuda.synchronize()
+    assert dare_settle.launches == before + 1
+    P0 = _dare_plain(*args)
+    assert _rel(P, P0) < 1e-9
+    assert torch.equal(dare_residual_settled(*args, P),
+                       dare_residual_settled(*args, P0))
 
 
 def test_settle_kernel_matches_plain(kernel_inputs):

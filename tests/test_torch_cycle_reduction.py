@@ -28,8 +28,8 @@ import torch
 
 import geconpy_torch
 from geconpy_torch.ops.batched_cycle_reduction import (cycle_reduction_policy,
-                                                       gj_solve,
                                                        static_pivot_order)
+from geconpy_torch.ops.linalg import gj_eliminate
 from geconpy_torch.ops.static_reduction import reduce_pencil
 from geconpy_torch.stats.statespace import DSGEStateSpace
 from geconpy_tpu.ops.pallas_cycle_reduction import (
@@ -52,7 +52,7 @@ def _reduced_pencils(name, configure, batch, scale, seed):
     """Reduced (A2, B2, C2, D2) numpy pencils at ``batch`` perturbed draws
     around the prior-mean point, and the static pivot order."""
     model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name))
-    ss = DSGEStateSpace(model).configure(**configure(model))
+    ss = DSGEStateSpace(model, device="cpu").configure(**configure(model))
     pre_policy, _ = ss._solution_pieces()
     u0 = ss.initial_position().numpy()
     rng = np.random.default_rng(seed)
@@ -137,7 +137,7 @@ def test_gj_solve_pivots_past_a_zero_leading_entry():
     A = torch.tensor([[0.0, 1.0, 2.0],
                       [-2.0, 3.0, 1.0],
                       [2.0, 0.0, 4.0]])
-    sol, minpiv, logdet = gj_solve(A[None], torch.eye(3)[None])
+    sol, minpiv, logdet = gj_eliminate(A[None], torch.eye(3)[None])
     np.testing.assert_allclose(sol[0].numpy(), np.linalg.inv(A.numpy()),
                                atol=1e-14)
     np.testing.assert_allclose(float(logdet[0]),

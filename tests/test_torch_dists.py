@@ -26,8 +26,8 @@ import torch
 
 import geconpy_torch
 import geconpy_tpu
-from geconpy_torch._frontend import frontend
 from geconpy_torch.dists import core as port
+from geconpy_torch.dists import resolve_priors as port_resolve_priors
 from geconpy_tpu.dists import core as ref
 from geconpy_tpu.dists import resolve_priors as ref_resolve_priors
 
@@ -113,8 +113,8 @@ def test_gcn_priors_resolve_to_the_same_distributions(model):
     port_model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(model))
     rp, rs = ref_resolve_priors(ref_model.primitives.priors,
                                 ref_model.primitives.shock_priors)
-    pp, ps = frontend().from_ast.resolve_priors(port_model.primitives.priors,
-                                                port_model.primitives.shock_priors)
+    pp, ps = port_resolve_priors(port_model.primitives.priors,
+                                 port_model.primitives.shock_priors)
     assert sorted(pp) == sorted(rp) and sorted(ps) == sorted(rs)
     for key, d in rp.items():
         assert type(pp[key]).__name__ == type(d).__name__

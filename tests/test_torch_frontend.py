@@ -1,18 +1,24 @@
-"""The port's front-end: ``geconpy_torch`` runs without JAX.
+"""The port's front-end: ``geconpy_torch`` needs nothing of the JAX package.
 
-- In a subprocess where ``sys.modules["jax"] = None`` (so any import of JAX
-  fails), ``import geconpy_torch`` builds SW-2007 and configures it as the
-  benchmark's forward sweep does; the names, static/dynamic plan, filter
-  core and static pivot order it reports equal the JAX package's.
-- An AST scan shows that no file under ``geconpy_torch/`` imports ``jax``
-  or ``pandas``.
-- The front-end alias maps ``dists/from_ast.py`` onto the port's priors.
+- In a subprocess that runs from a temporary directory holding only a copy
+  of ``geconpy_torch/``, with every import of ``jax``, ``geconpy_tpu`` and
+  ``pandas`` refused by a ``sys.meta_path`` finder, ``import
+  geconpy_torch`` builds SW-2007 and configures it for the forward sweep
+  (``steady_state``) and the value+grad path (``stationary``); the names,
+  static/dynamic plan, filter core and static pivot order it reports equal
+  the JAX package's.
+- An AST scan shows that no file under ``geconpy_torch/``, nor
+  ``chip_smoke.py``, imports ``jax``, ``pandas`` or ``geconpy_tpu``, and
+  that no code of the package names a path under ``geconpy_tpu``.
+- The copied front-end modules are the reference's code (docstrings and
+  package names aside), and the bundled models are the reference's files.
 """
 
 import ast
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -31,80 +37,109 @@ from geconpy_tpu.stats.statespace import DSGEStateSpace as RefStateSpace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "geconpy_torch"
+REFERENCE = ROOT / "geconpy_tpu"
 SW_OBS = ["y", "c", "inve", "w", "pinf", "r", "lab"]
 SW_ESTIMATED = [
     "crhoa", "crhob", "crhog", "crhoqs", "crhoms", "crhopinf", "crhow",
     "cmap", "cmaw", "cgy", "sigma_ea", "sigma_eb", "sigma_eg", "sigma_eqs",
     "sigma_em", "sigma_epinf", "sigma_ew", "crpi", "crr", "cry", "chabb",
     "csigma"]
+COPIED = ([f"lang/{p.name}" for p in sorted((REFERENCE / "lang").glob("*.py"))]
+          + [f"symbolic/{p.name}"
+             for p in sorted((REFERENCE / "symbolic").glob("*.py"))]
+          + [f"models/{m}.py" for m in ("primitives", "block", "special_blocks",
+                                         "registry", "simplify", "timing")]
+          + ["dists/from_ast.py"])
 
 _CHILD = f"""
 import json, sys
-sys.modules["jax"] = None          # any JAX import now raises ImportError
-sys.modules["pandas"] = None
-sys.path.insert(0, {str(ROOT)!r})
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "geconpy_tpu", "pandas"):
+            raise ImportError(f"{{name}} is refused in this process")
+
+sys.meta_path.insert(0, _Refuse())
 import torch
 torch.set_num_threads(1)
 import geconpy_torch
 from geconpy_torch.stats.statespace import DSGEStateSpace
 model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
-ss = DSGEStateSpace(model).configure(
-    observed_states={SW_OBS!r}, filter_type="steady_state", kalman_settle=32,
-    constant_params=[p for p in model.param_names if p not in {SW_ESTIMATED!r}])
+constant = [p for p in model.param_names if p not in {SW_ESTIMATED!r}]
+report = {{}}
+for filter_type in ("steady_state", "stationary"):
+    ss = DSGEStateSpace(model, device="cpu").configure(
+        observed_states={SW_OBS!r}, filter_type=filter_type,
+        kalman_settle=32, constant_params=constant)
+    report[filter_type] = {{
+        "labels": ss.param_labels, "core": ss._filter_core.tolist(),
+        "order": ss._static_pivot_order().tolist()}}
 mf = model.functions
 plan = model.static_reduction
-print(json.dumps({{
+report.update({{
     "variables": mf.variable_names, "shocks": mf.shock_names,
-    "params": mf.param_names, "labels": ss.param_labels,
+    "params": mf.param_names,
     "static": plan.static_idx.tolist(), "dynamic": plan.dynamic_idx.tolist(),
-    "core": ss._filter_core.tolist(),
-    "order": ss._static_pivot_order().tolist(),
-    "jax_loaded": [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                   if sys.modules[m] is not None],
-}}))
+    "package": geconpy_torch.__file__,
+    "loaded": sorted(m.split(".")[0] for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "geconpy_tpu",
+                                            "pandas")),
+}})
+print(json.dumps(report))
 """
 
 
 @pytest.fixture(scope="module")
-def child_report():
-    env = dict(os.environ)
+def child_report(tmp_path_factory):
+    work = tmp_path_factory.mktemp("port_alone")
+    shutil.copytree(PACKAGE, work / "geconpy_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True,
-                          text=True, env=env, timeout=300)
+                          text=True, env=env, cwd=work, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    report["work"] = str(work)
+    return report
 
 
 @pytest.fixture(scope="module")
 def reference():
     model = geconpy_tpu.model_from_gcn(geconpy_tpu.get_example_gcn("sw2007"),
                                        verbose=False)
-    ss = RefStateSpace(model).configure(
-        observed_states=SW_OBS, filter_type="steady_state", kalman_settle=32,
-        constant_params=[p for p in model.param_names if p not in SW_ESTIMATED])
-    return model, ss
+    constant = [p for p in model.param_names if p not in SW_ESTIMATED]
+    spaces = {ft: RefStateSpace(model).configure(
+        observed_states=SW_OBS, filter_type=ft, kalman_settle=32,
+        constant_params=constant) for ft in ("steady_state", "stationary")}
+    return model, spaces
 
 
 def test_port_builds_sw2007_without_jax(child_report):
-    assert child_report["jax_loaded"] == []
-    assert len(child_report["labels"]) == 22
+    assert child_report["loaded"] == []
+    assert child_report["package"].startswith(child_report["work"])
+    for ft in ("steady_state", "stationary"):
+        assert len(child_report[ft]["labels"]) == 22
 
 
 def test_names_and_plan_match_reference(child_report, reference):
-    model, ss = reference
+    model, spaces = reference
     mf = model.functions
     assert child_report["variables"] == mf.variable_names
     assert child_report["shocks"] == mf.shock_names
     assert child_report["params"] == mf.param_names
-    assert child_report["labels"] == ss.param_labels
     plan = model.static_reduction
     assert child_report["static"] == np.asarray(plan.static_idx).tolist()
     assert child_report["dynamic"] == np.asarray(plan.dynamic_idx).tolist()
-    assert child_report["core"] == np.asarray(ss._filter_core).tolist()
+    for ft, ss in spaces.items():
+        assert child_report[ft]["labels"] == ss.param_labels
+        assert child_report[ft]["core"] == np.asarray(ss._filter_core).tolist()
 
 
 def test_pivot_order_matches_reference(child_report, reference):
-    _model, ss = reference
-    assert child_report["order"] == np.asarray(ss._static_pivot_order()).tolist()
+    _model, spaces = reference
+    for ft, ss in spaces.items():
+        assert child_report[ft]["order"] == \
+            np.asarray(ss._static_pivot_order()).tolist()
 
 
 def _imports(path: pathlib.Path) -> set[str]:
@@ -119,31 +154,78 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def test_no_file_of_the_port_imports_jax_or_pandas():
-    files = sorted(PACKAGE.rglob("*.py"))
-    assert len(files) >= 15
-    offenders = {str(p.relative_to(ROOT)): sorted(_imports(p) & {"jax", "pandas"})
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 40
+    offenders = {str(p.relative_to(ROOT)):
+                 sorted(_imports(p) & {"jax", "jaxlib", "pandas", "geconpy_tpu"})
                  for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 
 
+def _strip_docstrings(tree: ast.AST) -> ast.AST:
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def test_no_code_of_the_port_names_the_reference_package():
+    """String constants outside docstrings never name ``geconpy_tpu``: the
+    port reads no file of the JAX package (its models are in ``data/``)."""
+    offenders = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        tree = _strip_docstrings(ast.parse(path.read_text()))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and "geconpy_tpu" in node.value:
+                offenders.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not offenders
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_is_the_reference_code(rel):
+    """Docstrings and the package name in text aside, each copied module is
+    the reference's code; ``models/block.py`` leaves out ``_repr_html_``,
+    whose HTML reporting (``utils/reporting.py``) is not ported."""
+    def dump(path):
+        tree = _strip_docstrings(ast.parse(path.read_text()))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ClassDef):
+                node.body = [b for b in node.body
+                             if getattr(b, "name", None) != "_repr_html_"]
+        return ast.dump(tree).replace("geconpy_tpu", "geconpy_torch")
+
+    port, ref = PACKAGE / rel, REFERENCE / rel
+    assert dump(port) == dump(ref)
+    assert f"geconpy_tpu/{rel}" in ast.get_docstring(ast.parse(port.read_text()))
+
+
 def test_from_ast_builds_torch_priors():
     import geconpy_torch
-    from geconpy_torch._frontend import frontend
-    from geconpy_torch.dists import core
+    from geconpy_torch.dists import core, from_ast
 
-    fe = frontend()
-    assert fe.from_ast.Distribution is core.Distribution
+    assert from_ast.Distribution is core.Distribution
     model = geconpy_torch.model_from_gcn(
         geconpy_torch.get_example_gcn("rbc_estimation"))
-    priors, shocks = fe.from_ast.resolve_priors(model.primitives.priors,
-                                                model.primitives.shock_priors)
+    priors, shocks = from_ast.resolve_priors(model.primitives.priors,
+                                             model.primitives.shock_priors)
     assert all(isinstance(p, core.Distribution) for p in priors.values())
-    assert isinstance(shocks["epsilon_A"], fe.from_ast.CompositeDistribution)
+    assert isinstance(shocks["epsilon_A"], from_ast.CompositeDistribution)
 
 
 def test_get_example_gcn_reads_the_reference_data():
+    """The port's bundled models are the reference's, read from its own
+    ``data/``."""
     import geconpy_torch
 
-    assert geconpy_torch.get_example_gcn("rbc") == geconpy_tpu.get_example_gcn("rbc")
+    names = sorted(p.stem for p in (REFERENCE / "data").glob("*.gcn"))
+    assert names == sorted(p.stem for p in (PACKAGE / "data").glob("*.gcn"))
+    assert len(names) == 21
+    for name in names:
+        assert geconpy_torch.get_example_gcn(name) == \
+            geconpy_tpu.get_example_gcn(name)
     with pytest.raises(FileNotFoundError, match="available"):
         geconpy_torch.get_example_gcn("no_such_model")

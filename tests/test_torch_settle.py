@@ -43,7 +43,7 @@ def _torch_cpu_float64():
 
 def _settle_inputs(name, configure, batch, seed, n_settle=16):
     model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name))
-    ss = DSGEStateSpace(model).configure(**configure(model),
+    ss = DSGEStateSpace(model, device="cpu").configure(**configure(model),
                                          kalman_settle=n_settle)
     data, draw = ss.data_from_prior(torch.Generator().manual_seed(seed),
                                     periods=40)

@@ -82,7 +82,7 @@ def case(request):
     U = u0[None] + spec["scale"] * rng.standard_normal((8, u0.shape[0]))
 
     port_model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name))
-    port_ss = PortStateSpace(port_model).configure(
+    port_ss = PortStateSpace(port_model, device="cpu").configure(
         **spec["configure"](port_model.param_names))
     return name, ref_ss, port_ss, data, U
 
