@@ -9,17 +9,22 @@ Phases, one line each (plus one line per kernel in phase 3):
    sympy and nvcc versions;
 2. the build of the CUDA kernels from ``geconpy_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, on SW-2007's
-   own intermediates: K1-K3 from the sweep at batch 4096, K4 and K6 from
-   the value+grad path at batch 512.  Float64: max rel diff <= 1e-9 and
-   equal success flags; float32: rel <= 5e-4 on the likelihood pieces and
-   K6's P, success flags (K1, K4) and settle flags (K6) equal on >= 99% of
-   draws; with both times;
+   own intermediates: K1-K3 and K5 from the sweep at batch 4096, K4 and K6
+   from the value+grad path at batch 512.  Float64: max rel diff <= 1e-9
+   and equal success flags; float32: rel <= 5e-4 on the likelihood pieces
+   and K6's P, success flags (K1, K4) and settle flags (K6) equal on >= 99%
+   of draws; with both times;
 4. the forward sweep: SW-2007 (22 estimated parameters, 7 observables,
    steady-state filter, 32 settle steps, 200 periods, batch 4096, float32)
-   through ``build_batched_loglik``; every kernel's launch count over that
-   run must be > 0, >= 99% of draws finite, the first 512 within rel 5e-4
-   of the port's float64 path on the CPU; then evals/s over 20
-   repetitions and the peak device memory;
+   through ``build_batched_loglik``, once per settle.  ``"pallas"``: K1,
+   K2 and K3 launch; ``"fused"``: K1 and K5 launch, K2 and K3 do not, and
+   the values are within rel 5e-4 of the ``"pallas"`` sweep's on the draws
+   both accept.  For each: >= 99% of draws finite, the first 512 within
+   rel 5e-4 of the port's float64 path on the CPU, then evals/s over 20
+   repetitions (the two settles timed in turns, 10 repetitions a turn:
+   pallas, fused, fused, pallas) and the peak device memory.  ``"xla"`` (plain PyTorch
+   settle, launch-bound, not the card's main path): one call at batch 512
+   against the same float64 reference, timed once;
 5. the value+grad path: the same model with the stationary filter, batch
    512, float32 draws (the path computes in float64, K4 and K6 included),
    through ``build_batched_logpost_and_grad`` with
@@ -28,7 +33,16 @@ Phases, one line each (plus one line per kernel in phase 3):
    run), the first 64 draws within rel 5e-4 (value) and 1e-3 (gradient)
    of the port's float64 path on the CPU, the two settles within rel 5e-4
    of each other; then us/draw over 10 repetitions, the peak device
-   memory and a stage breakdown.
+   memory and a stage breakdown;
+6. SMC estimation at full width: the sweep's configuration through
+   ``fit_smc`` with 4096 particles, 2 Metropolis sweeps per stage, seed 0,
+   ``settle="fused"``, float32.  It must reach phi = 1 with a strictly
+   increasing schedule, every stage's acceptance > 0.02, a finite log
+   evidence and finite samples of shape (4096, 22); K1 and K5 each launch
+   once per sweep (1 + stages x 2), K2 and K3 never.  Prints stages,
+   sweeps, wall seconds, sweeps/s, the evidence, the acceptance, how many
+   generating values lie inside the particles' 0.5%-99.5% range and the
+   share of unsolvable prior particles.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -40,6 +54,7 @@ bound.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -54,6 +69,13 @@ SW_ESTIMATED = [
     "csigma"]
 BATCH, PERIODS, N_SETTLE, N_REPS, N_CHECK = 4096, 200, 32, 20, 512
 VG_BATCH, VG_CHECK, VG_REPS = 512, 64, 10
+XLA_BATCH = 512
+# resample_ess above target_ess (both default to 0.5) resamples at every
+# tempering stage; with the two equal, a stage that lands on the threshold
+# is followed by stages whose step is ~1e-15 until rounding noise tips the
+# ESS under it (the reference's sampler does the same)
+SMC_KW = dict(n_particles=4096, n_mh=2, seed=0, settle="fused",
+              resample_ess=0.6)
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  The float64 kernels use no
@@ -75,6 +97,9 @@ KERNELS = {
     "cycle_reduction": (
         "K4", "geconpy_torch/csrc/cycle_reduction.cu",
         "geconpy_tpu/ops/pallas_cycle_reduction.py:145"),
+    "settle_filter_loglik": (
+        "K5", "geconpy_torch/csrc/settle.cu",
+        "geconpy_tpu/ops/pallas_settle.py:108"),
     "dare_settle": (
         "K6", "geconpy_torch/csrc/dare.cu",
         "geconpy_tpu/ops/pallas_dare.py:37"),
@@ -116,6 +141,20 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def settle_fma(n: int, k: int, steps: int, lyap_iters: int) -> int:
+    """Multiply-adds per draw of the Lyapunov start, ``steps`` Riccati steps
+    and the frozen-gain quantities."""
+    step = 4 * n**3 + 3 * n * n * k + 3 * n * k * k + k * k * (2 * k + 1) \
+        + n * n + 2 * n * k
+    final = 2 * n**3 + 3 * n * n * k + 2 * n * k * k + 2 * k**3 + n * n
+    return lyap_iters * 3 * n**3 + steps * step + final
+
+
+def tail_fma(n: int, k: int, steps: int) -> int:
+    """Multiply-adds per draw of ``steps`` constant-gain steps."""
+    return steps * (n * n + 2 * n * k + k * k + k)
+
+
 def work(name: str, args, n_iter: int, lyap_iters: int) -> tuple[float, float, float]:
     """(flops, bytes, peak flop/s) of one call on ``args``: the operations
     of the kernel's fixed schedule (2 per multiply-add; a Gauss-Jordan
@@ -124,8 +163,7 @@ def work(name: str, args, n_iter: int, lyap_iters: int) -> tuple[float, float, f
     from geconpy_torch.ops.batched_dare import HEWER_ITERS, INNER_ITERS
     from geconpy_torch.ops.batched_dare import LYAP_ITERS as DARE_LYAP
 
-    el = args[1].element_size() if name in ("settle_parts", "filter_tail") \
-        else args[0].element_size()
+    el = args[0].element_size()
     if name == "cycle_reduction_policy":
         A, _B, _C, D = args
         bn, n, m = A.shape[0], A.shape[-1], D.shape[-1]
@@ -140,17 +178,23 @@ def work(name: str, args, n_iter: int, lyap_iters: int) -> tuple[float, float, f
     if name == "settle_parts":
         y, T, _RQR, Z = args[:4]
         bn, n, k, s = T.shape[0], T.shape[-1], Z.shape[-2], y.shape[0]
-        step = 4 * n**3 + 3 * n * n * k + 3 * n * k * k + k * k * (2 * k + 1) \
-            + n * n + 2 * n * k
-        final = 2 * n**3 + 3 * n * n * k + 2 * n * k * k + 2 * k**3 + n * n
-        fma = lyap_iters * 3 * n**3 + s * step + final
+        fma = settle_fma(n, k, s, lyap_iters)
         elems = s * k + bn * (2 * n * n + k * n + k * k + k) \
             + bn * (2 + n + n * n + n * k + k * k)
+        return 2.0 * fma * bn, float(elems * el), PEAK_FP64_TC
+    if name == "settle_filter_loglik":
+        # K2's operations over the head plus K3's over the rest (in float64
+        # here); the six inputs and one (B,) output, each once
+        y, T, _RQR, Z = args[:4]
+        bn, n, k, s = T.shape[0], T.shape[-1], Z.shape[-2], y.shape[0]
+        head = min(N_SETTLE, s)
+        fma = settle_fma(n, k, head, lyap_iters) + tail_fma(n, k, s - head)
+        elems = s * k + bn * (2 * n * n + k * n + k * k + k) + bn
         return 2.0 * fma * bn, float(elems * el), PEAK_FP64_TC
     if name == "filter_tail":
         y, M, _TK, Z = args[:4]
         bn, n, k, s = M.shape[0], M.shape[-1], Z.shape[-2], y.shape[0]
-        fma = s * (n * n + 2 * n * k + k * k + k)
+        fma = tail_fma(n, k, s)
         elems = s * k + bn * (n * n + 2 * n * k + k + k * k + 1 + n) + bn
         return 2.0 * fma * bn, float(elems * el), PEAK_FP32
     if name == "dare_settle":
@@ -187,8 +231,9 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
             size, rest = int(found.group(1)), found.group(2)
             name, args = rest[:size], rest[size:]
             io = "f64" if args.startswith("Id") else "f32"
-            sel = {"Lb1E": "+sel", "Lb0E": ""}
-            tag = next((v for k_, v in sel.items() if k_ in args), "")
+            # the compile-time switch: K1's selection tail, K5's filter tail
+            tag = {"cr_kernel": "+sel", "settle_kernel": "+tail"}.get(
+                name, "") if "Lb1E" in args else ""
             current = f"{name}{tag}<{io}>"
         used = re.search(r"Used (\d+) registers", line)
         if used and current:
@@ -201,6 +246,7 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     smem = {"cr_kernel+sel": lib.gcp_cr_policy_smem_bytes(n, m),
             "cr_kernel": lib.gcp_cr_smem_bytes(n),
             "settle_kernel": lib.gcp_settle_smem_bytes(n, k),
+            "settle_kernel+tail": lib.gcp_settle_smem_bytes(n, k),
             "filter_tail_kernel": lib.gcp_filter_tail_smem_bytes(n, k, 4),
             "dare_kernel": lib.gcp_dare_smem_bytes(n, k)}
     parts = []
@@ -232,12 +278,16 @@ def main() -> int:
         cycle_reduction_policy)
     from geconpy_torch.ops.batched_dare import _dare_plain, dare_settle
     from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
-    from geconpy_torch.ops.batched_settle import (LYAP_ITERS, _settle_plain,
+    from geconpy_torch.ops.batched_settle import (LYAP_ITERS,
+                                                  _settle_filter_plain,
+                                                  _settle_plain,
+                                                  settle_filter_loglik,
                                                   settle_parts)
     from geconpy_torch.ops.kalman import (_hewer_settle,
                                           dare_residual_settled,
                                           stationary_loglik_from_P)
     from geconpy_torch.ops.tolerances import success_tol
+    from geconpy_torch.stats.smc import _prior_cloud, fit_smc
     from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
     dev = torch.device("cuda", 0)
@@ -245,7 +295,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     counted = {"cycle_reduction_policy": cycle_reduction_policy,
                "settle_parts": settle_parts, "filter_tail": filter_tail,
-               "cycle_reduction": cycle_reduction, "dare_settle": dare_settle}
+               "cycle_reduction": cycle_reduction, "dare_settle": dare_settle,
+               "settle_filter_loglik": settle_filter_loglik}
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
 
     # ---- phase 1: the card and the software
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
@@ -279,6 +337,8 @@ def main() -> int:
         (BATCH, u0.shape[0]), generator=gen, device=dev, dtype=torch.float32)
     data32 = data.astype("float32")
     sweep = ss.build_batched_loglik(data32, n_settle=N_SETTLE)
+    sweep_fused = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                          settle="fused")
 
     vg_kw = dict(observed_states=SW_OBS, constant_params=constant,
                  filter_type="stationary", kalman_settle=N_SETTLE)
@@ -297,7 +357,8 @@ def main() -> int:
     print("phase 2 resources at the path's shapes: " + kernel_resources(
         _cuda.library(), _cuda._build_dir(), n_core, model.functions.n_shocks,
         len(SW_OBS), threads={"cr_kernel+sel": 256, "cr_kernel": 256,
-                              "settle_kernel": 256, "filter_tail_kernel": 64,
+                              "settle_kernel": 256, "settle_kernel+tail": 256,
+                              "filter_tail_kernel": 64,
                               "dare_kernel": 256}), flush=True)
 
     # ---- phase 3: each kernel against its plain version, same inputs
@@ -308,6 +369,8 @@ def main() -> int:
         "filter_tail": _filter_tail_plain,
         "cycle_reduction": lambda *a: _cr_plain(*a, CR_ITERS),
         "dare_settle": _dare_plain,
+        "settle_filter_loglik": lambda *a: _settle_filter_plain(
+            *a, N_SETTLE, LYAP_ITERS),
     }
     kernel = {
         "cycle_reduction_policy": lambda *a: cr_policy_raw(*a, CR_ITERS),
@@ -315,13 +378,16 @@ def main() -> int:
         "filter_tail": filter_tail,
         "cycle_reduction": lambda *a: cr_raw(*a, CR_ITERS),
         "dare_settle": dare_settle,
+        "settle_filter_loglik": lambda *a: settle_filter_loglik(
+            *a, n_settle=N_SETTLE),
     }
     outputs = {"cycle_reduction_policy": ("T", "R", "flags"),
                "settle_parts": ("ll_head", "x_pred0", "M", "TK", "Finv",
                                 "const"),
                "filter_tail": ("ll_tail",),
                "cycle_reduction": ("T", "flags"),
-               "dare_settle": ("P",)}
+               "dare_settle": ("P",),
+               "settle_filter_loglik": ("ll",)}
 
     def cr_success(flags, dtype):
         tol = 200 * float(torch.finfo(dtype).eps)
@@ -345,10 +411,11 @@ def main() -> int:
         tag = "f64" if f64 else "f32"
         rec: dict = {}
         sweep(batch.to(dtype), record=rec)
+        sweep_fused(batch.to(dtype), record=rec)
         torch.cuda.synchronize()
         for name in KERNELS:
             sweep_kernel = name in ("cycle_reduction_policy", "settle_parts",
-                                    "filter_tail")
+                                    "filter_tail", "settle_filter_loglik")
             args = rec[name] if sweep_kernel else tuple(
                 X.to(dtype) for X in vg_rec[name])
             got = kernel[name](*args)
@@ -394,8 +461,8 @@ def main() -> int:
                 for k_ in got if k_ != "minpiv")
             # float64: every output but min|pivot| (near-tied pivots may
             # take another row at rounding level; T and R are checked);
-            # float32: the success flags (K1, K4), the likelihood (K2, K3)
-            # and P (K6)
+            # float32: the success flags (K1, K4), the likelihood (K2, K3,
+            # K5) and P (K6)
             if f64:
                 checked = {k_: v for k_, v in errs.items() if k_ != "minpiv"}
             else:
@@ -410,8 +477,7 @@ def main() -> int:
             entry[f"abs_{tag}"] = abs_err
             ms = cuda_time_ms(lambda: kernel[name](*args), 10)
             plain_ms = cuda_time_ms(lambda: plain[name](*args), 3)
-            bn = args[1].shape[0] if name in ("settle_parts", "filter_tail") \
-                else args[0].shape[0]
+            bn = args[1].shape[0]
             if dtype == working[name]:   # the path's dtype goes into the JSON
                 entry["ms"], entry["plain_ms"] = ms, plain_ms
                 entry["bound_ms"], entry["bound_by"] = bound(
@@ -425,52 +491,112 @@ def main() -> int:
         raise AssertionError("kernel vs plain: " + "; ".join(failures))
 
     # ---- phase 4: the forward sweep, through the user's entry point
-    for fn in counted.values():
-        fn.launches = 0
-    out = sweep(batch)
-    torch.cuda.synchronize()
-    launches = {name: counted[name].launches for name in counted}
-    path = ("cycle_reduction_policy", "settle_parts", "filter_tail")
-    if min(launches[k_] for k_ in path) < 1:
-        raise AssertionError(f"a kernel of the sweep did not launch: {launches}")
-    if out.shape != (BATCH,) or out.dtype != torch.float32:
-        raise AssertionError(f"sweep output {tuple(out.shape)} {out.dtype}")
-    frac = float(torch.isfinite(out).float().mean())
-    if frac < 0.99:
-        raise AssertionError(f"only {frac:.4f} of draws finite")
     sweep_cpu = ss_cpu.build_batched_loglik(data32, n_settle=N_SETTLE)
     ref = sweep_cpu(batch[:N_CHECK].double().cpu())
-    got = out[:N_CHECK].double().cpu()
-    both = torch.isfinite(ref) & torch.isfinite(got)
-    if float(both.double().mean()) < 0.99:
-        raise AssertionError(f"finiteness mismatch ({float(both.double().mean()):.3f})")
-    rel = float(((got - ref).abs() / (1.0 + ref.abs()))[both].max())
+
+    def rel_to_ref(out):
+        """(max rel diff to the float64 CPU path, draws finite in both)."""
+        got = out[:ref.shape[0]].double().cpu()
+        both = torch.isfinite(ref) & torch.isfinite(got)
+        if float(both.double().mean()) < 0.99:
+            raise AssertionError(
+                f"finiteness mismatch ({float(both.double().mean()):.3f})")
+        return float(((got - ref).abs() / (1.0 + ref.abs()))[both].max()), \
+            int(both.sum())
+
+    def run_sweep(settle, fn, path):
+        """One counted call and its checks; returns (output, launches, the
+        line to print once the sweep is timed)."""
+        reset_counts()
+        out = fn(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        absent = [k_ for k_ in ("cycle_reduction_policy", "settle_parts",
+                                "filter_tail", "settle_filter_loglik")
+                  if k_ not in path]
+        if min(launches[k_] for k_ in path) < 1 \
+                or max(launches[k_] for k_ in absent) > 0:
+            raise AssertionError(f"sweep settle={settle}: expected launches "
+                                 f"of {path} only, got {launches}")
+        if out.shape != (BATCH,) or out.dtype != torch.float32:
+            raise AssertionError(f"sweep output {tuple(out.shape)} {out.dtype}")
+        frac = float(torch.isfinite(out).float().mean())
+        if frac < 0.99:
+            raise AssertionError(f"only {frac:.4f} of draws finite")
+        rel, n_both = rel_to_ref(out)
+        if rel >= 5e-4:
+            raise AssertionError(f"float32 sweep settle={settle} off the "
+                                 f"float64 path by rel {rel:.3e}")
+        line = (f"phase 4 sweep settle={settle}: launches "
+                f"{ {k_: launches[k_] for k_ in path} }; finite {frac:.4f}; "
+                f"rel vs float64 plain path {rel:.3e} on {n_both}/{N_CHECK}")
+        return out, {k_: launches[k_] for k_ in path}, line
+
+    out_pallas, path_launches, line_pallas = run_sweep(
+        "pallas", sweep, ("cycle_reduction_policy", "settle_parts",
+                          "filter_tail"))
+    out_fused, fused_launches, line_fused = run_sweep(
+        "fused", sweep_fused, ("cycle_reduction_policy",
+                               "settle_filter_loglik"))
+    path_launches["settle_filter_loglik"] = \
+        fused_launches["settle_filter_loglik"]
+    # the two settles are timed in turns within this one call (pallas,
+    # fused, fused, pallas), N_REPS repetitions each in two halves
+    turns = {"pallas": [], "fused": []}
+    peaks = {}
+    for settle, fn in (("pallas", sweep), ("fused", sweep_fused),
+                       ("fused", sweep_fused), ("pallas", sweep)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(N_REPS // 2):
+            fn(batch)
+        torch.cuda.synchronize()
+        turns[settle].append(time.perf_counter() - start)
+        peaks[settle] = torch.cuda.max_memory_allocated(dev)
+    for settle, line in (("pallas", line_pallas), ("fused", line_fused)):
+        elapsed = sum(turns[settle])
+        halves = ", ".join(f"{N_REPS // 2 * BATCH / t:.1f}"
+                           for t in turns[settle])
+        print(f"{line}; {N_REPS * BATCH / elapsed:.1f} evals/s ({N_REPS} reps "
+              f"of batch {BATCH}, {elapsed:.3f} s; its two turns of "
+              f"{N_REPS // 2}, taken in the order pallas, fused, fused, "
+              f"pallas: {halves}); peak device memory {peaks[settle]} B "
+              f"[{card}]", flush=True)
+    both = torch.isfinite(out_pallas) & torch.isfinite(out_fused)
+    rel = float(((out_fused.double() - out_pallas.double()).abs()
+                 / (1.0 + out_pallas.double().abs()))[both].max())
     if rel >= 5e-4:
-        raise AssertionError(f"float32 sweep off the float64 path by rel {rel:.3e}")
-    torch.cuda.reset_peak_memory_stats(dev)
+        raise AssertionError(f"settle='fused' off settle='pallas' by rel "
+                             f"{rel:.3e}")
+    print(f"phase 4 fused vs pallas: value rel {rel:.3e} on {int(both.sum())}/"
+          f"{BATCH} draws both accept", flush=True)
+    # the plain PyTorch settle: launch-bound, not the card's main path
+    sweep_xla = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                        settle="xla")
+    sweep_xla(batch[:XLA_BATCH])
     torch.cuda.synchronize()
     start = time.perf_counter()
-    for _ in range(N_REPS):
-        out = sweep(batch)
+    out_xla = sweep_xla(batch[:XLA_BATCH])
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
-    peak = torch.cuda.max_memory_allocated(dev)
-    evals = N_REPS * BATCH / elapsed
-    print(f"phase 4 sweep: launches { {k_: launches[k_] for k_ in path} }; "
-          f"finite {frac:.4f}; rel vs float64 plain path {rel:.3e} on "
-          f"{int(both.sum())}/{N_CHECK}; {evals:.1f} evals/s ({N_REPS} reps "
-          f"of batch {BATCH}, {elapsed:.3f} s); peak device memory {peak} B "
+    rel, n_both = rel_to_ref(out_xla)
+    if rel >= 5e-4:
+        raise AssertionError(f"float32 sweep settle=xla off the float64 path "
+                             f"by rel {rel:.3e}")
+    print(f"phase 4 sweep settle=xla (plain PyTorch settle, launch-bound, not "
+          f"the card's main path): rel vs float64 plain path {rel:.3e} on "
+          f"{n_both}/{XLA_BATCH}; one call of batch {XLA_BATCH} after one "
+          f"warm-up {elapsed * 1e3:.1f} ms, {XLA_BATCH / elapsed:.1f} evals/s "
           f"[{card}]", flush=True)
-    path_launches = {k_: launches[k_] for k_ in path}
 
     # ---- phase 5: the value+grad path, through the user's entry point
     results = {}
     for settle in ("xla", "pallas"):
-        for fn in counted.values():
-            fn.launches = 0
+        reset_counts()
         vals, grads = vag[settle](vg_batch)
         torch.cuda.synchronize()
-        launches = {name: counted[name].launches for name in counted}
+        launches = read_counts()
         if launches["cycle_reduction"] < 1 or (
                 settle == "pallas" and launches["dare_settle"] < 1):
             raise AssertionError(
@@ -543,6 +669,51 @@ def main() -> int:
                     stationary_loglik_from_P, CR_ITERS)
     float32_io_effect(ss_vg, vg_data, vg_batch, card, dare_residual_settled,
                       dare_settle, stationary_loglik_from_P, CR_ITERS)
+
+    # ---- phase 6: SMC estimation at full width, through the user's entry
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    res = fit_smc(ss, data32, **SMC_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = read_counts()
+    n_part = SMC_KW["n_particles"]
+    stages = len(res.phi_schedule)
+    sweeps = 1 + stages * SMC_KW["n_mh"]
+    phis = res.phi_schedule
+    if launches["cycle_reduction_policy"] != sweeps \
+            or launches["settle_filter_loglik"] != sweeps \
+            or launches["settle_parts"] or launches["filter_tail"]:
+        raise AssertionError(f"SMC made {sweeps} sweeps but launched {launches}")
+    if abs(phis[-1] - 1.0) > 1e-12 or phis[0] <= 0.0 \
+            or not bool((phis[1:] > phis[:-1]).all()):
+        raise AssertionError(f"SMC tempering schedule {phis}")
+    if not bool((res.accept_rates > 0.02).all()):
+        raise AssertionError(f"SMC acceptance {res.accept_rates}")
+    if res.samples.shape != (n_part, len(SW_ESTIMATED)) \
+            or not bool(torch.isfinite(torch.as_tensor(res.samples)).all()) \
+            or not math.isfinite(res.log_evidence):
+        raise AssertionError(f"SMC result: samples {res.samples.shape}, log "
+                             f"evidence {res.log_evidence}")
+    lo, hi = (torch.as_tensor(res.samples).quantile(q, dim=0)
+              for q in (0.005, 0.995))
+    truth = torch.tensor([draw[name] for name in res.param_names],
+                         dtype=lo.dtype)
+    inside = int(((lo <= truth) & (truth <= hi)).sum())
+    prior_cloud = _prior_cloud(
+        ss, torch.Generator(device=dev).manual_seed(SMC_KW["seed"]), n_part,
+        torch.float32)
+    unsolvable = 1.0 - float(torch.isfinite(sweep_fused(prior_cloud))
+                             .float().mean())
+    print(f"phase 6 SMC {SMC_KW}: {stages} stages, {sweeps} sweeps (K1 "
+          f"{launches['cycle_reduction_policy']}, K5 "
+          f"{launches['settle_filter_loglik']} launches), {wall:.3f} s, "
+          f"{sweeps / wall:.2f} sweeps/s; log evidence {res.log_evidence:.3f}; "
+          f"acceptance min {res.accept_rates.min():.3f} mean "
+          f"{res.accept_rates.mean():.3f}; {inside}/{len(SW_ESTIMATED)} "
+          f"generating values inside the particles' 0.5%-99.5% range; "
+          f"unsolvable prior particles {unsolvable:.4f} [{card}]", flush=True)
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():

@@ -1,11 +1,14 @@
-"""Carry parameter draws from the JAX reference to the port by name.
+"""Carry parameter draws and particle clouds from the JAX reference to the
+port by name.
 
 The tests hand both packages the same numpy arrays.  The reference's
 ``DSGEStateSpace`` describes its draws by ``param_labels``,
 ``_theta_default``, its estimated index ``_est_idx`` and its static/dynamic
 plan; :func:`state_from_reference` checks each against the port's own
 ``configure`` and refuses any mismatch, so both sides are known to compute
-the same thing.  This module imports no JAX: it takes numpy arrays only.
+the same thing.  :func:`particles_from_reference` does the same for an SMC
+particle cloud (the draws with their log-likelihoods and log-priors).  This
+module imports no JAX: it takes numpy arrays only.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_reference"]
+__all__ = ["state_from_reference", "particles_from_reference"]
 
 _KEYS = ("param_labels", "theta_default", "est_idx", "static_idx",
          "dynamic_idx", "U")
@@ -33,16 +36,7 @@ def state_from_reference(arrays: dict[str, np.ndarray], port_ss
     missing = [k for k in _KEYS if k not in arrays]
     if missing:
         raise ValueError(f"state_from_reference: missing arrays {missing}")
-    ref_labels = [str(s) for s in np.asarray(arrays["param_labels"]).tolist()]
-    port_labels = list(port_ss.param_labels)
-    if set(ref_labels) != set(port_labels) or len(ref_labels) != len(port_labels):
-        raise ValueError(
-            f"estimated parameters differ: reference only "
-            f"{sorted(set(ref_labels) - set(port_labels))}, port only "
-            f"{sorted(set(port_labels) - set(ref_labels))}")
-    if ref_labels != port_labels:
-        raise ValueError(f"estimated-parameter order differs: reference "
-                         f"{ref_labels}, port {port_labels}")
+    port_labels = _checked_labels(arrays["param_labels"], port_ss)
     theta = np.asarray(arrays["theta_default"], dtype=np.float64)
     if not np.array_equal(theta, port_ss._theta_default):
         raise ValueError("default parameter vectors differ")
@@ -58,10 +52,56 @@ def state_from_reference(arrays: dict[str, np.ndarray], port_ss
         if not np.array_equal(np.asarray(arrays[key], dtype=np.int64),
                               np.asarray(port_idx, dtype=np.int64)):
             raise ValueError(f"static/dynamic plan differs in {key}")
-    U = np.asarray(arrays["U"], dtype=np.float64)
-    if U.ndim != 2 or U.shape[1] != len(port_labels):
-        raise ValueError(f"U must be (B, {len(port_labels)}), got {U.shape}")
-    col = [ref_labels.index(name) for name in port_labels]
-    return {"U": torch.as_tensor(U[:, col]),
+    return {"U": torch.as_tensor(_checked_draws(arrays["U"], port_labels)),
             "theta_default": torch.tensor(theta),
             "est_idx": torch.as_tensor(est_port)}
+
+
+def particles_from_reference(arrays: dict[str, np.ndarray], port_ss
+                             ) -> dict[str, torch.Tensor]:
+    """Map a particle cloud of the reference's SMC sampler onto ``port_ss``.
+
+    ``arrays`` holds ``param_labels`` (the reference's column order), ``U``
+    (N, n_estimated) unconstrained particles, and their data
+    log-likelihoods ``ll`` (N,) and log-priors ``lp`` (N,).  Returns
+    ``{"U", "ll", "lp"}`` as float64 tensors in the port's column order.
+    Raises ``ValueError`` on a mismatch in names or order, or when ``ll`` or
+    ``lp`` is not one value per particle.
+    """
+    missing = [k for k in ("param_labels", "U", "ll", "lp") if k not in arrays]
+    if missing:
+        raise ValueError(f"particles_from_reference: missing arrays {missing}")
+    U = _checked_draws(arrays["U"], _checked_labels(arrays["param_labels"],
+                                                    port_ss))
+    out = {"U": torch.as_tensor(U)}
+    for key in ("ll", "lp"):
+        v = np.array(arrays[key], dtype=np.float64)
+        if v.shape != (U.shape[0],):
+            raise ValueError(f"{key} must be ({U.shape[0]},), one value per "
+                             f"particle, got {v.shape}")
+        out[key] = torch.as_tensor(v)
+    return out
+
+
+def _checked_labels(param_labels, port_ss) -> list[str]:
+    """The port's estimated-parameter names, after checking that the
+    reference's are the same names in the same order."""
+    ref_labels = [str(s) for s in np.asarray(param_labels).tolist()]
+    port_labels = list(port_ss.param_labels)
+    if set(ref_labels) != set(port_labels) or len(ref_labels) != len(port_labels):
+        raise ValueError(
+            f"estimated parameters differ: reference only "
+            f"{sorted(set(ref_labels) - set(port_labels))}, port only "
+            f"{sorted(set(port_labels) - set(ref_labels))}")
+    if ref_labels != port_labels:
+        raise ValueError(f"estimated-parameter order differs: reference "
+                         f"{ref_labels}, port {port_labels}")
+    return port_labels
+
+
+def _checked_draws(U, port_labels: list[str]) -> np.ndarray:
+    """A float64 copy of the draws, after checking their shape."""
+    U = np.array(U, dtype=np.float64)
+    if U.ndim != 2 or U.shape[1] != len(port_labels):
+        raise ValueError(f"U must be (B, {len(port_labels)}), got {U.shape}")
+    return U

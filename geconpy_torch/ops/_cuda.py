@@ -49,6 +49,8 @@ _SIGNATURES = {
     "gcp_dare_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "gcp_settle": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_settle_filter": ([_I, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "gcp_filter_tail": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P], ctypes.c_int),

@@ -1,10 +1,15 @@
-"""Batched Kalman settle phase: CUDA kernel K2 and its plain twin.
+"""Batched Kalman settle phase, alone (CUDA kernel K2) and fused with the
+constant-gain tail (CUDA kernel K5), each with its plain twin.
 
 Mirrors ``geconpy_tpu/ops/pallas_settle.py:248`` (``pallas_settle_parts``)
 as :func:`settle_parts`: P0 by 10 Lyapunov doublings, ``n_settle`` exact
 Riccati steps (Joseph form; per-step log-likelihood with log det F from the
 Gauss-Jordan pivots), then the frozen-gain quantities (M, TK, F^{-1},
 const) of the constant-gain tail.  Fully observed data only.
+:func:`settle_filter_loglik` mirrors ``pallas_settle_filter_loglik``
+(``:186``): the same settle followed, in the same kernel launch, by the
+constant-gain tail over the rest of the sample, returning each draw's whole
+log-likelihood; M, TK and F^{-1} never reach device memory.
 
 Kernel source note.  ``csrc/settle.cu`` replaces the TPU kernel
 ``_settle_kernel`` (``ops/pallas_settle.py:40``).  On the H100 it is
@@ -16,11 +21,21 @@ TPU's one-hot row extraction and lane padding.  It takes and returns the
 caller's dtype but runs the recursion in float64, and so does the plain
 version: without measurement error F is ill-conditioned, and two float32
 recursions differed by up to 2.7e-3 relative in ll_head on the SW-2007
-sweep (H100 run).
+sweep (H100 run).  The same source compiled with ``kFused`` replaces
+``_fused_kernel`` (``ops/pallas_settle.py:108``): the settle's body, then
+the tail of ``csrc/filter_tail.cu`` on shared-memory buffers that the settle
+no longer needs, so K5 takes no more shared memory than K2.  K5's tail runs
+in float64 straight from the float64 settle, so with float32 I/O its result
+is not bitwise K2 followed by K3 (which round M, TK, F^{-1}, const and
+x_pred0 to float32 in between); it is held to the sweep's bar against the
+float64 path instead.  The TPU kernel's one-hot row extraction over the
+sample, its broadcast of ``y`` over the lanes, the lane padding and the
+``tile`` argument are gone: a block reads row ``t`` of ``y`` from device
+memory.
 
-:func:`_settle_plain` is the plain PyTorch version of the same schedule.
-The wrapper uses it for CPU tensors; a CUDA tensor goes to the kernel or the
-wrapper raises.
+:func:`_settle_plain` and :func:`_settle_filter_plain` are the plain PyTorch
+versions of the same schedules.  The wrappers use them for CPU tensors; a
+CUDA tensor goes to the kernel or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -30,10 +45,11 @@ import math
 import torch
 
 from . import _cuda
+from .batched_filter import _filter_tail_plain
 from .linalg import gj_eliminate
 from .precision import highest_precision
 
-__all__ = ["settle_parts", "LYAP_ITERS"]
+__all__ = ["settle_parts", "settle_filter_loglik", "LYAP_ITERS"]
 
 _LOG2PI = float(math.log(2.0 * math.pi))
 
@@ -93,23 +109,45 @@ def _settle_recursion(y_head, T, RQR, Z, H, d, lyap_iters: int):
     return ll, (T @ x)[..., 0], M, TK, Finv, const
 
 
-def _settle_cuda(y_head, T, RQR, Z, H, d, lyap_iters: int):
-    """Launch the K2 kernel."""
+@highest_precision()
+def _settle_filter_plain(y, T, RQR, Z, H, d, n_settle: int, lyap_iters: int):
+    """Plain PyTorch version of the K5 kernel (batch-first): the settle over
+    ``y[:n_settle]`` and the constant-gain tail over the rest, all in
+    float64 with no rounding in between; returns the inputs' dtype."""
+    y64, *mats = (X.to(torch.float64) for X in (y, T, RQR, Z, H, d))
+    ll_head, x_pred0, M, TK, Finv, const = _settle_recursion(
+        y64[:n_settle], *mats, lyap_iters)
+    ll_tail = _filter_tail_plain(y64[n_settle:], M, TK, mats[2], mats[4],
+                                 Finv, const, x_pred0)
+    return (ll_head + ll_tail).to(T.dtype)
+
+
+def _checked_library(name, y, T, RQR, Z, H, d):
+    """Check a settle kernel's inputs and its shared memory against the
+    device's limit; returns the kernel library."""
     Bn, n, _ = T.shape
     k = Z.shape[1]
-    n_settle = y_head.shape[0]
     _cuda.require_cuda_inputs(
-        "settle_parts",
-        {"y_head": (y_head, (n_settle, k)), "T": (T, (Bn, n, n)),
+        name,
+        {"y": (y, (y.shape[0], k)), "T": (T, (Bn, n, n)),
          "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)), "H": (H, (Bn, k, k)),
          "d": (d, (Bn, k))}, T.dtype, T.device)
     lib = _cuda.library()
     smem = lib.gcp_settle_smem_bytes(n, k)
     if smem > _cuda.smem_limit(T.device):
         raise ValueError(
-            f"settle_parts: n={n}, k={k} in {T.dtype} needs {smem} bytes of "
+            f"{name}: n={n}, k={k} in {T.dtype} needs {smem} bytes of "
             f"shared memory per block, above the device's "
             f"{_cuda.smem_limit(T.device)}")
+    return lib
+
+
+def _settle_cuda(y_head, T, RQR, Z, H, d, lyap_iters: int):
+    """Launch the K2 kernel."""
+    Bn, n, _ = T.shape
+    k = Z.shape[1]
+    n_settle = y_head.shape[0]
+    lib = _checked_library("settle_parts", y_head, T, RQR, Z, H, d)
     empty = lambda *shape: torch.empty(shape, dtype=T.dtype,  # noqa: E731
                                        device=T.device)
     ll, xp, M, TK, Finv, const = (empty(Bn), empty(Bn, n), empty(Bn, n, n),
@@ -145,3 +183,42 @@ def settle_parts(y_head, T, RQR, Z, H, d):
 
 #: launches of the CUDA kernel since the count was last set to 0
 settle_parts.launches = 0
+
+
+def _settle_filter_cuda(y, T, RQR, Z, H, d, n_settle: int, lyap_iters: int):
+    """Launch the K5 kernel."""
+    Bn, n, _ = T.shape
+    k = Z.shape[1]
+    lib = _checked_library("settle_filter_loglik", y, T, RQR, Z, H, d)
+    ll = torch.empty((Bn,), dtype=T.dtype, device=T.device)
+    if Bn:
+        code = lib.gcp_settle_filter(
+            _cuda.dtype_code(T.dtype), T.data_ptr(), RQR.data_ptr(),
+            Z.data_ptr(), H.data_ptr(), d.data_ptr(), y.data_ptr(),
+            ll.data_ptr(), Bn, n, k, n_settle, y.shape[0], lyap_iters,
+            _cuda.stream_handle(T.device))
+        _cuda.check(code, "settle_filter_loglik")
+        settle_filter_loglik.launches += 1
+    return ll
+
+
+def settle_filter_loglik(y, T, RQR, Z, H, d, n_settle: int = 32):
+    """Fused settle + constant-gain Kalman log-likelihood: (Bn,) totals.
+
+    ``y`` (n_total, k) is the whole fully observed sample, shared across the
+    batch; the other inputs are :func:`settle_parts`'s.  ``n_settle`` exact
+    Riccati steps, then the frozen-gain tail over the remaining
+    observations; ``n_settle`` beyond the sample is the whole sample, as in
+    the reference's ``steady_state_kalman_loglik``.
+    """
+    y, T, RQR, Z, H, d = (X.contiguous() for X in (y, T, RQR, Z, H, d))
+    n_settle = min(int(n_settle), y.shape[0])
+    if T.device.type == "cpu":
+        return _settle_filter_plain(y, T, RQR, Z, H, d, n_settle, LYAP_ITERS)
+    if T.device.type == "cuda":
+        return _settle_filter_cuda(y, T, RQR, Z, H, d, n_settle, LYAP_ITERS)
+    raise ValueError(f"settle_filter_loglik: no kernel for {T.device}")
+
+
+#: launches of the CUDA kernel since the count was last set to 0
+settle_filter_loglik.launches = 0

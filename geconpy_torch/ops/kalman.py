@@ -1,12 +1,18 @@
-"""The stationary Kalman filter of the value+grad path, batched.
+"""The stationary Kalman filter of the value+grad path and the
+steady-state (settle, then constant gain) filter of the sweep, batched.
 
 Mirrors ``geconpy_tpu/ops/kalman.py`` as a subset: ``_spd_inverse`` and
 ``_spd_inverse_logdet`` (:161-184), ``_dare_step`` (:220),
 ``dare_residual_settled`` (:232), ``_stein_adjoint`` (:369), the implicit
 DARE adjoint ``_implicit_dare_P`` (:393-425), the Hewer settle
 ``_make_hewer_stage`` (:428) and ``_hewer_settle`` (:452),
-``stationary_kalman_loglik`` (:565, ``settle_method="hewer"``) and
-``stationary_loglik_from_P`` (:643).  Every function takes leading batch
+``stationary_kalman_loglik`` (:565, ``settle_method="hewer"``),
+``stationary_loglik_from_P`` (:643), the exact filter step ``_filter_step``
+(:71, fully observed), ``steady_state_kalman_loglik`` (:679) and
+``steady_state_filter_parts`` (:752).  The last two are the sweep's
+``settle="xla"`` and the independent oracle of the settle kernels: they
+factor F by Cholesky where the kernels eliminate by Gauss-Jordan.  Every
+function takes leading batch
 dimensions (the reference's ``vmap``); the observations ``y`` (periods, k)
 are shared by the batch.
 
@@ -26,7 +32,8 @@ from .lyapunov import _doubling, amax_abs
 from .precision import highest_precision
 
 __all__ = ["dare_residual_settled", "stationary_kalman_loglik",
-           "stationary_loglik_from_P"]
+           "stationary_loglik_from_P", "steady_state_filter_parts",
+           "steady_state_kalman_loglik"]
 
 _ROADMAP = "ROADMAP Queue 1"
 
@@ -250,3 +257,104 @@ def stationary_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 32,
                                n_settle)
     ll = stationary_loglik_from_P(y, T, RQR, Z, H, d, P)
     return torch.where(settled, ll, torch.full_like(ll, -torch.inf))
+
+
+def _chol_nan(F: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each draw's F; NaN (never an exception) for
+    a draw whose F is not positive definite, so it poisons only itself."""
+    L, info = torch.linalg.cholesky_ex(F)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, torch.nan))
+
+
+def _filter_step(T, RQR, Z, d, H, x_prev, P_prev, y_t):
+    """One exact predict + update on a fully observed ``y_t`` (k,):
+    returns (x_filt, P_filt, ll_t), the Joseph-form covariance symmetrised."""
+    x_pred = (T @ x_prev[..., None])[..., 0]
+    P_pred = T @ P_prev @ T.mT + RQR
+    v = y_t - (Z @ x_pred[..., None])[..., 0] - d
+    PZt = P_pred @ Z.mT
+    F = Z @ PZt + H
+    chol_F = _chol_nan(F)
+    w = torch.cholesky_solve(v[..., None], chol_F)[..., 0]
+    K = torch.cholesky_solve(PZt.mT, chol_F).mT
+    x_filt = x_pred + (K @ v[..., None])[..., 0]
+    IKZ = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device) - K @ Z
+    P_filt = IKZ @ P_pred @ IKZ.mT + K @ H @ K.mT
+    P_filt = 0.5 * (P_filt + P_filt.mT)
+    logdet = 2.0 * torch.log(torch.diagonal(chol_F, dim1=-2, dim2=-1)).sum(-1)
+    ll_t = -0.5 * (Z.shape[-2] * _LOG2PI + logdet + (v * w).sum(-1))
+    return x_filt, P_filt, ll_t
+
+
+def _settle_exact(y_head, T, R, Q, Z, H, d):
+    """The exact filter over ``y_head`` from the zero state and the
+    unconditional covariance: (ll_head, x_filt, P_filt, RQR, d)."""
+    if bool(torch.isnan(y_head).any()):
+        raise NotImplementedError(
+            "the steady-state filter with missing data needs the sequential "
+            f"Kalman filter, not ported yet ({_ROADMAP} item 6)")
+    if d is None:
+        d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
+    RQR = R @ Q @ R.mT
+    P = _doubling(T, RQR, 1e-12, 60)
+    x = T.new_zeros(T.shape[:-1])
+    ll = T.new_zeros(T.shape[:-2])
+    for t in range(y_head.shape[0]):
+        x, P, ll_t = _filter_step(T, RQR, Z, d, H, x, P, y_head[t].to(T.dtype))
+        ll = ll + ll_t
+    return ll, x, P, RQR, d
+
+
+def _frozen_gain(T, RQR, Z, H, P_filt):
+    """(M, TK, Finv, const) of the constant-gain tail at the settled
+    covariance."""
+    k = Z.shape[-2]
+    P_pred = T @ P_filt @ T.mT + RQR
+    F = Z @ P_pred @ Z.mT + H
+    chol_F = _chol_nan(F)
+    K = torch.cholesky_solve((P_pred @ Z.mT).mT, chol_F).mT
+    Finv = torch.cholesky_solve(
+        torch.eye(k, dtype=T.dtype, device=T.device).expand(F.shape), chol_F)
+    logdet = 2.0 * torch.log(torch.diagonal(chol_F, dim1=-2, dim2=-1)).sum(-1)
+    TK = T @ K
+    return T - TK @ Z, TK, Finv, -0.5 * (k * _LOG2PI + logdet)
+
+
+@highest_precision()
+def steady_state_filter_parts(y_head, T, R, Q, Z, H, d=None):
+    """Settle phase + frozen-gain quantities for the constant-gain tail:
+    the exact filter over ``y_head`` (n_settle, k), shared and fully
+    observed, then (ll_head, x_pred0, M, TK, Finv, const) per draw, the
+    inputs of :func:`~geconpy_torch.ops.batched_filter.filter_tail`.
+
+    T (..., n, n), R (..., n, m), Q (..., m, m), Z (..., k, n),
+    H (..., k, k), d (..., k).  Plain batched PyTorch: the sweep's
+    ``settle="xla"`` and the oracle of the settle kernel.
+    """
+    ll_head, x_filt, P_filt, RQR, _d = _settle_exact(y_head, T, R, Q, Z, H, d)
+    M, TK, Finv, const = _frozen_gain(T, RQR, Z, H, P_filt)
+    return ll_head, (T @ x_filt[..., None])[..., 0], M, TK, Finv, const
+
+
+@highest_precision()
+def steady_state_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 48):
+    """Constant-gain (steady-state) Kalman log-likelihood, batched.
+
+    ``n_settle`` exact steps (at most the sample) while the covariance
+    settles, then the gain, F^{-1} and log det F are frozen and each
+    remaining period costs one n x n matrix-vector product.  ``y``
+    (periods, k) is shared and fully observed.  A non-finite total is
+    -inf.  The oracle of the fused settle + tail kernel.
+    """
+    n_settle = min(int(n_settle), y.shape[0])
+    ll, x_filt, P_filt, RQR, d = _settle_exact(y[:n_settle], T, R, Q, Z, H, d)
+    if n_settle < y.shape[0]:
+        M, TK, Finv, const = _frozen_gain(T, RQR, Z, H, P_filt)
+        x = (T @ x_filt[..., None])[..., 0]
+        for t in range(n_settle, y.shape[0]):
+            yd = y[t].to(T.dtype) - d
+            v = yd - (Z @ x[..., None])[..., 0]
+            ll = ll + const - 0.5 * (v * (Finv @ v[..., None])[..., 0]).sum(-1)
+            x = (M @ x[..., None])[..., 0] + (TK @ yd[..., None])[..., 0]
+    return torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -torch.inf))

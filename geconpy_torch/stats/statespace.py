@@ -17,10 +17,11 @@ A state space lives on one device, the GPU unless it is built with
 ``device="cpu"``: its results are put there, and an input on another device
 raises.  The sweep ``f(U) -> (B,)`` runs batched torch code for the priors,
 the analytic steady state, the symbolic linearization and the static
-reduction, then three CUDA kernels: cycle reduction
-(:mod:`~geconpy_torch.ops.batched_cycle_reduction`), the Riccati settle
-(:mod:`~geconpy_torch.ops.batched_settle`) and the constant-gain tail
-(:mod:`~geconpy_torch.ops.batched_filter`).  The value+grad path runs the
+reduction, then the CUDA kernels: cycle reduction
+(:mod:`~geconpy_torch.ops.batched_cycle_reduction`), then either the
+Riccati settle (:mod:`~geconpy_torch.ops.batched_settle`) and the
+constant-gain tail (:mod:`~geconpy_torch.ops.batched_filter`), or the one
+fused kernel for both (``settle="fused"``).  The value+grad path runs the
 cycle-reduction kernel K4 and, with ``settle="pallas"``, the DARE kernel
 (:mod:`~geconpy_torch.ops.batched_dare`); gradients re-attach through the
 implicit policy and DARE adjoints.  On CPU tensors the kernels' plain
@@ -48,9 +49,9 @@ from ..ops.batched_cycle_reduction import (cycle_reduction,
                                            static_pivot_order)
 from ..ops.batched_dare import dare_settle
 from ..ops.batched_filter import filter_tail
-from ..ops.batched_settle import settle_parts
+from ..ops.batched_settle import settle_filter_loglik, settle_parts
 from ..ops.kalman import (dare_residual_settled, stationary_kalman_loglik,
-                          stationary_loglik_from_P)
+                          stationary_loglik_from_P, steady_state_filter_parts)
 from ..ops.precision import highest_precision
 from ..ops.static_reduction import (expand_reduced_policy,
                                     finalize_reduced_policy,
@@ -131,10 +132,11 @@ class DSGEStateSpace:
         ``shock_std``; ``measurement_error`` is a list of observed names
         (each with an estimated std, prior ``me_prior``, default
         HalfNormal(0.1)) or a dict name -> float | Distribution.
-        ``filter_type`` is ``"steady_state"`` (the forward sweep) or
-        ``"stationary"`` (the value+grad path, with the ``"hewer"`` settle).
-        Observation equations, a full shock covariance, the other filters
-        and settle methods are not ported yet.
+        ``filter_type`` is ``"steady_state"`` (the forward sweep with its
+        ``"xla"``, ``"pallas"`` and ``"fused"`` settles, which SMC runs on)
+        or ``"stationary"`` (the value+grad path, with the ``"hewer"``
+        settle method).  Observation equations, a full shock covariance,
+        the other filters and settle methods are not ported yet.
         """
         if observation_equations:
             raise NotImplementedError(
@@ -454,19 +456,28 @@ class DSGEStateSpace:
         return solve_batch
 
     # ----------------------------------------------------- batched sweep
-    def build_batched_loglik(self, data: np.ndarray, n_settle: int = 32):
+    def build_batched_loglik(self, data: np.ndarray, n_settle: int = 32,
+                             settle: str = "pallas"):
         """Gradient-free batched log-posterior ``f(U) -> (B,)`` for sweeps.
 
         ``U`` is (B, n_estimated) unconstrained draws on the state space's
-        device; the result is there in U's dtype.  The three kernels work in
+        device; the result is there in U's dtype.  The kernels work in
         U's dtype; the algebra around them (priors, steady state,
         linearization, static reduction, covariances) runs in float64:
         in float32 that algebra alone moved the SW-2007 likelihood by
         ~3e-4 relative, where the float32 kernels fed float64 algebra
         stay near 1e-4 (see PERF.md).  Pipeline: batched priors,
         steady state and linearization -> static reduction -> cycle
-        reduction kernel -> settle kernel over ``data[:n_settle]`` ->
-        constant-gain tail kernel over the rest.  Rejected draws get -inf.
+        reduction kernel -> the settle over ``data[:n_settle]`` and the
+        constant-gain tail over the rest.  ``settle`` takes the reference's
+        three values: ``"pallas"`` (the default) is the settle kernel then
+        the tail kernel; ``"fused"`` is one kernel for both
+        (:func:`~geconpy_torch.ops.batched_settle.settle_filter_loglik`),
+        which never writes M, TK and F^{-1} to device memory; ``"xla"`` is
+        the plain batched Cholesky settle
+        (:func:`~geconpy_torch.ops.kalman.steady_state_filter_parts`, part
+        of the float64 algebra) then the tail kernel.  Rejected draws get
+        -inf.
         """
         data = np.asarray(data)
         if data.ndim != 2 or data.shape[1] != len(self.observed_states):
@@ -474,6 +485,9 @@ class DSGEStateSpace:
                              f"{len(self.observed_states)}), got {data.shape}")
         if bool(np.isnan(data).any()):
             raise ValueError("build_batched_loglik requires fully observed data")
+        if settle not in ("xla", "pallas", "fused"):
+            raise ValueError(
+                f"settle must be 'xla', 'pallas' or 'fused', got {settle!r}")
         pre_policy, post_policy = self._solution_pieces()
         solve_batch = self._build_policy_batch()
         y_np = np.ascontiguousarray(data, dtype=np.float64)
@@ -485,26 +499,40 @@ class DSGEStateSpace:
             kernel-vs-plain checks at the sweep's own shapes)."""
             self._check_device(U, "U")
             kdt = U.dtype
-            y = torch.as_tensor(y_np, device=U.device).to(kdt)
+            y64 = torch.as_tensor(y_np, device=U.device)
+            y = y64.to(kdt)
             pre = pre_policy(U.to(torch.float64))
             T, R, solver_ok = solve_batch(pre, kdt, record)
             sol = post_policy(pre, T, R, solver_ok)
+            rec = {} if record is None else record
+            rec["accepted"] = ok = (sol["ss_success"] & sol["solver_success"]
+                                    & sol["stable"])
             R_aug = sol["R_aug"]
-            RQR = R_aug @ sol["Q"] @ R_aug.transpose(-1, -2)
-            settle_in = (y[:n_settle],) + tuple(
-                X.to(kdt).contiguous() for X in (sol["T_aug"], RQR, sol["Z"],
-                                                  sol["H"], sol["d"]))
-            ll_head, x_pred0, M, TK, Finv, const = settle_parts(*settle_in)
-            tail_in = (y[n_settle:], M, TK, settle_in[3], settle_in[5], Finv,
-                       const, x_pred0)
-            ll_tail = filter_tail(*tail_in)
-            ok = sol["ss_success"] & sol["solver_success"] & sol["stable"]
-            if record is not None:
-                record["settle_parts"] = settle_in
-                record["filter_tail"] = tail_in
-                record["accepted"] = ok
-            ll = ll_head.to(torch.float64) + ll_tail.to(torch.float64) \
-                + sol["logprior"]
+            to_kernel = lambda *Xs: tuple(  # noqa: E731
+                X.to(kdt).contiguous() for X in Xs)
+            if settle == "xla":
+                head = to_kernel(*steady_state_filter_parts(
+                    y64[:n_settle], sol["T_aug"], R_aug, sol["Q"], sol["Z"],
+                    sol["H"], sol["d"]))
+                Z_k, d_k = to_kernel(sol["Z"], sol["d"])
+            else:
+                RQR = R_aug @ sol["Q"] @ R_aug.transpose(-1, -2)
+                mats = to_kernel(sol["T_aug"], RQR, sol["Z"], sol["H"],
+                                 sol["d"])
+                Z_k, d_k = mats[2], mats[4]
+            if settle == "fused":
+                rec["settle_filter_loglik"] = (y,) + mats
+                ll_data = settle_filter_loglik(y, *mats, n_settle=n_settle)
+            else:
+                if settle == "pallas":
+                    rec["settle_parts"] = (y[:n_settle],) + mats
+                    head = settle_parts(*rec["settle_parts"])
+                ll_head, x_pred0, M, TK, Finv, const = head
+                rec["filter_tail"] = (y[n_settle:], M, TK, Z_k, d_k, Finv,
+                                      const, x_pred0)
+                ll_data = ll_head.to(torch.float64) \
+                    + filter_tail(*rec["filter_tail"]).to(torch.float64)
+            ll = ll_data.to(torch.float64) + sol["logprior"]
             return torch.where(ok & torch.isfinite(ll), ll,
                                torch.full_like(ll, -math.inf)).to(kdt)
 

@@ -3,7 +3,7 @@
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips elsewhere; the decision is taken inside a fixture, never at import.
 On the GPU: ``python -m pytest tests/test_torch_cuda.py -q``.  The inputs
-are SW-2007's own kernel inputs from the sweep (K1-K3) and from the
+are SW-2007's own kernel inputs from the sweep (K1-K3, K5) and from the
 value+grad path (K4, K6) at a small batch; float64 outputs agree at rel
 1e-9 (min |pivot| aside: near-tied pivots may take another row at rounding
 level) and each wrapper counts its launches.
@@ -19,7 +19,10 @@ from geconpy_torch.ops.batched_cycle_reduction import (
     cycle_reduction_policy)
 from geconpy_torch.ops.batched_dare import _dare_plain, dare_settle
 from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
-from geconpy_torch.ops.batched_settle import LYAP_ITERS, _settle_plain, settle_parts
+from geconpy_torch.ops.batched_settle import (LYAP_ITERS, _settle_filter_plain,
+                                              _settle_plain,
+                                              settle_filter_loglik,
+                                              settle_parts)
 from geconpy_torch.ops.kalman import dare_residual_settled
 from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
@@ -50,6 +53,8 @@ def kernel_inputs(device):
                                           device=device)
     record: dict = {}
     ss.build_batched_loglik(data, n_settle=32)(U, record=record)
+    ss.build_batched_loglik(data, n_settle=32, settle="fused")(
+        U, record=record)
     ss_vg = DSGEStateSpace(model, device=device).configure(
         **kw, filter_type="stationary")
     ss_vg.build_batched_logpost_and_grad(data, settle="pallas")(
@@ -105,6 +110,23 @@ def test_settle_kernel_matches_plain(kernel_inputs):
     assert settle_parts.launches == before + 1
     for g, r in zip(got, _settle_plain(*args, LYAP_ITERS)):
         assert _rel(g, r) < 1e-9
+
+
+def test_fused_settle_tail_kernel_matches_plain(kernel_inputs):
+    args = kernel_inputs["settle_filter_loglik"]
+    before = settle_filter_loglik.launches
+    got = settle_filter_loglik(*args, n_settle=32)
+    torch.cuda.synchronize()
+    assert settle_filter_loglik.launches == before + 1
+    assert _rel(got, _settle_filter_plain(*args, 32, LYAP_ITERS)) < 1e-9
+    # float32 I/O around the float64 recursion: the sweep's bar
+    got32 = settle_filter_loglik(*[a.float() for a in args], n_settle=32)
+    assert got32.dtype == torch.float32
+    assert _rel(got32.double(), got) < 5e-4
+    # a settle over the whole sample (and beyond) is the settle kernel's
+    # head likelihood: the tail is empty and no row past the sample is read
+    whole = settle_filter_loglik(*args, n_settle=10**6)
+    assert _rel(whole, settle_parts(*args)[0]) < 1e-9
 
 
 def test_filter_tail_kernel_matches_plain(kernel_inputs):

@@ -6,7 +6,9 @@ tensors, so through the kernels' plain versions) must equal the reference's
 interpret=True)`` at rtol 1e-8, on the two configurations of
 ``tests/stats/test_statespace.py`` (SW-2007 with 5 estimated parameters and
 y/pinf/r observed; ``rbc_estimation`` with Y/C observed under measurement
-error).  The draws cross over by name through
+error), and so must each of the three settles (``"xla"``, ``"pallas"``,
+``"fused"``) against the reference's sweep with the same ``settle``.  The
+draws cross over by name through
 ``geconpy_torch.interop.state_from_reference``; the same draws are finite
 on both sides.
 """
@@ -100,6 +102,35 @@ def test_batched_loglik_matches_reference(case):
     assert np.isfinite(ll_ref).sum() >= 6
     ok = np.isfinite(ll_ref)
     np.testing.assert_allclose(ll_port[ok], ll_ref[ok], rtol=1e-8)
+
+
+@pytest.mark.parametrize("settle", ["xla", "pallas", "fused"])
+def test_batched_loglik_settles_match_reference(case, settle):
+    """Each settle of the sweep against the reference's sweep with the same
+    settle: equal accept masks, rtol 1e-8 on the draws both accept."""
+    _name, ref_ss, port_ss, data, U = case
+    f_ref = jax.jit(ref_ss.build_batched_loglik(
+        data, n_settle=16, policy="pallas", settle=settle, cr_tile=8,
+        interpret=True))
+    ll_ref = np.asarray(f_ref(U))
+    state = state_from_reference(_reference_arrays(ref_ss, U), port_ss)
+    ll_port = port_ss.build_batched_loglik(data, n_settle=16, settle=settle)(
+        state["U"]).numpy()
+    np.testing.assert_array_equal(np.isfinite(ll_port), np.isfinite(ll_ref))
+    ok = np.isfinite(ll_ref)
+    assert ok.sum() >= 6
+    np.testing.assert_allclose(ll_port[ok], ll_ref[ok], rtol=1e-8)
+
+
+def test_batched_loglik_refuses_an_unknown_settle(case):
+    """The reference's message, word for word."""
+    _name, ref_ss, port_ss, data, _U = case
+    with pytest.raises(ValueError) as ref_err:
+        ref_ss.build_batched_loglik(data, settle="cuda")
+    with pytest.raises(ValueError) as port_err:
+        port_ss.build_batched_loglik(data, settle="cuda")
+    assert str(port_err.value) == str(ref_err.value)
+    assert "'xla', 'pallas' or 'fused'" in str(port_err.value)
 
 
 def test_configure_matches_reference(case):
