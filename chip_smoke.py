@@ -13,7 +13,10 @@ Phases, one line each (plus one line per kernel in phase 3):
    from the value+grad path at batch 512.  Float64: max rel diff <= 1e-9
    and equal success flags; float32: rel <= 5e-4 on the likelihood pieces
    and K6's P, success flags (K1, K4) and settle flags (K6) equal on >= 99%
-   of draws; with both times;
+   of draws; with both times.  Then K2 and K5 once more at a second shape,
+   the sweep's intermediates of ``rbc_estimation`` with one observable
+   (n = 9, k = 1: no multiple of the kernels' tiles) at batch 1001 (no
+   multiple of the draws per block), same tolerances, one line each;
 4. the forward sweep: SW-2007 (22 estimated parameters, 7 observables,
    steady-state filter, 32 settle steps, 200 periods, batch 4096, float32)
    through ``build_batched_loglik``, once per settle.  ``"pallas"``: K1,
@@ -22,7 +25,8 @@ Phases, one line each (plus one line per kernel in phase 3):
    both accept.  For each: >= 99% of draws finite, the first 512 within
    rel 5e-4 of the port's float64 path on the CPU, then evals/s over 20
    repetitions (the two settles timed in turns, 10 repetitions a turn:
-   pallas, fused, fused, pallas) and the peak device memory.  ``"xla"`` (plain PyTorch
+   pallas, fused, fused, pallas) and the peak device memory; then a stage
+   breakdown of the sweep and, per settle, the device's busy share.  ``"xla"`` (plain PyTorch
    settle, launch-bound, not the card's main path): one call at batch 512
    against the same float64 reference, timed once;
 5. the value+grad path: the same model with the stationary filter, batch
@@ -70,6 +74,9 @@ SW_ESTIMATED = [
 BATCH, PERIODS, N_SETTLE, N_REPS, N_CHECK = 4096, 200, 32, 20, 512
 VG_BATCH, VG_CHECK, VG_REPS = 512, 64, 10
 XLA_BATCH = 512
+# the second shape of phase 3 (K2 and K5 only)
+SMALL_MODEL, SMALL_OBS = "rbc_estimation", ["Y"]
+SMALL_BATCH, SMALL_PERIODS, SMALL_SETTLE = 1001, 60, 16
 # resample_ess above target_ess (both default to 0.5) resamples at every
 # tempering stage; with the two equal, a stage that lands on the threshold
 # is followed by stages whose step is ~1e-15 until rounding noise tips the
@@ -78,9 +85,10 @@ SMC_KW = dict(n_particles=4096, n_mh=2, seed=0, settle="fused",
               resample_ess=0.6)
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
-# float32 outside them, and the HBM3 rate.  The float64 kernels use no
-# tensor cores, so the float64 tensor-core peak is the least time the card
-# could take for their work (the float64 vector peak is 34 TFLOP/s).
+# float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
+# settle kernels (K2, K5) use the tensor cores; all are held against the
+# float64 tensor-core peak, the least time the card could take for their
+# work (the float64 vector peak is 34 TFLOP/s).
 PEAK_FP64_TC, PEAK_FP32, HBM_BYTES_S = 67e12, 67e12, 3.35e12
 
 # name -> (label, source, TPU kernel it replaces)
@@ -219,45 +227,64 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
     the resident blocks per SM that they and the shared memory at the path's
     shapes allow (H100: 64K registers, 2048 threads and 228 KB of shared
-    memory per SM, 1 KB of it reserved per block)."""
+    memory per SM, 1 KB of it reserved per block).  The settle kernels hold
+    several draws per block (128 threads each) and stage ``y`` in shared
+    memory: their geometry is the library's own answer for the sweep's
+    launch.  Spills of functions that are not kernels are listed last."""
     import re
 
     import torch
 
-    regs, spills, current = {}, {}, None
+    regs, spills, labels, current, fn = {}, {}, {}, None, None
     for line in (build_dir / "nvcc.log").read_text().splitlines():
-        found = re.search(r"entry function '_ZN3gcp(\d+)(\w+)", line)
+        found = re.search(r"entry function '(_ZN3gcp(\d+)(\w+))'", line)
         if found:
-            size, rest = int(found.group(1)), found.group(2)
+            size, rest = int(found.group(2)), found.group(3)
             name, args = rest[:size], rest[size:]
             io = "f64" if args.startswith("Id") else "f32"
             # the compile-time switch: K1's selection tail, K5's filter tail
             tag = {"cr_kernel": "+sel", "settle_kernel": "+tail"}.get(
                 name, "") if "Lb1E" in args else ""
             current = f"{name}{tag}<{io}>"
+            labels[found.group(1)] = current
+        owner = re.search(r"Function properties for (\S+)", line)
+        if owner:
+            fn = owner.group(1)
         used = re.search(r"Used (\d+) registers", line)
         if used and current:
             regs[current] = int(used.group(1))
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if spill and current:
-            spills[current] = int(spill.group(1))
+        if spill and fn:
+            spills[fn] = spills.get(fn, 0) + int(spill.group(1))
     props = torch.cuda.get_device_properties(0)
     sm_smem = int(getattr(props, "shared_memory_per_multiprocessor", 233472))
     smem = {"cr_kernel+sel": lib.gcp_cr_policy_smem_bytes(n, m),
             "cr_kernel": lib.gcp_cr_smem_bytes(n),
-            "settle_kernel": lib.gcp_settle_smem_bytes(n, k),
-            "settle_kernel+tail": lib.gcp_settle_smem_bytes(n, k),
             "filter_tail_kernel": lib.gcp_filter_tail_smem_bytes(n, k, 4),
             "dare_kernel": lib.gcp_dare_smem_bytes(n, k)}
+    draws = {}
+    for io, code in (("f32", 0), ("f64", 1)):
+        for base, n_obs in (("settle_kernel", N_SETTLE),
+                            ("settle_kernel+tail", PERIODS)):
+            key = f"{base}<{io}>"
+            smem[key] = lib.gcp_settle_smem_bytes(code, n, k, n_obs)
+            draws[key] = lib.gcp_settle_draws_per_block(code, n, k, n_obs)
+    by_label = {labels[f]: v for f, v in spills.items() if f in labels}
     parts = []
     for key in sorted(regs):
         base = key.split("<")[0]
-        nthreads = threads[base]
+        nthreads = threads[base] * draws.get(key, 1)
+        nbytes = smem.get(key, smem.get(base))
         blocks = min(2048 // nthreads, 65536 // (regs[key] * nthreads),
-                     sm_smem // (smem[base] + 1024))
-        parts.append(f"{key} {regs[key]} regs, {spills.get(key, 0)} B spilled, "
-                     f"{smem[base]} B smem x {nthreads} threads -> {blocks} "
-                     f"blocks/SM")
+                     sm_smem // (nbytes + 1024))
+        per_block = (f" ({draws[key]} draws a block, "
+                     f"{blocks * draws[key]} draws/SM)" if key in draws else "")
+        parts.append(f"{key} {regs[key]} regs, {by_label.get(key, 0)} B "
+                     f"spilled, {nbytes} B smem x {nthreads} threads -> "
+                     f"{blocks} blocks/SM{per_block}")
+    others = {f: v for f, v in spills.items() if f not in labels and v}
+    if others:
+        parts.append(f"spills in functions that are not kernels: {others}")
     return "; ".join(parts)
 
 
@@ -357,7 +384,7 @@ def main() -> int:
     print("phase 2 resources at the path's shapes: " + kernel_resources(
         _cuda.library(), _cuda._build_dir(), n_core, model.functions.n_shocks,
         len(SW_OBS), threads={"cr_kernel+sel": 256, "cr_kernel": 256,
-                              "settle_kernel": 256, "settle_kernel+tail": 256,
+                              "settle_kernel": 128, "settle_kernel+tail": 128,
                               "filter_tail_kernel": 64,
                               "dare_kernel": 256}), flush=True)
 
@@ -487,6 +514,62 @@ def main() -> int:
             print(f"phase 3 {label} {name} {tag}: max rel [{rels}], max abs "
                   f"{abs_err:.3e}, {detail}; kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms at batch {bn} [{card}]", flush=True)
+    # ---- phase 3, second shape: K2 and K5 where neither n nor k is a
+    # multiple of the kernels' tiles and the batch leaves the last block
+    # part empty
+    small = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn(SMALL_MODEL))
+    ss_small = DSGEStateSpace(small, device="cuda").configure(
+        observed_states=SMALL_OBS, filter_type="steady_state",
+        kalman_settle=SMALL_SETTLE)
+    small_data, small_draw = ss_small.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=SMALL_PERIODS)
+    small_u0 = ss_small.unconstrain(small_draw)
+    small_batch = small_u0[None, :] + 0.05 * torch.randn(
+        (SMALL_BATCH, small_u0.shape[0]), device=dev, dtype=small_u0.dtype,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    small_sweeps = [ss_small.build_batched_loglik(
+        small_data.astype("float32"), n_settle=SMALL_SETTLE, settle=settle)
+        for settle in ("pallas", "fused")]
+    small_fns = {
+        "settle_parts": (settle_parts,
+                         lambda *a: _settle_plain(*a, LYAP_ITERS)),
+        "settle_filter_loglik": (
+            lambda *a: settle_filter_loglik(*a, n_settle=SMALL_SETTLE),
+            lambda *a: _settle_filter_plain(*a, SMALL_SETTLE, LYAP_ITERS))}
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        tag = "f64" if f64 else "f32"
+        rec = {}
+        for fn in small_sweeps:
+            fn(small_batch.to(dtype), record=rec)
+        acc = rec["accepted"]
+        for name, (kernel_fn, plain_fn) in small_fns.items():
+            args = rec[name]
+            got, ref = kernel_fn(*args), plain_fn(*args)
+            torch.cuda.synchronize()
+            got = dict(zip(outputs[name],
+                           got if isinstance(got, tuple) else (got,)))
+            ref = dict(zip(outputs[name],
+                           ref if isinstance(ref, tuple) else (ref,)))
+            errs = {k_: compare(got[k_][acc], ref[k_][acc])[0] for k_ in got}
+            differ = sum(int((torch.isfinite(got[k_][acc])
+                              != torch.isfinite(ref[k_][acc])).sum())
+                         for k_ in got)
+            checked = errs if f64 else {k_: v for k_, v in errs.items()
+                                        if k_.startswith("ll")}
+            tol = 1e-9 if f64 else 5e-4
+            if differ or max(checked.values()) > tol:
+                failures.append(f"{name} {tag} at {SMALL_MODEL}: entries "
+                                f"finite in one only {differ}, rel diff "
+                                f"{checked} > {tol}")
+            rels = ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
+            print(f"phase 3 {KERNELS[name][0]} {name} {tag} at {SMALL_MODEL} "
+                  f"(n = {args[1].shape[-1]}, k = {args[3].shape[-2]}, "
+                  f"{SMALL_SETTLE} + {SMALL_PERIODS - SMALL_SETTLE} periods, "
+                  f"batch {args[1].shape[0]}): max rel [{rels}], "
+                  f"{int(acc.sum())} accepted draws, entries finite in one "
+                  f"only: {differ} [{card}]", flush=True)
     if failures:
         raise AssertionError("kernel vs plain: " + "; ".join(failures))
 
@@ -589,6 +672,9 @@ def main() -> int:
           f"{n_both}/{XLA_BATCH}; one call of batch {XLA_BATCH} after one "
           f"warm-up {elapsed * 1e3:.1f} ms, {XLA_BATCH / elapsed:.1f} evals/s "
           f"[{card}]", flush=True)
+
+    sweep_breakdown(ss, data32, batch, card, {"pallas": sweep,
+                                              "fused": sweep_fused})
 
     # ---- phase 5: the value+grad path, through the user's entry point
     results = {}
@@ -731,6 +817,87 @@ def main() -> int:
     return 0
 
 
+def sweep_breakdown(ss, data, batch, card, sweeps, reps: int = 5):
+    """Host-clock time of each stage of one forward sweep (a synchronize
+    after each; mean of ``reps`` runs after one warm-up), and for each
+    settle the device's kernel time and launch count over one call from
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from geconpy_torch.ops.batched_filter import filter_tail
+    from geconpy_torch.ops.batched_settle import (settle_filter_loglik,
+                                                  settle_parts)
+
+    pre_policy, post_policy = ss._solution_pieces()
+    solve_batch = ss._build_policy_batch()
+    y = torch.as_tensor(np.ascontiguousarray(data), device=batch.device,
+                        dtype=batch.dtype)
+    sums: dict = {}
+
+    def step(stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if timing:
+            sums[stage] = sums.get(stage, 0.0) \
+                + (time.perf_counter() - t0) * 1e3 / reps
+        return out
+
+    def to_kernel(sol):
+        R_aug = sol["R_aug"]
+        RQR = R_aug @ sol["Q"] @ R_aug.transpose(-1, -2)
+        return tuple(X.to(batch.dtype).contiguous() for X in (
+            sol["T_aug"], RQR, sol["Z"], sol["H"], sol["d"]))
+
+    with torch.no_grad():
+        for r in range(reps + 1):
+            timing = r > 0
+            pre = step("pre-policy", lambda: pre_policy(batch.double()))
+            T, R, ok = step("policy (QR, K1, expansion)",
+                            lambda: solve_batch(pre, batch.dtype))
+            mats = step("post-policy", lambda: to_kernel(
+                post_policy(pre, T, R, ok)))
+            head = step("K2", lambda: settle_parts(y[:N_SETTLE], *mats))
+            _ll, x_pred0, M, TK, Finv, const = head
+            step("K3", lambda: filter_tail(y[N_SETTLE:], M, TK, mats[2],
+                                           mats[4], Finv, const, x_pred0))
+            step("K5", lambda: settle_filter_loglik(y, *mats,
+                                                    n_settle=N_SETTLE))
+    parts = ", ".join(f"{k_} {v:.3f} ms" for k_, v in sums.items())
+    print(f"phase 4 stages (batch {batch.shape[0]}, float32, host clock, "
+          f"{reps}-run means; the pallas sweep runs K2 and K3, the fused one "
+          f"K5): {parts} [{card}]", flush=True)
+    for settle, fn in sweeps.items():
+        fn(batch)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_us, n_kernels = device_time_us(prof)
+        print(f"phase 4 profile (settle={settle}, one call): wall "
+              f"{wall:.3f} ms, device kernel time {dev_us / 1e3:.3f} ms, busy "
+              f"share {dev_us / 1e3 / wall:.3f}, {n_kernels} kernel launches "
+              f"[{card}]", flush=True)
+
+
+def device_time_us(prof) -> tuple[float, int]:
+    """(device time in us, kernel launches) of a ``torch.profiler`` run."""
+    dev_us, n_kernels = 0.0, 0
+    for ev in prof.key_averages():
+        t_us = getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0))
+        if t_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us += t_us
+            n_kernels += ev.count
+    return dev_us, n_kernels
+
+
 def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
                     dare_settle, loglik_from_P, cr_iters, reps: int = 5):
     """Host-clock time of each stage of one value+grad call (a synchronize
@@ -786,13 +953,7 @@ def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
         vag(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev_us, n_kernels = 0.0, 0
-    for ev in prof.key_averages():
-        t_us = getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0))
-        if t_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dev_us += t_us
-            n_kernels += ev.count
+    dev_us, n_kernels = device_time_us(prof)
     print(f"phase 5 profile (settle=xla, one call): wall {wall:.3f} ms, "
           f"device kernel time {dev_us / 1e3:.3f} ms, busy share "
           f"{dev_us / 1e3 / wall:.3f}, {n_kernels} kernel launches [{card}]",

@@ -1,4 +1,5 @@
-// Batched Kalman settle phase: one thread block per draw.
+// Batched Kalman settle phase: four warps per draw, several draws per block,
+// the matrix products on the FP64 tensor cores.
 //
 // Replaces the TPU kernel _settle_kernel (geconpy_tpu/ops/pallas_settle.py
 // :40, reached through pallas_settle_parts).  For each draw: P0 by
@@ -12,296 +13,447 @@
 // The same body, compiled with kFused, is the fused settle + tail kernel: it
 // replaces the TPU kernel _fused_kernel (geconpy_tpu/ops/pallas_settle.py
 // :108, reached through pallas_settle_filter_loglik).  Instead of writing the
-// frozen-gain quantities to device memory it keeps them in shared memory (M
-// in the buffer of I - K Z, TK in that of K H, x_pred0 in that of x_pred,
-// all free once the settle is over, so the block needs no more shared memory
-// than the settle alone) and runs the constant-gain tail of filter_tail.cu
-// over the rest of the sample: per draw it reads its six inputs once and
-// writes one number.  Its tail runs in float64 like the settle, straight
-// from the float64 M, TK, F^{-1}, const and x_pred0; with float32 I/O its
-// result is therefore not bitwise that of the settle kernel followed by the
-// tail kernel, which round those five to float32 in between.  One thread
-// owns the log-likelihood through both phases.  On an NVIDIA H100 80GB HBM3
-// at 700 W (n = 26, k = 7, 32 + 168 periods, 4096 draws, float32 I/O) the
-// fused kernel takes 12.25 ms where the settle kernel takes 9.83 ms and the
-// tail kernel 1.45 ms: each tail step waits on a read of y_t, two block
-// barriers and dot products run by k and n of the 256 threads, with 5
-// blocks per SM to hide them where the tail kernel has 32.
+// frozen-gain quantities to device memory it leaves them in shared memory (M
+// in a work buffer, TK in that of K H, x_pred0 in that of x_pred) and the
+// draw's warps run the constant-gain tail over the rest of the sample: per
+// draw the kernel reads its six inputs once and writes one number.  Its tail
+// runs in float64 like the settle, straight from the float64 M, TK, F^{-1},
+// const and x_pred0; with float32 I/O its result is therefore not bitwise
+// that of the settle kernel followed by the tail kernel, which round those
+// five to float32 in between.
 //
 // Precision: the kernel reads and writes the caller's dtype but runs the
 // whole recursion in float64.  Without measurement error the innovation
 // covariance F of SW-2007 is ill-conditioned (|F^{-1}| up to ~7.5e4), and a
 // float32 recursion moved ll_head by up to 2.7e-3 relative between two
-// float32 implementations (H100 run); float64 removes that sensitivity at
-// twice the shared memory.
+// float32 implementations (H100 run); float64 removes that sensitivity.
 //
-// What bounds it on the H100: (lyap_iters * 3 + n_settle * 6) n^3 FMAs per
-// draw in dependent steps, ~5 MFMA at n = 26, on inputs of 2 n^2 + k n +
-// k^2 + k values: latency- and shared-memory-bound.  The design keeps P and
-// every intermediate in shared memory for the whole settle, one block per
-// draw, and reads y_head directly from device memory (the TPU's one-hot
-// row extraction and lane padding are gone).
+// What bounds it on the H100.  On paper the operations: (lyap_iters * 3 +
+// n_settle * 4 + 2) n^3 multiply-adds per draw, ~3.5 MFMA at n = 26, k = 7,
+// on inputs of 2 n^2 + k n + k^2 + k values.  In fact the chain: ~290
+// dependent steps per draw (8 per Riccati step), each a small product or a
+// k-sized elimination, and a warp that walks such a chain alone starts an
+// instruction every ~5 clocks.  An earlier design (one block of 256 threads
+// per draw, one output entry per thread, two shared-memory loads per
+// multiply-add, three block barriers per pivot of the elimination) was bound
+// by shared-memory traffic instead: 9.83 ms (settle) and 12.25 ms (fused) for
+// 4096 draws, float32 I/O, NVIDIA H100 80GB HBM3 at 700.00 W.  What this
+// design does (its times are in PERF.md; chip_smoke.py measures them):
+//
+//  * every n x n x n, n x n x k and n x k x n product is tile_mm
+//    (small_linalg.cuh): mma.sync m16n8k4 in float64 (m8n8k4 starts no faster
+//    and so reaches half the rate), a warp per 16 x 16 tile of the result,
+//    the sums in registers, 8 shared loads per 2,048 multiply-adds.  Matrices
+//    are kept zero-padded to whole tiles, with a leading dimension that makes
+//    operand loads free of bank conflicts, so that no load, mma or store
+//    tests a bound: at these sizes an index or a mask costs as much as an
+//    mma.  The epilogues (+ R Q R', I - K Z, the Joseph sum + K H K',
+//    T - T K Z) work on the accumulators;
+//  * a draw is four warps that synchronise through a named barrier of their
+//    own (8 per Riccati step); a block holds several draws that never wait
+//    for each other, and a batch that does not fill the last block is
+//    guarded in the kernel.  The warp's number is made known to the compiler
+//    as uniform, or every mma is wrapped in reconvergence code;
+//  * F = Z P_pred Z' + H, its elimination, v' F^{-1} v and the
+//    log-likelihood belong to one warp (warp_solve_innovation: for k <= 8 a
+//    Gauss-Jordan elimination in registers, a column per lane, shuffles and
+//    no barrier); the vectors x_pred, v, x ride on steps that exist anyway
+//    (tile_mv);
+//  * R Q R' is only ever added in an epilogue and is read there from device
+//    memory (L2), three work buffers rotate through the roles of P, T P,
+//    P_pred, I - K Z and (I - K Z) P_pred, and K H shares the buffer of
+//    P_pred Z': four n x n buffers per draw, 51,520 B at n = 26, k = 7, so
+//    that an SM holds four draws;
+//  * the whole of y goes to shared memory once per block (cp.async, waited
+//    for after the Lyapunov start), where the head and the fused tail read
+//    it; a sample too long for that is read from device memory instead;
+//  * in the fused tail every warp advances its rows of the state, with one
+//    draw barrier per step; the innovation, its quadratic form and y_t - d
+//    are each another warp's side job, one step ahead or behind, so that no
+//    warp waits for them.
+#include <type_traits>
+
 #include "small_linalg.cuh"
+
+#ifndef GCP_SETTLE_DRAWS
+#define GCP_SETTLE_DRAWS 2   // draws per block (fewer if shared memory is short)
+#endif
+#ifndef GCP_SETTLE_MIN_BLOCKS
+#define GCP_SETTLE_MIN_BLOCKS 2   // resident blocks per SM the registers allow
+#endif
 
 namespace gcp {
 
-__host__ __device__ inline size_t settle_smem_elems(int n, int k) {
-  // 6 n^2 + Z, PZt, K, KH, TK-scratch (k n each) + H, Finv (k^2) + aug
-  // k x (2k + 1) + vectors + scalars / reduce slots
-  return (size_t)6 * n * n + (size_t)4 * k * n + (size_t)2 * k * k +
-         (size_t)k * (2 * k + 1) + 3 * (size_t)n + 4 * (size_t)k +
-         (2 * k + 1) + 48;
+constexpr int kSettleWarps = 4;                 // warps per draw
+constexpr int kSettleThreads = 32 * kSettleWarps;
+constexpr size_t kSettleMaxYBytes = 48 * 1024;  // y is staged up to this size
+
+// Offsets (in doubles) of one draw's shared memory; matrices in the tile
+// layout of small_linalg.cuh, every size even so that each buffer starts
+// 16-byte aligned.
+struct SettleLayout {
+  int ld, ldk, nr, kr, n8, k8;
+  int T, W, Z, PZt, K, H, Finv, x, xp, dv, v, yd, v2, yd2, aug, col, row;
+  int total;
+  __host__ __device__ SettleLayout(int n, int k) {
+    nr = ceil16(n); kr = ceil16(k);   // stored rows
+    n8 = ceil8(n); k8 = ceil8(k);     // stored vector lengths
+    ld = tile_ld(n); ldk = tile_ld(k);
+    int o = 0;
+    T = o; o += nr * ld;
+    W = o; o += 3 * nr * ld;        // three rotating n x n work buffers
+    Z = o; o += kr * ld;            // k x n
+    PZt = o; o += nr * ldk;         // n x k; K H and T K once it is dead
+    K = o; o += nr * ldk;
+    H = o; o += kr * ldk;           // k x k
+    Finv = o; o += kr * ldk;        // F, then F^{-1}
+    x = o; o += n8;
+    xp = o; o += n8;
+    dv = o; o += k8;
+    v = o; o += k8;
+    yd = o; o += k8;
+    v2 = o; o += k8;                // second buffers of v and y - d (tail)
+    yd2 = o; o += k8;
+    // scratch of the shared-memory elimination, for k > 8 only
+    const int big = k > 8 ? 1 : 0;
+    aug = o; o += big * ((k * (2 * k + 1) + 1) & ~1);
+    col = o; o += big * k8;
+    row = o; o += big * (2 * k8 + 2);
+    total = o;
+  }
+};
+
+// How a launch is cut: draws per block, whether y is staged in shared
+// memory, and the dynamic shared memory of a block.
+struct SettlePlan {
+  int draws;
+  int y_in_smem;
+  size_t bytes;
+};
+
+inline SettlePlan settle_plan(int n, int k, int n_obs, size_t elt) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t per_draw = (size_t)SettleLayout(n, k).total * sizeof(double);
+  const size_t ybytes = (((size_t)n_obs * k * elt) + 15) & ~(size_t)15;
+  SettlePlan p;
+  p.y_in_smem = ybytes <= kSettleMaxYBytes;
+  const size_t ys = p.y_in_smem ? ybytes : 0;
+  p.draws = GCP_SETTLE_DRAWS;
+  while (p.draws > 1 && p.draws * per_draw + ys > (size_t)limit) --p.draws;
+  p.bytes = p.draws * per_draw + ys;
+  return p;
+}
+
+// Barrier over the kSettleThreads threads of one draw (ids 1..draws; 0 is
+// __syncthreads()).
+__device__ __forceinline__ void draw_barrier(int draw) {
+  asm volatile("bar.sync %0, %1;" ::"r"(draw + 1), "r"(kSettleThreads)
+               : "memory");
+}
+
+template <typename S>
+__device__ __forceinline__ void cp_async_elem(S* dst, const S* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(d), "l"(src),
+               "n"(sizeof(S))
+               : "memory");
 }
 
 template <typename S, bool kFused>
-__global__ void settle_kernel(const S* __restrict__ gT,
-                              const S* __restrict__ gRQR,
-                              const S* __restrict__ gZ,
-                              const S* __restrict__ gH,
-                              const S* __restrict__ gd,
-                              const S* __restrict__ gy,
-                              S* __restrict__ gll, S* __restrict__ gxp,
-                              S* __restrict__ gM, S* __restrict__ gTK,
-                              S* __restrict__ gFinv, S* __restrict__ gconst,
-                              int n, int k, int n_settle, int n_total,
-                              int lyap_iters) {
-  using Acc = double;  // the recursion runs in float64 for either I/O type
+__global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
+                                   GCP_SETTLE_MIN_BLOCKS)
+    settle_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
+                  const S* __restrict__ gZ, const S* __restrict__ gH,
+                  const S* __restrict__ gd, const S* __restrict__ gy,
+                  S* __restrict__ gll, S* __restrict__ gxp,
+                  S* __restrict__ gM, S* __restrict__ gTK,
+                  S* __restrict__ gFinv, S* __restrict__ gconst, int batch,
+                  int n, int k, int n_settle, int n_total, int lyap_iters,
+                  int y_in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* sm = reinterpret_cast<Acc*>(smem_raw);
-  const int nn = n * n;
-  const int kn = k * n;
-  Acc* Tm = sm;
-  Acc* RQR = Tm + nn;
-  Acc* P = RQR + nn;
-  Acc* Pp = P + nn;
-  Acc* W1 = Pp + nn;
-  Acc* W2 = W1 + nn;
-  Acc* Z = W2 + nn;     // k x n
-  Acc* PZt = Z + kn;    // n x k
-  Acc* K = PZt + kn;    // n x k
-  Acc* KH = K + kn;     // n x k
-  Acc* H = KH + kn;     // k x k
-  Acc* Finv = H + k * k;
-  Acc* aug = Finv + k * k;  // k x (2k + 1)
-  Acc* x = aug + k * (2 * k + 1);
-  Acc* xp = x + n;
-  Acc* dv = xp + n;     // d (k)
-  Acc* v = dv + k;      // innovation (k)
-  GJScratch<Acc> gj;
-  gj.col = v + k;     // k
-  gj.row = gj.col + k;  // 2k + 1
-  Acc* scal = gj.row + (2 * k + 1);  // [0] pivot [1] minpiv [2] logdet
-                                   // [3] ll [4] vFv  [8] prow
-  gj.pivot = scal;
-  gj.prow = reinterpret_cast<int*>(scal + 8);
+  const SettleLayout L(n, k);
+  const int draws = blockDim.x / kSettleThreads;
+  // the warp's number comes through a shuffle so that the compiler knows it
+  // (and the draw, the work items and every branch on them) to be the same
+  // in all lanes: the mma then need no reconvergence code around them
+  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int draw = block_warp / kSettleWarps;
+  const WarpCtx w{block_warp - draw * kSettleWarps, kSettleWarps,
+                  (int)(threadIdx.x & 31)};
+  const WarpCtx solo{0, 1, w.lane};
+  const int dt = w.warp * 32 + w.lane;   // thread of the draw
+  const int lane = w.lane;
+  const size_t b = (size_t)blockIdx.x * draws + draw;
+  const bool active = b < (size_t)batch;
+  const int nn = n * n, kn = k * n;
+  const int ld = L.ld, ldk = L.ldk;
 
-  const int tid = threadIdx.x;
-  const size_t b = blockIdx.x;
-  for (int e = tid; e < nn; e += blockDim.x) {
-    Tm[e] = gT[b * nn + e];
-    RQR[e] = gRQR[b * nn + e];
-    P[e] = RQR[e];
-    Pp[e] = Tm[e];        // Pp holds the doubling matrix A
+  double* sm = reinterpret_cast<double*>(smem_raw) + (size_t)draw * L.total;
+  double* Tm = sm + L.T;
+  double* Wa = sm + L.W;
+  double* Wb = Wa + L.nr * ld;
+  double* Wc = Wb + L.nr * ld;
+  double* Z = sm + L.Z;
+  double* PZt = sm + L.PZt;
+  double* KH = PZt;   // K H, and T K at the end, once P_pred Z' is dead
+  double* K = sm + L.K;
+  double* H = sm + L.H;
+  double* Finv = sm + L.Finv;
+  double* x = sm + L.x;
+  double* xp = sm + L.xp;
+  double* dv = sm + L.dv;
+  double* v = sm + L.v;
+  double* yd = sm + L.yd;
+  double* aug = sm + L.aug;
+  double* col = sm + L.col;
+  double* row = sm + L.row;
+
+  // ---- y to shared memory, asynchronously, for every draw of the block
+  const S* ysrc = gy;
+  if (y_in_smem) {
+    S* sy = reinterpret_cast<S*>(reinterpret_cast<double*>(smem_raw) +
+                                 (size_t)draws * L.total);
+    for (int e = threadIdx.x; e < n_total * k; e += blockDim.x)
+      cp_async_elem(sy + e, gy + e);
+    ysrc = sy;
   }
-  for (int e = tid; e < kn; e += blockDim.x) Z[e] = gZ[b * kn + e];
-  for (int e = tid; e < k * k; e += blockDim.x) H[e] = gH[b * k * k + e];
-  for (int i = tid; i < k; i += blockDim.x) dv[i] = gd[b * k + i];
-  for (int i = tid; i < n; i += blockDim.x) x[i] = Acc(0);
-  if (tid == 0) scal[3] = Acc(0);
-  __syncthreads();
 
-  // ---- P0: discrete Lyapunov by doubling
-  Acc* Am = Pp;
-  Acc* An = W2;
-  for (int it = 0; it < lyap_iters; ++it) {
-    for_each_mm(Am, n, P, n, false, n, n, n,
-                [&](int i, int j, Acc s) { W1[i * n + j] = s; });
-    __syncthreads();
-    for (int e = tid; e < nn; e += blockDim.x) {
-      const int i = e / n, j = e - i * n;
-      Acc sp = Acc(0), sa = Acc(0);
-      for (int l = 0; l < n; ++l) {
-        sp += W1[i * n + l] * Am[j * n + l];
-        sa += Am[i * n + l] * Am[l * n + j];
-      }
-      P[e] = P[e] + sp;
-      An[e] = sa;
+  // C (tile layout, ldc) = A op(B) for an (r x m) result over c terms
+  auto product = [](const double* A, int lda, const double* B, int ldb,
+                    bool transB, int r, int c, int m, double* C, int ldc) {
+    return TileProduct{A, lda, B, ldb, transB, r, c, m, nullptr, 0, nullptr,
+                       0, 0, 1.0, false, nullptr, 0, C, ldc};
+  };
+  const S* no_g = nullptr;
+  S* no_o = nullptr;
+  const S* rqr = gRQR + b * nn;
+
+  if (active) {
+    // ---- inputs, zero-padded: T, P = R Q R', Z, H, d; x = 0.  Every other
+    // buffer is written whole, pads included, before it is read.
+    for (int e = dt; e < L.nr * ld; e += kSettleThreads) {
+      const int i = e / ld, j = e - i * ld;
+      const bool in = i < n && j < n;
+      Tm[e] = in ? double(gT[b * nn + i * n + j]) : 0.0;
+      Wa[e] = in ? double(rqr[i * n + j]) : 0.0;
     }
-    __syncthreads();
-    Acc* t = Am; Am = An; An = t;
+    for (int e = dt; e < L.kr * ld; e += kSettleThreads) {
+      const int i = e / ld, j = e - i * ld;
+      Z[e] = (i < k && j < n) ? double(gZ[b * kn + i * n + j]) : 0.0;
+    }
+    for (int e = dt; e < L.kr * ldk; e += kSettleThreads) {
+      const int i = e / ldk, j = e - i * ldk;
+      H[e] = (i < k && j < k) ? double(gH[b * k * k + i * k + j]) : 0.0;
+    }
+    for (int i = dt; i < L.k8; i += kSettleThreads)
+      dv[i] = i < k ? double(gd[b * k + i]) : 0.0;
+    for (int i = dt; i < L.n8; i += kSettleThreads) x[i] = 0.0;
+    draw_barrier(draw);
+
+    // ---- P0: discrete Lyapunov by doubling.  P stays in Wa; the doubling
+    // matrix A starts as T itself and then alternates between Wb and Wc.
+    const double* Am = Tm;
+    double* work = Wb;    // receives A P, then A A
+    double* other = Wc;   // holds A from the second pass on
+    for (int it = 0; it < lyap_iters; ++it) {
+      tile_mm(product(Am, ld, Wa, ld, false, n, n, n, work, ld), no_g, 0,
+              no_o, 0, w);
+      draw_barrier(draw);
+      TileProduct acc = product(work, ld, Am, ld, true, n, n, n, Wa, ld);
+      acc.E = Wa;   // P += (A P) A'
+      acc.lde = ld;
+      tile_mm(acc, no_g, 0, no_o, 0, w);
+      draw_barrier(draw);
+      tile_mm(product(Am, ld, Am, ld, false, n, n, n, work, ld), no_g, 0,
+              no_o, 0, w);
+      draw_barrier(draw);
+      Am = work;
+      double* tmp = work; work = other; other = tmp;
+    }
   }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();   // y is in shared memory for every draw of the block
+  if (!active) return;
+
+  double* P = Wa;     // the covariance
+  double* B1 = Wb;    // T P, then I - K Z
+  double* B2 = Wc;    // P_pred, then the new covariance
+  // owned by warp 0 of the draw, the same value in every lane
+  double ll = 0.0, minpiv = INFINITY, logdet = 0.0;
+
+  // P_pred = T P T' + R Q R' into B2 (through B1); the caller's
+  // matrix-vector product rides on the first of the two products
+  auto predict = [&](auto&& first_step_extra) {
+    tile_mm(product(Tm, ld, P, ld, false, n, n, n, B1, ld), no_g, 0, no_o, 0,
+            w);
+    first_step_extra();
+    draw_barrier(draw);
+    tile_mm(product(B1, ld, Tm, ld, true, n, n, n, B2, ld), rqr, n, no_o, 0,
+            w);
+  };
+
+  // one warp: F = Z PZt + H into the buffer of F^{-1}, then the elimination
+  // of [F | v | I] (or [F | I]) there; returns v' F^{-1} v
+  auto solve_innovation = [&](auto with_v) {
+    TileProduct f = product(Z, ld, PZt, ldk, false, k, n, k, Finv, ldk);
+    f.E = H;
+    f.lde = ldk;
+    tile_mm(f, no_g, 0, no_o, 0, solo);
+    __syncwarp();
+    minpiv = INFINITY;
+    logdet = 0.0;
+    return warp_solve_innovation<decltype(with_v)::value>(
+        Finv, ldk, v, k, aug, col, row, lane, minpiv, logdet);
+  };
 
   // ---- n_settle exact Riccati steps
   for (int t = 0; t < n_settle; ++t) {
-    const S* yt = gy + (size_t)t * k;
-    // x_pred = T x;  W1 = T P
-    for (int i = tid; i < n; i += blockDim.x) {
-      Acc s = Acc(0);
-      for (int l = 0; l < n; ++l) s += Tm[i * n + l] * x[l];
-      xp[i] = s;
-    }
-    for_each_mm(Tm, n, P, n, false, n, n, n,
-                [&](int i, int j, Acc s) { W1[i * n + j] = s; });
-    __syncthreads();
-    // P_pred = W1 T' + RQR;  v = y_t - Z x_pred - d
-    for_each_mm(W1, n, Tm, n, true, n, n, n, [&](int i, int j, Acc s) {
-      Pp[i * n + j] = s + RQR[i * n + j];
+    const S* yt = ysrc + (size_t)t * k;
+    // B1 = T P;  x_pred = T x;  then P_pred = B1 T' + R Q R' (B2)
+    predict([&] {
+      tile_mv(Tm, ld, x, n, n, nullptr, 0, nullptr, 0, w,
+              [&](int i, double s) { xp[i] = s; });
     });
-    for (int i = tid; i < k; i += blockDim.x) {
-      Acc s = Acc(0);
-      for (int l = 0; l < n; ++l) s += Z[i * n + l] * xp[l];
-      v[i] = (yt[i] - s) - dv[i];
+    draw_barrier(draw);
+    // PZt = P_pred Z';  v = y_t - Z x_pred - d
+    tile_mm(product(B2, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0, no_o, 0,
+            w);
+    tile_mv(Z, ld, xp, k, n, nullptr, 0, nullptr, 0, w,
+            [&](int i, double s) {
+              v[i] = i < k ? (double(yt[i]) - s) - dv[i] : 0.0;
+            });
+    draw_barrier(draw);
+    // F^{-1}, v' F^{-1} v and the log-likelihood
+    if (w.warp == 0) {
+      const double q = solve_innovation(std::true_type{});
+      ll = ll - 0.5 * ((double(k) * kLog2Pi + logdet) + q);
     }
-    __syncthreads();
-    // PZt = P_pred Z'
-    for_each_mm(Pp, n, Z, n, true, n, n, k,
-                [&](int i, int j, Acc s) { PZt[i * k + j] = s; });
-    __syncthreads();
-    // aug = [F | v | I],  F = Z PZt + H
-    {
-      const int w = 2 * k + 1;
-      for_each_mm(Z, n, PZt, k, false, k, n, k, [&](int i, int j, Acc s) {
-        aug[i * w + j] = s + H[i * k + j];
-      });
-      for (int e = tid; e < k * (k + 1); e += blockDim.x) {
-        const int i = e / (k + 1), j = e - i * (k + 1);
-        aug[i * w + k + j] = j == 0 ? v[i] : Acc(j - 1 == i ? 1 : 0);
-      }
-      if (tid == 0) { scal[1] = Acc(INFINITY); scal[2] = Acc(0); }
-      __syncthreads();
-      gj_solve(aug, k, w, gj, &scal[1], &scal[2]);
-      // K = PZt Finv;  vFv = v . (F^{-1} v)
-      for_each_mm(PZt, k, aug + k + 1, w, false, n, k, k,
-                  [&](int i, int j, Acc s) { K[i * k + j] = s; });
-      if (tid == 0) {
-        Acc q = Acc(0);
-        for (int i = 0; i < k; ++i) q += v[i] * aug[i * w + k];
-        scal[4] = q;
-      }
-    }
-    __syncthreads();
-    // x = x_pred + K v;  W2 = I - K Z;  KH = K H
-    for (int i = tid; i < n; i += blockDim.x) {
-      Acc s = Acc(0);
-      for (int l = 0; l < k; ++l) s += K[i * k + l] * v[l];
-      x[i] = xp[i] + s;
-    }
-    for_each_mm(K, k, Z, n, false, n, k, n, [&](int i, int j, Acc s) {
-      W2[i * n + j] = Acc(i == j ? 1 : 0) - s;
-    });
-    for_each_mm(K, k, H, k, false, n, k, k,
-                [&](int i, int j, Acc s) { KH[i * k + j] = s; });
-    __syncthreads();
-    // W1 = (I - K Z) P_pred
-    for_each_mm(W2, n, Pp, n, false, n, n, n,
-                [&](int i, int j, Acc s) { W1[i * n + j] = s; });
-    __syncthreads();
-    // P = W1 (I - K Z)' + KH K'   (Joseph form)
-    for (int e = tid; e < nn; e += blockDim.x) {
-      const int i = e / n, j = e - i * n;
-      Acc s1 = Acc(0), s2 = Acc(0);
-      for (int l = 0; l < n; ++l) s1 += W1[i * n + l] * W2[j * n + l];
-      for (int l = 0; l < k; ++l) s2 += KH[i * k + l] * K[j * k + l];
-      P[e] = s1 + s2;
-    }
-    if (tid == 0)
-      scal[3] = scal[3] - Acc(0.5) * ((Acc(k) * Acc(kLog2Pi) + scal[2]) + scal[4]);
-    __syncthreads();
+    draw_barrier(draw);
+    // K = PZt F^{-1}
+    tile_mm(product(PZt, ldk, Finv, ldk, false, n, k, k, K, ldk), no_g, 0,
+            no_o, 0, w);
+    draw_barrier(draw);
+    // B1 = I - K Z;  KH = K H;  x = x_pred + K v
+    TileProduct ikz = product(K, ldk, Z, ld, false, n, k, n, B1, ld);
+    ikz.sign = -1.0;
+    ikz.eye = true;
+    tile_mm(ikz, no_g, 0, no_o, 0, w);
+    tile_mm(product(K, ldk, H, ldk, false, n, k, k, KH, ldk), no_g, 0, no_o,
+            0, w);
+    tile_mv(K, ldk, v, n, k, nullptr, 0, nullptr, 0, w,
+            [&](int i, double s) { x[i] = xp[i] + s; });
+    draw_barrier(draw);
+    // P (old, dead) = (I - K Z) P_pred
+    tile_mm(product(B1, ld, B2, ld, false, n, n, n, P, ld), no_g, 0, no_o, 0,
+            w);
+    draw_barrier(draw);
+    // new P = that (I - K Z)' + KH K'   (Joseph form), into B2
+    TileProduct joseph = product(P, ld, B1, ld, true, n, n, n, B2, ld);
+    joseph.A2 = KH;
+    joseph.lda2 = ldk;
+    joseph.B2 = K;
+    joseph.ldb2 = ldk;
+    joseph.c2 = k;
+    tile_mm(joseph, no_g, 0, no_o, 0, w);
+    draw_barrier(draw);
+    double* tmp = P; P = B2; B2 = tmp;
   }
 
   // ---- frozen-gain tail quantities
-  for_each_mm(Tm, n, P, n, false, n, n, n,
-              [&](int i, int j, Acc s) { W1[i * n + j] = s; });
-  for (int i = tid; i < n; i += blockDim.x) {
-    Acc s = Acc(0);
-    for (int l = 0; l < n; ++l) s += Tm[i * n + l] * x[l];
-    if constexpr (kFused) xp[i] = s; else gxp[b * n + i] = s;
-  }
-  __syncthreads();
-  for_each_mm(W1, n, Tm, n, true, n, n, n, [&](int i, int j, Acc s) {
-    Pp[i * n + j] = s + RQR[i * n + j];
+  predict([&] {
+    tile_mv(Tm, ld, x, n, n, nullptr, 0, nullptr, 0, w,
+            [&](int i, double s) {
+              if constexpr (kFused) xp[i] = s;
+              else if (i < n) gxp[b * n + i] = S(s);
+            });
   });
-  __syncthreads();
-  for_each_mm(Pp, n, Z, n, true, n, n, k,
-              [&](int i, int j, Acc s) { PZt[i * k + j] = s; });
-  __syncthreads();
-  const int w = 2 * k;
-  for_each_mm(Z, n, PZt, k, false, k, n, k, [&](int i, int j, Acc s) {
-    aug[i * w + j] = s + H[i * k + j];
-  });
-  for (int e = tid; e < k * k; e += blockDim.x) {
-    const int i = e / k, j = e - i * k;
-    aug[i * w + k + j] = Acc(i == j ? 1 : 0);
+  draw_barrier(draw);
+  tile_mm(product(B2, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0, no_o, 0,
+          w);
+  draw_barrier(draw);
+  if (w.warp == 0) {
+    solve_innovation(std::false_type{});
+    if constexpr (!kFused) {
+      for (int e = lane; e < k * k; e += 32) {
+        const int i = e / k, j = e - i * k;
+        gFinv[b * k * k + e] = S(Finv[i * ldk + j]);
+      }
+    }
   }
-  if (tid == 0) { scal[1] = Acc(INFINITY); scal[2] = Acc(0); }
-  __syncthreads();
-  gj_solve(aug, k, w, gj, &scal[1], &scal[2]);
-  for (int e = tid; e < k * k; e += blockDim.x) {
-    const int i = e / k, j = e - i * k;
-    Finv[e] = aug[i * w + k + j];
-    if constexpr (!kFused) gFinv[b * k * k + e] = Finv[e];
-  }
-  __syncthreads();
-  // K = PZt Finv
-  for_each_mm(PZt, k, Finv, k, false, n, k, k,
-              [&](int i, int j, Acc s) { K[i * k + j] = s; });
-  __syncthreads();
+  draw_barrier(draw);
+  // K = PZt F^{-1}
+  tile_mm(product(PZt, ldk, Finv, ldk, false, n, k, k, K, ldk), no_g, 0, no_o,
+          0, w);
+  draw_barrier(draw);
   // TK = T K  (into KH)
-  for_each_mm(Tm, n, K, k, false, n, n, k, [&](int i, int j, Acc s) {
-    KH[i * k + j] = s;
-    if constexpr (!kFused) gTK[b * kn + i * k + j] = s;
-  });
-  __syncthreads();
-  // M = T - TK Z  (fused: into W2, whose I - K Z is no longer needed)
-  for_each_mm(KH, k, Z, n, false, n, k, n, [&](int i, int j, Acc s) {
-    if constexpr (kFused) W2[i * n + j] = Tm[i * n + j] - s;
-    else gM[b * nn + i * n + j] = Tm[i * n + j] - s;
-  });
+  tile_mm(product(Tm, ld, K, ldk, false, n, n, k, KH, ldk), no_g, 0,
+          kFused ? no_o : gTK + b * kn, k, w);
+  draw_barrier(draw);
+  // M = T - TK Z  (fused: into B1; else straight to device memory)
+  TileProduct m_prod = product(KH, ldk, Z, ld, false, n, k, n,
+                               kFused ? B1 : nullptr, ld);
+  m_prod.sign = -1.0;
+  m_prod.E = Tm;
+  m_prod.lde = ld;
+  tile_mm(m_prod, no_g, 0, kFused ? no_o : gM + b * nn, n, w);
+  const double cnst = -0.5 * (double(k) * kLog2Pi + logdet);
   if constexpr (!kFused) {
-    if (tid == 0) {
-      gll[b] = scal[3];
-      gconst[b] = Acc(-0.5) * (Acc(k) * Acc(kLog2Pi) + scal[2]);
+    if (dt == 0) {
+      gll[b] = S(ll);
+      gconst[b] = S(cnst);
     }
   } else {
     // ---- the constant-gain tail over y[n_settle:n_total], as in
-    // filter_tail.cu but in float64 on the settle's own shared memory
-    __syncthreads();
-    const Acc* M = W2;
-    const Acc* TK = KH;
-    Acc* yd = gj.col;     // y_t - d (k)
-    Acc* xc = xp;         // predicted state
-    Acc* xn = x;
-    const Acc cnst = Acc(-0.5) * (Acc(k) * Acc(kLog2Pi) + scal[2]);
-    Acc ll = scal[3];     // thread 0 goes on owning the log-likelihood
-    // thread 0 sums the quadratic form while another warp's threads advance
-    // the state
-    const int row0 = blockDim.x > 32 ? 32 : 0;
+    // filter_tail.cu but in float64 on the settle's own shared memory, one
+    // draw barrier per step.  Every warp advances its rows of the state,
+    // x <- M x + TK (y_t - d).  Beside that warp 1 writes the innovation
+    // v_t = (y_t - d) - Z x_t, warp 0 adds the quadratic form of v_{t-1}
+    // (written one step earlier, so it waits for nothing) to the
+    // log-likelihood it owns, and warp 2 writes y_{t+1} - d.  v and y - d
+    // alternate between two buffers each.
+    const double* M = B1;
+    const double* TK = KH;
+    double* xc = xp;   // predicted state
+    double* xn = x;
+    double* v2 = sm + L.v2;
+    double* yd2 = sm + L.yd2;
+    auto v_of = [&](int t) { return (t & 1) ? v2 : v; };
+    auto yd_of = [&](int t) { return (t & 1) ? yd2 : yd; };
+    auto quad_form = [&](const double* vt) {
+      double quad = 0.0;
+      tile_mv(Finv, ldk, vt, k, k, nullptr, 0, nullptr, 0, solo,
+              [&](int i, double s) { quad += vt[i] * s; });
+      ll = (ll + cnst) - 0.5 * warp_sum_rows(quad);
+    };
+    auto stage_yd = [&](int t) {
+      const S* yt = ysrc + (size_t)t * k;
+      for (int i = lane; i < L.k8; i += 32)
+        yd_of(t)[i] = i < k ? double(yt[i]) - dv[i] : 0.0;
+    };
+    if (w.warp == 2 && n_settle < n_total) stage_yd(n_settle);
+    draw_barrier(draw);
     for (int t = n_settle; t < n_total; ++t) {
-      const S* yt = gy + (size_t)t * k;
-      for (int i = tid; i < k; i += blockDim.x) {
-        const Acc ydi = Acc(yt[i]) - dv[i];
-        Acc s = Acc(0);
-        for (int l = 0; l < n; ++l) s += Z[i * n + l] * xc[l];
-        yd[i] = ydi;
-        v[i] = ydi - s;
+      const double* ydt = yd_of(t);
+      tile_mv(M, ld, xc, n, n, TK, ldk, ydt, k, w,
+              [&](int i, double s) { xn[i] = s; });
+      if (w.warp == 1) {
+        double* vt = v_of(t);
+        tile_mv(Z, ld, xc, k, n, nullptr, 0, nullptr, 0, solo,
+                [&](int i, double s) { vt[i] = ydt[i] - s; });
+      } else if (w.warp == 0) {
+        if (t > n_settle) quad_form(v_of(t - 1));
+      } else if (w.warp == 2) {
+        if (t + 1 < n_total) stage_yd(t + 1);
       }
-      __syncthreads();
-      if (tid == 0) {
-        Acc quad = Acc(0);
-        for (int i = 0; i < k; ++i)
-          for (int j = 0; j < k; ++j) quad += v[i] * Finv[i * k + j] * v[j];
-        ll = (ll + cnst) - Acc(0.5) * quad;
-      }
-      for (int i = tid - row0; i >= 0 && i < n; i += blockDim.x - row0) {
-        Acc s1 = Acc(0), s2 = Acc(0);
-        for (int l = 0; l < n; ++l) s1 += M[i * n + l] * xc[l];
-        for (int l = 0; l < k; ++l) s2 += TK[i * k + l] * yd[l];
-        xn[i] = s1 + s2;
-      }
-      __syncthreads();
-      Acc* tmp = xc; xc = xn; xn = tmp;
+      draw_barrier(draw);
+      double* tmp = xc; xc = xn; xn = tmp;
     }
-    if (tid == 0) gll[b] = ll;
+    if (w.warp == 0) {
+      if (n_total > n_settle) quad_form(v_of(n_total - 1));
+      if (lane == 0) gll[b] = S(ll);
+    }
   }
 }
 
@@ -311,18 +463,20 @@ int launch_settle(const void* T, const void* RQR, const void* Z,
                   void* xp, void* M, void* TK, void* Finv, void* cnst,
                   int batch, int n, int k, int n_settle, int n_total,
                   int lyap_iters, cudaStream_t stream) {
-  const size_t bytes = settle_smem_elems(n, k) * sizeof(double);
+  const SettlePlan plan = settle_plan(n, k, n_total, sizeof(S));
   cudaError_t err = cudaFuncSetAttribute(
       settle_kernel<S, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      (int)plan.bytes);
   if (err != cudaSuccess) return (int)err;
-  settle_kernel<S, kFused><<<batch, 256, bytes, stream>>>(
-      static_cast<const S*>(T), static_cast<const S*>(RQR),
-      static_cast<const S*>(Z), static_cast<const S*>(H),
-      static_cast<const S*>(d), static_cast<const S*>(y), static_cast<S*>(ll),
-      static_cast<S*>(xp), static_cast<S*>(M), static_cast<S*>(TK),
-      static_cast<S*>(Finv), static_cast<S*>(cnst), n, k, n_settle, n_total,
-      lyap_iters);
+  const int blocks = (batch + plan.draws - 1) / plan.draws;
+  settle_kernel<S, kFused>
+      <<<blocks, kSettleThreads * plan.draws, plan.bytes, stream>>>(
+          static_cast<const S*>(T), static_cast<const S*>(RQR),
+          static_cast<const S*>(Z), static_cast<const S*>(H),
+          static_cast<const S*>(d), static_cast<const S*>(y),
+          static_cast<S*>(ll), static_cast<S*>(xp), static_cast<S*>(M),
+          static_cast<S*>(TK), static_cast<S*>(Finv), static_cast<S*>(cnst),
+          batch, n, k, n_settle, n_total, lyap_iters, plan.y_in_smem);
   return (int)cudaGetLastError();
 }
 
@@ -362,10 +516,16 @@ int gcp_settle_filter(int dtype, const void* T, const void* RQR,
       batch, n, k, n_settle, n_total, lyap_iters, s);
 }
 
-// shared memory per block, of either kernel; the recursion is float64 for
-// either I/O type
-size_t gcp_settle_smem_bytes(int n, int k) {
-  return gcp::settle_smem_elems(n, k) * sizeof(double);
+// Dynamic shared memory per block of the launch that either entry point
+// above makes for n states, k observables and n_obs rows of y in this dtype
+// (the recursion is float64 for either I/O type), on the current device.
+size_t gcp_settle_smem_bytes(int dtype, int n, int k, int n_obs) {
+  return gcp::settle_plan(n, k, n_obs, dtype == 0 ? 4 : 8).bytes;
+}
+
+// Draws per block of that launch (kSettleThreads threads each).
+int gcp_settle_draws_per_block(int dtype, int n, int k, int n_obs) {
+  return gcp::settle_plan(n, k, n_obs, dtype == 0 ? 4 : 8).draws;
 }
 
 }  // extern "C"

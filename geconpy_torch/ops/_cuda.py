@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``geconpy_torch/csrc``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, bound with :mod:`ctypes`.  The build runs at
+The sources compile with ``nvcc`` for ``sm_90a`` (one process per source,
+all started together) into one shared library with a plain C interface,
+bound with :mod:`ctypes`.  The build runs at
 first use and again whenever the sources change: the library lives under
 ``build/geconpy_torch/<hash of the sources>/`` beside the package, and the
 compiler's output (including ``-Xptxas -v`` register and spill counts) is
@@ -51,7 +52,8 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_filter": ([_I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
-    "gcp_settle_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_settle_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    "gcp_settle_draws_per_block": ([_I, _I, _I, _I], ctypes.c_int),
     "gcp_filter_tail": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_filter_tail_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
@@ -86,19 +88,38 @@ def _build_dir() -> pathlib.Path:
 
 
 def _build(out_dir: pathlib.Path) -> None:
+    """Compile every source on its own, all at once, then link them."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out_dir / _LIB_NAME)
+    nvcc = _nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), obj))
+        log, failed = [], []
+        for cmd, proc, _obj in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n"
+                              f"{out[-4000:]}")
+        if not failed:
+            lib = pathlib.Path(tmp) / _LIB_NAME
+            cmd = [nvcc, "-shared", "-o", str(lib),
+                   *(str(obj) for _c, _p, obj in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link (exit {proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(lib, out_dir / _LIB_NAME)
 
 
 def library() -> ctypes.CDLL:

@@ -11,27 +11,30 @@ const) of the constant-gain tail.  Fully observed data only.
 constant-gain tail over the rest of the sample, returning each draw's whole
 log-likelihood; M, TK and F^{-1} never reach device memory.
 
-Kernel source note.  ``csrc/settle.cu`` replaces the TPU kernel
-``_settle_kernel`` (``ops/pallas_settle.py:40``).  On the H100 it is
-bound by the per-draw chain of ~6 dependent n x n products per Riccati
-step (~5 MFMA per draw at n = 26, 32 steps), not by device memory; the
-design keeps P and all intermediates in shared memory, one thread block per
-draw, and reads ``y_head`` directly from device memory in place of the
-TPU's one-hot row extraction and lane padding.  It takes and returns the
-caller's dtype but runs the recursion in float64, and so does the plain
-version: without measurement error F is ill-conditioned, and two float32
-recursions differed by up to 2.7e-3 relative in ll_head on the SW-2007
-sweep (H100 run).  The same source compiled with ``kFused`` replaces
-``_fused_kernel`` (``ops/pallas_settle.py:108``): the settle's body, then
-the tail of ``csrc/filter_tail.cu`` on shared-memory buffers that the settle
-no longer needs, so K5 takes no more shared memory than K2.  K5's tail runs
-in float64 straight from the float64 settle, so with float32 I/O its result
-is not bitwise K2 followed by K3 (which round M, TK, F^{-1}, const and
-x_pred0 to float32 in between); it is held to the sweep's bar against the
-float64 path instead.  The TPU kernel's one-hot row extraction over the
-sample, its broadcast of ``y`` over the lanes, the lane padding and the
-``tile`` argument are gone: a block reads row ``t`` of ``y`` from device
-memory.
+Kernel source note.  ``csrc/settle.cu`` replaces the TPU kernels
+``_settle_kernel`` (``ops/pallas_settle.py:40``) and, compiled with
+``kFused``, ``_fused_kernel`` (``:108``).  On the H100 the work is bound on
+paper by its operations (~3.5 MFMA per draw at n = 26, k = 7, 32 steps) and
+in fact by the chain of ~290 dependent small products and eliminations per
+draw.  The design: four warps per draw and several draws per block, each
+draw with a barrier of its own; every matrix in shared memory, zero-padded
+to whole 16 x 8 tiles, so that the products run as ``mma.sync m16n8k4`` in
+float64 on the tensor cores with no bounds test; the k-sized Gauss-Jordan
+elimination in one warp's registers; ``y`` staged once per block in shared
+memory; the fused tail spread over the draw's warps.  ``csrc/settle.cu``
+has the whole note.  The kernel takes and returns the caller's dtype but
+runs the recursion in float64, and so does the plain version: without
+measurement error F is ill-conditioned, and two float32 recursions differed
+by up to 2.7e-3 relative in ll_head on the SW-2007 sweep (H100 run).  K5's
+tail runs in float64 straight from the float64 settle, so with float32 I/O
+its result is not bitwise K2 followed by K3 (which round M, TK, F^{-1},
+const and x_pred0 to float32 in between); it is held to the sweep's bar
+against the float64 path instead.  The TPU kernel's one-hot row extraction
+over the sample, its broadcast of ``y`` over the lanes, the lane padding and
+the ``tile`` argument are gone.  The launch (draws per block, whether ``y``
+fits beside them) is decided in the C entry point;
+``gcp_settle_smem_bytes`` answers for that launch, and the wrapper raises
+if even one draw per block exceeds the device's shared memory.
 
 :func:`_settle_plain` and :func:`_settle_filter_plain` are the plain PyTorch
 versions of the same schedules.  The wrappers use them for CPU tensors; a
@@ -133,7 +136,9 @@ def _checked_library(name, y, T, RQR, Z, H, d):
          "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)), "H": (H, (Bn, k, k)),
          "d": (d, (Bn, k))}, T.dtype, T.device)
     lib = _cuda.library()
-    smem = lib.gcp_settle_smem_bytes(n, k)
+    # the launch's own answer: its draws per block, and y if it is staged
+    smem = lib.gcp_settle_smem_bytes(_cuda.dtype_code(T.dtype), n, k,
+                                     y.shape[0])
     if smem > _cuda.smem_limit(T.device):
         raise ValueError(
             f"{name}: n={n}, k={k} in {T.dtype} needs {smem} bytes of "

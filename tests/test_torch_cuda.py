@@ -6,7 +6,9 @@ On the GPU: ``python -m pytest tests/test_torch_cuda.py -q``.  The inputs
 are SW-2007's own kernel inputs from the sweep (K1-K3, K5) and from the
 value+grad path (K4, K6) at a small batch; float64 outputs agree at rel
 1e-9 (min |pivot| aside: near-tied pivots may take another row at rounding
-level) and each wrapper counts its launches.
+level) and each wrapper counts its launches.  The settle kernels K2 and K5
+are also run on synthetic stable systems whose sizes are not multiples of
+their tiles, at batches that do not fill the last block.
 """
 
 import numpy as np
@@ -155,3 +157,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(kernel_inputs):
     short = args[:5] + [args[5][:-1]] + args[6:]        # Finv of one draw fewer
     with pytest.raises(ValueError, match="shape"):
         filter_tail(*short)
+
+
+# ---- K2 and K5 on ragged shapes: synthetic stable systems from a seed
+
+RAGGED_NK = [(n, k) for n in (1, 2, 7, 8, 9, 26, 33) for k in (1, 3, 7, 8)
+             if k <= n]
+# more than 8 observables: the elimination runs in shared memory
+RAGGED_NK += [(9, 9), (26, 12), (33, 17)]
+N_OBS = 12
+
+
+def _stable_system(n, k, batch, n_obs, seed):
+    """numpy float64: y (n_obs, k) and per-draw T with spectral radius 0.9,
+    R Q R' and H positive definite, Z and d."""
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((batch, n, n))
+    T *= 0.9 / np.abs(np.linalg.eigvals(T)).max(axis=-1)[:, None, None]
+    G = rng.standard_normal((batch, n, n))
+    RQR = G @ G.transpose(0, 2, 1) / n + 0.1 * np.eye(n)
+    Z = rng.standard_normal((batch, k, n))
+    E = rng.standard_normal((batch, k, k))
+    H = E @ E.transpose(0, 2, 1) / k + 0.1 * np.eye(k)
+    d = 0.1 * rng.standard_normal((batch, k))
+    y = rng.standard_normal((n_obs, k))
+    return y, T, RQR, Z, H, d
+
+
+@pytest.mark.parametrize("n_settle", [5, N_OBS])
+@pytest.mark.parametrize("batch", [1, 5, 67])
+@pytest.mark.parametrize("n,k", RAGGED_NK)
+def test_settle_kernels_match_plain_on_ragged_shapes(device, n, k, batch,
+                                                     n_settle):
+    args = [torch.as_tensor(a, device=device)
+            for a in _stable_system(n, k, batch, N_OBS, seed=100 * n + k)]
+    y, mats = args[0], args[1:]
+    got = settle_parts(y[:n_settle], *mats)
+    ref = _settle_plain(y[:n_settle], *mats, LYAP_ITERS)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _rel(g, r) < 1e-9
+    ll = settle_filter_loglik(y, *mats, n_settle=n_settle)
+    ll_ref = _settle_filter_plain(y, *mats, n_settle, LYAP_ITERS)
+    assert ll.shape == (batch,) and _rel(ll, ll_ref) < 1e-9
+    # float32 I/O around the float64 recursion: the sweep's bar on the
+    # likelihood, against the plain version on the same rounded inputs
+    args32 = [a.float() for a in args]
+    ll32 = settle_filter_loglik(*args32, n_settle=n_settle)
+    head32 = settle_parts(args32[0][:n_settle], *args32[1:])[0]
+    assert ll32.dtype == head32.dtype == torch.float32
+    assert _rel(ll32, _settle_filter_plain(*args32, n_settle, LYAP_ITERS)) < 5e-4
+    assert _rel(head32, _settle_plain(args32[0][:n_settle], *args32[1:],
+                                      LYAP_ITERS)[0]) < 5e-4
+
+
+@pytest.mark.parametrize("n,k", [(26, 7), (9, 3)])
+def test_settle_kernels_nan_draw_poisons_only_itself(device, n, k):
+    """A NaN draw between good draws (of the same block, where a block holds
+    several): the good ones are bitwise what they are without it."""
+    args = [torch.as_tensor(a, device=device)
+            for a in _stable_system(n, k, 9, N_OBS, seed=7)]
+    y, T = args[0], args[1]
+    T_bad = T.clone()
+    T_bad[1, 0, 0] = float("nan")
+    keep = [0, 2, 3, 4, 5, 6, 7, 8]
+    clean = settle_parts(y[:5], T, *args[2:])
+    got = settle_parts(y[:5], T_bad, *args[2:])
+    assert not torch.isfinite(got[0][1])
+    for g, c in zip(got, clean):
+        assert torch.equal(g[keep], c[keep])
+    clean = settle_filter_loglik(y, T, *args[2:], n_settle=5)
+    got = settle_filter_loglik(y, T_bad, *args[2:], n_settle=5)
+    assert not torch.isfinite(got[1])
+    assert torch.equal(got[keep], clean[keep])
+
+
+def test_settle_kernels_read_a_long_sample_from_device_memory(device):
+    """A sample too long to stage in shared memory beside the draws."""
+    args = [torch.as_tensor(a, device=device)
+            for a in _stable_system(9, 4, 5, 2000, seed=3)]
+    y, mats = args[0], args[1:]
+    got = settle_parts(y, *mats)
+    for g, r in zip(got, _settle_plain(y, *mats, LYAP_ITERS)):
+        assert _rel(g, r) < 1e-9
+    ll = settle_filter_loglik(y, *mats, n_settle=20)
+    assert _rel(ll, _settle_filter_plain(y, *mats, 20, LYAP_ITERS)) < 1e-9
+
+
+def test_settle_kernels_refuse_more_shared_memory_than_the_device_has(device):
+    args = [torch.as_tensor(a, device=device)
+            for a in _stable_system(96, 3, 2, 4, seed=1)]
+    with pytest.raises(ValueError, match="shared memory"):
+        settle_parts(*args)
+    with pytest.raises(ValueError, match="shared memory"):
+        settle_filter_loglik(*args, n_settle=2)

@@ -10,7 +10,11 @@ reference's vmapped ``steady_state_kalman_loglik`` at atol 1e-8 (the bar of
 that file); the port's batched ``steady_state_filter_parts`` and
 ``steady_state_kalman_loglik`` agree with the reference's at atol 1e-10
 (the same Cholesky algebra on both sides, so only the order of sums
-differs).
+differs).  ``settle_parts`` and ``settle_filter_loglik`` are also held to
+the reference's ``steady_state_filter_parts`` and
+``steady_state_kalman_loglik`` on synthetic stable systems whose sizes are
+not multiples of the CUDA kernels' tiles (atol 1e-8: Gauss-Jordan against
+Cholesky, and sums in another order).
 """
 
 import os
@@ -197,3 +201,52 @@ def test_steady_state_filter_failures_are_flags(solutions):
     y_missing[3, 0] = float("nan")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_kalman.steady_state_filter_parts(y_missing[:N_SETTLE], *args)
+
+
+# ---- ragged shapes: synthetic stable systems from a seed
+
+RAGGED_NK = [(n, k) for n in (1, 2, 7, 8, 9, 26, 33) for k in (1, 3, 7, 8)
+             if k <= n]
+RAGGED_OBS, RAGGED_SETTLE = 12, 5
+
+
+def _stable_system(n, k, batch, n_obs, seed):
+    """numpy float64: y (n_obs, k) and per-draw T with spectral radius 0.9,
+    R Q R' and H positive definite, Z and d."""
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((batch, n, n))
+    T *= 0.9 / np.abs(np.linalg.eigvals(T)).max(axis=-1)[:, None, None]
+    G = rng.standard_normal((batch, n, n))
+    RQR = G @ G.transpose(0, 2, 1) / n + 0.1 * np.eye(n)
+    Z = rng.standard_normal((batch, k, n))
+    E = rng.standard_normal((batch, k, k))
+    H = E @ E.transpose(0, 2, 1) / k + 0.1 * np.eye(k)
+    d = 0.1 * rng.standard_normal((batch, k))
+    y = rng.standard_normal((n_obs, k))
+    return y, T, RQR, Z, H, d
+
+
+@pytest.mark.parametrize("n,k", RAGGED_NK)
+def test_settle_and_fused_match_reference_filter_on_ragged_shapes(n, k):
+    y, T, RQR, Z, H, d = _stable_system(n, k, 3, RAGGED_OBS, seed=100 * n + k)
+    R, Q = np.linalg.cholesky(RQR), jnp.eye(n)
+    y_j = jnp.asarray(y)
+
+    def reference(t, r, z, h, dd):
+        parts = ref_kalman.steady_state_filter_parts(
+            y_j[:RAGGED_SETTLE], t, r, Q, z, h, d=dd)
+        total = ref_kalman.steady_state_kalman_loglik(
+            y_j, t, r, Q, z, h, d=dd, n_settle=RAGGED_SETTLE)
+        return parts, total
+
+    ref_parts, ref_total = jax.jit(jax.vmap(reference))(
+        *(jnp.asarray(a) for a in (T, R, Z, H, d)))
+    y_t, *mats = _as_torch((y, T, RQR, Z, H, d))
+    got_parts = settle_parts(y_t[:RAGGED_SETTLE], *mats)
+    for name, r, g in zip(PARTS, ref_parts, got_parts):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-8,
+                                   err_msg=name)
+    got = settle_filter_loglik(y_t, *mats, n_settle=RAGGED_SETTLE)
+    assert got.shape == (3,) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_total), atol=1e-8)
