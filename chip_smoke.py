@@ -16,7 +16,10 @@ Phases, one line each (plus one line per kernel in phase 3):
    of draws; with both times.  Then K2 and K5 once more at a second shape,
    the sweep's intermediates of ``rbc_estimation`` with one observable
    (n = 9, k = 1: no multiple of the kernels' tiles) at batch 1001 (no
-   multiple of the draws per block), same tolerances, one line each;
+   multiple of the draws per block), same tolerances, one line each; and
+   K1 and K4 at the size of ``nk_calvo``'s dynamic core (n = 20, its 4
+   shocks) on synthetic pencils with a stable solvent from a seed
+   (``tools/cr_variants.py::stable_pencil``), batch 1001, same tolerances;
 4. the forward sweep: SW-2007 (22 estimated parameters, 7 observables,
    steady-state filter, 32 settle steps, 200 periods, batch 4096, float32)
    through ``build_batched_loglik``, once per settle.  ``"pallas"``: K1,
@@ -77,6 +80,8 @@ XLA_BATCH = 512
 # the second shape of phase 3 (K2 and K5 only)
 SMALL_MODEL, SMALL_OBS = "rbc_estimation", ["Y"]
 SMALL_BATCH, SMALL_PERIODS, SMALL_SETTLE = 1001, 60, 16
+# the second shape of phase 3 for K1 and K4: nk_calvo's dynamic core
+CR_SMALL_N, CR_SMALL_M = 20, 4
 # resample_ess above target_ess (both default to 0.5) resamples at every
 # tempering stage; with the two equal, a stage that lands on the threshold
 # is followed by stages whose step is ~1e-15 until rounding noise tips the
@@ -227,13 +232,16 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
     the resident blocks per SM that they and the shared memory at the path's
     shapes allow (H100: 64K registers, 2048 threads and 228 KB of shared
-    memory per SM, 1 KB of it reserved per block).  The settle kernels hold
-    several draws per block (128 threads each) and stage ``y`` in shared
-    memory: their geometry is the library's own answer for the sweep's
-    launch.  Spills of functions that are not kernels are listed last."""
+    memory per SM, 1 KB of it reserved per block).  The settle and
+    cycle-reduction kernels hold several draws per block (128 threads each;
+    the settle kernels stage ``y`` in shared memory): their geometry is the
+    library's own answer for the path's launch.  Spills of functions that
+    are not kernels are listed last."""
     import re
 
     import torch
+
+    from geconpy_torch.ops.batched_cycle_reduction import cr_draws_per_block
 
     regs, spills, labels, current, fn = {}, {}, {}, None, None
     for line in (build_dir / "nvcc.log").read_text().splitlines():
@@ -242,10 +250,13 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
             size, rest = int(found.group(2)), found.group(3)
             name, args = rest[:size], rest[size:]
             io = "f64" if args.startswith("Id") else "f32"
-            # the compile-time switch: K1's selection tail, K5's filter tail
+            # the compile-time switches: K1's selection tail, K5's filter
+            # tail; the cycle-reduction instance for n > 32 (not the path's)
+            switches = re.findall(r"Lb([01])E", args.split("EEv")[0])
             tag = {"cr_kernel": "+sel", "settle_kernel": "+tail"}.get(
-                name, "") if "Lb1E" in args else ""
-            current = f"{name}{tag}<{io}>"
+                name, "") if switches[:1] == ["1"] else ""
+            big_n = ", n > 32" if switches[1:] == ["0"] else ""
+            current = f"{name}{tag}<{io}{big_n}>"
             labels[found.group(1)] = current
         owner = re.search(r"Function properties for (\S+)", line)
         if owner:
@@ -263,6 +274,9 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
             "filter_tail_kernel": lib.gcp_filter_tail_smem_bytes(n, k, 4),
             "dare_kernel": lib.gcp_dare_smem_bytes(n, k)}
     draws = {}
+    for io in ("f32", "f64"):
+        draws[f"cr_kernel+sel<{io}>"] = cr_draws_per_block(n, m)
+        draws[f"cr_kernel<{io}>"] = cr_draws_per_block(n)
     for io, code in (("f32", 0), ("f64", 1)):
         for base, n_obs in (("settle_kernel", N_SETTLE),
                             ("settle_kernel+tail", PERIODS)):
@@ -273,6 +287,10 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     parts = []
     for key in sorted(regs):
         base = key.split("<")[0]
+        if key.endswith("n > 32>"):
+            parts.append(f"{key} {regs[key]} regs, {by_label.get(key, 0)} B "
+                         f"spilled")
+            continue
         nthreads = threads[base] * draws.get(key, 1)
         nbytes = smem.get(key, smem.get(base))
         blocks = min(2048 // nthreads, 65536 // (regs[key] * nthreads),
@@ -383,7 +401,7 @@ def main() -> int:
     n_core = len(ss._filter_core)
     print("phase 2 resources at the path's shapes: " + kernel_resources(
         _cuda.library(), _cuda._build_dir(), n_core, model.functions.n_shocks,
-        len(SW_OBS), threads={"cr_kernel+sel": 256, "cr_kernel": 256,
+        len(SW_OBS), threads={"cr_kernel+sel": 128, "cr_kernel": 128,
                               "settle_kernel": 128, "settle_kernel+tail": 128,
                               "filter_tail_kernel": 64,
                               "dare_kernel": 256}), flush=True)
@@ -570,6 +588,39 @@ def main() -> int:
                   f"batch {args[1].shape[0]}): max rel [{rels}], "
                   f"{int(acc.sum())} accepted draws, entries finite in one "
                   f"only: {differ} [{card}]", flush=True)
+    # ---- phase 3, second shape: K1 and K4 at n = 20 (no multiple of the
+    # tiles) on a batch that leaves the last block part empty
+    sys.path.insert(0, str(ROOT / "tools"))
+    from cr_variants import stable_pencil
+
+    pencil = stable_pencil(CR_SMALL_N, CR_SMALL_M, SMALL_BATCH, seed=20)
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        tag = "f64" if f64 else "f32"
+        args = tuple(torch.as_tensor(X, device=dev, dtype=dtype)
+                     for X in pencil)
+        for name, nargs in (("cycle_reduction_policy", 4),
+                            ("cycle_reduction", 3)):
+            got = dict(zip(outputs[name], kernel[name](*args[:nargs])))
+            ref = dict(zip(outputs[name], plain[name](*args[:nargs])))
+            torch.cuda.synchronize()
+            ok_k = cr_success(got["flags"], dtype)
+            ok_p = cr_success(ref["flags"], dtype)
+            agree = int((ok_k == ok_p).sum()) / ok_k.numel()
+            errs = {k_: compare(got[k_], ref[k_])[0] for k_ in got
+                    if k_ != "flags"}
+            errs["flags"] = compare(got["flags"][:, 1:],
+                                    ref["flags"][:, 1:])[0]
+            if agree < (1.0 if f64 else 0.99) or (
+                    f64 and max(errs.values()) > 1e-9):
+                failures.append(f"{name} {tag} at n = {CR_SMALL_N}: success "
+                                f"flags agree on {agree:.4f}, rel {errs}")
+            rels = ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
+            print(f"phase 3 {KERNELS[name][0]} {name} {tag} at n = "
+                  f"{CR_SMALL_N}, m = {CR_SMALL_M} (synthetic pencils, batch "
+                  f"{SMALL_BATCH}): max rel [{rels}], success flags agree on "
+                  f"{agree:.4f} of draws ({int(ok_k.sum())} solved) [{card}]",
+                  flush=True)
     if failures:
         raise AssertionError("kernel vs plain: " + "; ".join(failures))
 

@@ -1,7 +1,7 @@
 // Per-draw small dense linear algebra in shared memory: helpers for one
-// thread block per draw (for_each_mm, block_max, gj_solve) and, further
+// thread block per draw (for_each_mm, gj_solve; dare.cu) and, further
 // down, for a few warps per draw (tile_mm on the FP64 tensor cores, tile_mv,
-// warp_gj_solve).
+// warp_gj_solve; settle.cu and cycle_reduction.cu).
 //
 // Counterparts of the shared Pallas helpers in
 // geconpy_tpu/ops/pallas_cycle_reduction.py: _mm (:52), _mmT (:73) and
@@ -56,23 +56,6 @@ __device__ __forceinline__ void for_each_mm(const S* A, int lda, const S* B,
     }
     f(i, j, acc);
   }
-}
-
-// Block-wide max of per-thread values, NaN-propagating.  `red` holds at
-// least blockDim.x / 32 entries.  Every thread gets the result.
-template <typename S>
-__device__ S block_max(S v, S* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  S out = red[0];
-  const int n_warps = (blockDim.x + 31) >> 5;
-  for (int w = 1; w < n_warps; ++w) out = nan_max(out, red[w]);
-  __syncthreads();
-  return out;
 }
 
 // Scratch for gj_solve, in shared memory.
@@ -152,9 +135,10 @@ __device__ void gj_solve(S* aug, int n, int w, GJScratch<S> s, S* minpiv,
 
 // ---------------------------------------------------------------------------
 // Warp-level helpers for kernels that give a draw a few warps of its own
-// (settle.cu): products on the FP64 tensor cores (tile_mm), matrix-vector
-// products (tile_mv) and a Gauss-Jordan elimination that one warp runs
-// alone (warp_gj_solve_regs, warp_gj_solve_shared).
+// (settle.cu, cycle_reduction.cu): products on the FP64 tensor cores
+// (tile_mm), matrix-vector products (tile_mv) and a Gauss-Jordan
+// elimination that one warp runs alone (warp_gj_solve_regs,
+// warp_gj_solve_shared).
 //
 // Such a kernel spends its time dispatching instructions, not waiting for
 // memory: a warp that owns one 16 x 16 tile of a 26 x 26 product has 16 mma

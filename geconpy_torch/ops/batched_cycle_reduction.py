@@ -14,10 +14,14 @@ both TPU kernels, with a compile-time switch for the selection tail: with
 it, it replaces ``_cr_sel_kernel`` (``ops/pallas_cycle_reduction.py:176``,
 K1); without it, ``_cr_kernel`` (``:145``, K4: T and the flags
 [min |pivot|, tail] only).  On the H100 both are bound by the per-draw
-dependent chain of small eliminations and products (~2.3 MFMA per draw at
+dependent chain of small eliminations and products (~1.8 MFMA per draw at
 n = 26, 14 doublings) in shared memory, not by device memory; the design
-gives each draw one thread block with all matrices resident in shared
-memory for the whole recursion.  The TPU-only parts are gone: the Mosaic
+gives each draw four warps under a named barrier of their own, its
+matrices resident in shared memory for the whole recursion, the products on
+the FP64 tensor cores and, for n <= 32, the eliminations in registers: one
+warp runs the pivots ahead while the other three apply them (the source's
+note says more; the shared memory of a draw limits n to 48).  The TPU-only
+parts are gone: the Mosaic
 identity embedding for n < 8 and the lane padding (neither changes T, R,
 the residual or the success flag).  It takes and returns the caller's
 dtype but runs the recursion in float64, and so does the plain version:
@@ -32,6 +36,8 @@ tensor goes to the kernel or the wrapper raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -128,6 +134,14 @@ def _cr_policy_cuda(A, B, C, D, n_iter: int):
         _cuda.check(code, "cycle_reduction_policy")
         cycle_reduction_policy.launches += 1
     return T, R, flags
+
+
+def cr_draws_per_block(n: int, m: int = 0) -> int:
+    """Draws per block of the kernel's launch at (n, m) on the current
+    device (m = 0: K4); each draw is 128 threads."""
+    fn = _cuda.library().gcp_cr_draws_per_block
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(n, m)
 
 
 def cr_policy_raw(A, B, C, D, n_iter: int):

@@ -6,9 +6,10 @@ On the GPU: ``python -m pytest tests/test_torch_cuda.py -q``.  The inputs
 are SW-2007's own kernel inputs from the sweep (K1-K3, K5) and from the
 value+grad path (K4, K6) at a small batch; float64 outputs agree at rel
 1e-9 (min |pivot| aside: near-tied pivots may take another row at rounding
-level) and each wrapper counts its launches.  The settle kernels K2 and K5
-are also run on synthetic stable systems whose sizes are not multiples of
-their tiles, at batches that do not fill the last block.
+level) and each wrapper counts its launches.  The settle kernels K2 and K5,
+and the cycle-reduction kernels K1 and K4, are also run on synthetic
+inputs whose sizes are not multiples of their tiles, at batches that do
+not fill the last block.
 """
 
 import numpy as np
@@ -250,3 +251,78 @@ def test_settle_kernels_refuse_more_shared_memory_than_the_device_has(device):
         settle_parts(*args)
     with pytest.raises(ValueError, match="shared memory"):
         settle_filter_loglik(*args, n_settle=2)
+
+
+# ---- K1 and K4 on ragged shapes: synthetic pencils from a seed
+
+# and one size above 32, where the eliminations run in shared memory
+CR_NM = [(n, m) for n in (1, 4, 9, 17, 26, 32) for m in (1, 7, 9)] + [(40, 7)]
+
+
+def _stable_pencil(n, m, batch, seed):
+    """numpy float64 (A, B, C, D) with A + B T + C T^2 = 0 for a T of
+    spectral radius 0.8 (see tests/test_torch_cycle_reduction.py)."""
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((batch, n, n))
+    T *= 0.8 / np.abs(np.linalg.eigvals(T)).max(axis=-1)[:, None, None]
+    C = 0.3 * rng.standard_normal((batch, n, n)) / np.sqrt(n)
+    M = 2.0 * np.eye(n) + 0.3 * rng.standard_normal((batch, n, n)) / np.sqrt(n)
+    D = rng.standard_normal((batch, n, m))
+    return -M @ T, M - C @ T, C, D
+
+
+def _pencil(device, n, m, batch, seed):
+    return [torch.as_tensor(a, device=device)
+            for a in _stable_pencil(n, m, batch, seed)]
+
+
+@pytest.mark.parametrize("batch", [1, 5, 67])
+@pytest.mark.parametrize("n,m", CR_NM)
+def test_cycle_reduction_kernels_match_plain_on_ragged_shapes(device, n, m,
+                                                              batch):
+    args = _pencil(device, n, m, batch, seed=100 * n + m)
+    T, R, flags = cr_policy_raw(*args, CR_ITERS)
+    T0, R0, flags0 = _cr_policy_plain(*args, CR_ITERS)
+    assert T.shape == T0.shape and R.shape == R0.shape
+    assert _rel(T, T0) < 1e-9 and _rel(R, R0) < 1e-9
+    assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
+    T4, flags4 = cr_raw(*args[:3], CR_ITERS)
+    T40, flags40 = _cr_plain(*args[:3], CR_ITERS)
+    assert _rel(T4, T40) < 1e-9 and _rel(flags4[:, 1:], flags40[:, 1:]) < 1e-9
+    # every draw is solved
+    assert bool(cycle_reduction_policy(*args, n_iter=CR_ITERS)[2].all())
+
+
+@pytest.mark.parametrize("n", [26, 9])
+def test_cycle_reduction_kernels_nan_draw_poisons_only_itself(device, n):
+    """A NaN draw between good draws of one block, and a draw whose first
+    pivot column is zero: both are flagged, not raised, and the other draws
+    are bitwise what they are without them."""
+    args = _pencil(device, n, 7, 9, seed=5)
+    bad = [a.clone() for a in args]
+    bad[0][1, 0, 0] = float("nan")
+    bad[1][4, :, 0] = 0.0          # B's first column: a zero pivot
+    keep = [0, 2, 3, 5, 6, 7, 8]
+    clean = cr_policy_raw(*args, CR_ITERS)
+    got = cr_policy_raw(*bad, CR_ITERS)
+    for g, c in zip(got, clean):
+        assert torch.equal(g[keep], c[keep])
+    assert not torch.isfinite(got[0][1]).all()
+    assert not bool(got[2][4, 0] > 1e-7)   # min |pivot|: 0, or NaN after it
+    ok = cycle_reduction_policy(*bad, n_iter=CR_ITERS)[2]
+    assert not ok[1] and not ok[4] and bool(ok[keep].all())
+    clean4 = cr_raw(*args[:3], CR_ITERS)
+    got4 = cr_raw(*bad[:3], CR_ITERS)
+    for g, c in zip(got4, clean4):
+        assert torch.equal(g[keep], c[keep])
+    ok4 = cycle_reduction(*bad[:3], n_iter=CR_ITERS)[1]
+    assert not ok4[1] and not ok4[4] and bool(ok4[keep].all())
+
+
+def test_cycle_reduction_kernels_refuse_more_shared_memory_than_the_device_has(
+        device):
+    args = _pencil(device, 49, 7, 2, seed=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        cr_policy_raw(*args, CR_ITERS)
+    with pytest.raises(ValueError, match="shared memory"):
+        cr_raw(*args[:3], CR_ITERS)

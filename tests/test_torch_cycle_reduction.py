@@ -160,3 +160,57 @@ def test_wrapper_rejects_unknown_device(rbc_case):
     meta = [torch.as_tensor(p).to("meta") for p in pencils]
     with pytest.raises(ValueError, match="no kernel"):
         cycle_reduction_policy(*meta, n_iter=N_ITER)
+
+
+# ---- the plain versions of K1 and K4 on ragged shapes: the (n, m) of the
+# kernels' GPU tests, from synthetic pencils with a stable solvent
+
+RAGGED_NM = [(n, m) for n in (1, 4, 9, 17, 26, 32) for m in (1, 7, 9)]
+RAGGED_NM.append((40, 7))
+
+
+def _stable_pencil(n, m, batch, seed):
+    """numpy float64 (A, B, C, D) with A + B T + C T^2 = 0 for a T of
+    spectral radius 0.8: A + B z + C z^2 = (C z + M)(z I - T) with
+    M = 2 I + noise and C small keeps the other n roots outside the unit
+    circle, so cycle reduction converges."""
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((batch, n, n))
+    T *= 0.8 / np.abs(np.linalg.eigvals(T)).max(axis=-1)[:, None, None]
+    C = 0.3 * rng.standard_normal((batch, n, n)) / np.sqrt(n)
+    M = 2.0 * np.eye(n) + 0.3 * rng.standard_normal((batch, n, n)) / np.sqrt(n)
+    D = rng.standard_normal((batch, n, m))
+    return -M @ T, M - C @ T, C, D
+
+
+@pytest.mark.parametrize("n,m", RAGGED_NM)
+def test_plain_kernels_match_pallas_interpret_on_ragged_shapes(n, m):
+    """K1's plain version at every (n, m), K4's at each n (with m = 1, and
+    at n = 40):
+    T, R and the flags against the JAX package's kernels in interpret
+    mode at 1e-10 (min |pivot| too: the pivots are the same rows)."""
+    from geconpy_torch.ops.batched_cycle_reduction import (_cr_plain,
+                                                           _cr_policy_plain)
+    from geconpy_tpu.ops.pallas_cycle_reduction import pallas_cycle_reduction
+
+    pencil = _stable_pencil(n, m, 3, seed=10 * n + m)
+    T_r, R_r, ok_r, resid_r = jax.jit(functools.partial(
+        pallas_cycle_reduction_policy, n_iter=N_ITER, tile=3,
+        interpret=True))(*(jnp.asarray(p) for p in pencil))
+    T, R, flags = _cr_policy_plain(*(torch.as_tensor(p) for p in pencil),
+                                   N_ITER)
+    assert np.asarray(ok_r).all()
+    np.testing.assert_allclose(T.numpy(), np.asarray(T_r), atol=1e-10)
+    np.testing.assert_allclose(R.numpy(), np.asarray(R_r), atol=1e-10)
+    np.testing.assert_allclose(flags[:, 2].numpy(), np.asarray(resid_r),
+                               atol=1e-10)
+    if m != 1 and n != 40:
+        return
+    T4_r, ok4_r = jax.jit(functools.partial(
+        pallas_cycle_reduction, n_iter=N_ITER, tile=3, interpret=True))(
+        *(jnp.asarray(p) for p in pencil[:3]))
+    T4, flags4 = _cr_plain(*(torch.as_tensor(p) for p in pencil[:3]), N_ITER)
+    assert np.asarray(ok4_r).all()
+    assert bool(((flags4[:, 1] < 200 * np.finfo(np.float64).eps)
+                 & (flags4[:, 0] > 1e-7)).all())
+    np.testing.assert_allclose(T4.numpy(), np.asarray(T4_r), atol=1e-10)
