@@ -13,13 +13,18 @@ Phases, one line each (plus one line per kernel in phase 3):
    from the value+grad path at batch 512.  Float64: max rel diff <= 1e-9
    and equal success flags; float32: rel <= 5e-4 on the likelihood pieces
    and K6's P, success flags (K1, K4) and settle flags (K6) equal on >= 99%
-   of draws; with both times.  Then K2 and K5 once more at a second shape,
-   the sweep's intermediates of ``rbc_estimation`` with one observable
-   (n = 9, k = 1: no multiple of the kernels' tiles) at batch 1001 (no
-   multiple of the draws per block), same tolerances, one line each; and
-   K1 and K4 at the size of ``nk_calvo``'s dynamic core (n = 20, its 4
+   of draws; with both times.  Then every kernel at second shapes, one
+   line each: K2, K3 and K5 on the sweep's intermediates of
+   ``rbc_estimation`` with one observable (n = 9, k = 1: no multiple of the
+   kernels' tiles) at batch 1001 (no multiple of the draws per block); K1
+   and K4 at the size of ``nk_calvo``'s dynamic core (n = 20, its 4
    shocks) on synthetic pencils with a stable solvent from a seed
-   (``tools/cr_variants.py::stable_pencil``), batch 1001, same tolerances;
+   (``tools/cr_variants.py::stable_pencil``), batch 1001; K3 with two
+   state rows a lane (n = 33, k = 9) and K6 at n = 17, k = 9 and at
+   n = 20, k = 4 with H = 0, on synthetic inputs from a seed
+   (``tools/tail_dare_variants.py``), batch 1001.  Tolerances there: K3
+   float64 rel 1e-12, K6 float64 1e-11 and float32 I/O 1e-6, the others
+   as above; each line states its own;
 4. the forward sweep: SW-2007 (22 estimated parameters, 7 observables,
    steady-state filter, 32 settle steps, 200 periods, batch 4096, float32)
    through ``build_batched_loglik``, once per settle.  ``"pallas"``: K1,
@@ -40,7 +45,7 @@ Phases, one line each (plus one line per kernel in phase 3):
    run), the first 64 draws within rel 5e-4 (value) and 1e-3 (gradient)
    of the port's float64 path on the CPU, the two settles within rel 5e-4
    of each other; then us/draw over 10 repetitions, the peak device
-   memory and a stage breakdown;
+   memory, a stage breakdown and, per settle, the device's busy share;
 6. SMC estimation at full width: the sweep's configuration through
    ``fit_smc`` with 4096 particles, 2 Metropolis sweeps per stage, seed 0,
    ``settle="fused"``, float32.  It must reach phi = 1 with a strictly
@@ -82,6 +87,17 @@ SMALL_MODEL, SMALL_OBS = "rbc_estimation", ["Y"]
 SMALL_BATCH, SMALL_PERIODS, SMALL_SETTLE = 1001, 60, 16
 # the second shape of phase 3 for K1 and K4: nk_calvo's dynamic core
 CR_SMALL_N, CR_SMALL_M = 20, 4
+# the synthetic second shapes of phase 3 for K3 (n, k) and K6 (n, k, scale
+# of H), with the tolerances of every second shape: float64 against the
+# plain version (K3's and K6's as their GPU tests state them), float32 the
+# sweep's bar on the likelihood, and for K6's float32 I/O around its float64
+# recursion the rounding of P to float32
+TAIL_SMALL_NK, TAIL_SMALL_STEPS = (33, 9), 168
+DARE_SMALL = ((17, 9, 1.0), (20, 4, 0.0))
+SECOND_TOL = {"filter_tail": {"f64": 1e-12, "f32": 5e-4},
+              "dare_settle": {"f64": 1e-11, "f32": 1e-6},
+              "settle_parts": {"f64": 1e-9, "f32": 5e-4},
+              "settle_filter_loglik": {"f64": 1e-9, "f32": 5e-4}}
 # resample_ess above target_ess (both default to 0.5) resamples at every
 # tempering stage; with the two equal, a stage that lands on the threshold
 # is followed by stages whose step is ~1e-15 until rounding noise tips the
@@ -227,15 +243,16 @@ def bound(name, args, n_iter, lyap_iters) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
-                     threads: dict) -> str:
+def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
+                     k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
     the resident blocks per SM that they and the shared memory at the path's
-    shapes allow (H100: 64K registers, 2048 threads and 228 KB of shared
-    memory per SM, 1 KB of it reserved per block).  The settle and
-    cycle-reduction kernels hold several draws per block (128 threads each;
-    the settle kernels stage ``y`` in shared memory): their geometry is the
-    library's own answer for the path's launch.  Spills of functions that
+    shapes allow (H100: 64K registers, 2048 threads, 32 blocks and 228 KB
+    of shared memory per SM, 1 KB of it reserved per block).  Threads,
+    draws per block and shared memory are the library's own answer for the
+    path's launch: four warps a draw for K1, K2, K4, K5 and K6, one for K3.
+    Instances that the path does not launch (K1/K4 for n > 32, K3 for other
+    n and k) get their registers and spills only.  Spills of functions that
     are not kernels are listed last."""
     import re
 
@@ -244,19 +261,29 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     from geconpy_torch.ops.batched_cycle_reduction import cr_draws_per_block
 
     regs, spills, labels, current, fn = {}, {}, {}, None, None
+    off_path = set()
     for line in (build_dir / "nvcc.log").read_text().splitlines():
         found = re.search(r"entry function '(_ZN3gcp(\d+)(\w+))'", line)
         if found:
             size, rest = int(found.group(2)), found.group(3)
             name, args = rest[:size], rest[size:]
             io = "f64" if args.startswith("Id") else "f32"
+            template = args.split("EEv")[0]
             # the compile-time switches: K1's selection tail, K5's filter
-            # tail; the cycle-reduction instance for n > 32 (not the path's)
-            switches = re.findall(r"Lb([01])E", args.split("EEv")[0])
+            # tail; the cycle-reduction instance for n > 32; K3's rows a
+            # lane and observables held
+            switches = re.findall(r"Lb([01])E", template)
+            ints = [int(v) for v in re.findall(r"Li(\d+)E", template)]
             tag = {"cr_kernel": "+sel", "settle_kernel": "+tail"}.get(
                 name, "") if switches[:1] == ["1"] else ""
-            big_n = ", n > 32" if switches[1:] == ["0"] else ""
-            current = f"{name}{tag}<{io}{big_n}>"
+            extra = ", n > 32" if switches[1:] == ["0"] else ""
+            if name == "filter_tail_kernel":
+                extra = (f", {ints[0]} row{'s' if ints[0] > 1 else ''} a "
+                         f"lane, k <= {ints[1]}")
+            current = f"{name}{tag}<{io}{extra}>"
+            if extra and current != f"filter_tail_kernel<{io}, 1 row a " \
+                    f"lane, k <= 8>":
+                off_path.add(current)
             labels[found.group(1)] = current
         owner = re.search(r"Function properties for (\S+)", line)
         if owner:
@@ -269,6 +296,12 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
             spills[fn] = spills.get(fn, 0) + int(spill.group(1))
     props = torch.cuda.get_device_properties(0)
     sm_smem = int(getattr(props, "shared_memory_per_multiprocessor", 233472))
+    tail_draws = lib.gcp_filter_tail_draws_per_block()
+    threads = {"cr_kernel+sel": 128, "cr_kernel": 128, "settle_kernel": 128,
+               "settle_kernel+tail": 128,
+               "filter_tail_kernel": lib.gcp_filter_tail_block_threads()
+               // tail_draws,
+               "dare_kernel": lib.gcp_dare_block_threads()}
     smem = {"cr_kernel+sel": lib.gcp_cr_policy_smem_bytes(n, m),
             "cr_kernel": lib.gcp_cr_smem_bytes(n),
             "filter_tail_kernel": lib.gcp_filter_tail_smem_bytes(n, k, 4),
@@ -277,6 +310,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     for io in ("f32", "f64"):
         draws[f"cr_kernel+sel<{io}>"] = cr_draws_per_block(n, m)
         draws[f"cr_kernel<{io}>"] = cr_draws_per_block(n)
+        draws[f"filter_tail_kernel<{io}, 1 row a lane, k <= 8>"] = tail_draws
+        draws[f"dare_kernel<{io}>"] = 1
     for io, code in (("f32", 0), ("f64", 1)):
         for base, n_obs in (("settle_kernel", N_SETTLE),
                             ("settle_kernel+tail", PERIODS)):
@@ -287,13 +322,13 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int, k: int,
     parts = []
     for key in sorted(regs):
         base = key.split("<")[0]
-        if key.endswith("n > 32>"):
+        if key in off_path:
             parts.append(f"{key} {regs[key]} regs, {by_label.get(key, 0)} B "
                          f"spilled")
             continue
         nthreads = threads[base] * draws.get(key, 1)
         nbytes = smem.get(key, smem.get(base))
-        blocks = min(2048 // nthreads, 65536 // (regs[key] * nthreads),
+        blocks = min(2048 // nthreads, 32, 65536 // (regs[key] * nthreads),
                      sm_smem // (nbytes + 1024))
         per_block = (f" ({draws[key]} draws a block, "
                      f"{blocks * draws[key]} draws/SM)" if key in draws else "")
@@ -401,10 +436,7 @@ def main() -> int:
     n_core = len(ss._filter_core)
     print("phase 2 resources at the path's shapes: " + kernel_resources(
         _cuda.library(), _cuda._build_dir(), n_core, model.functions.n_shocks,
-        len(SW_OBS), threads={"cr_kernel+sel": 128, "cr_kernel": 128,
-                              "settle_kernel": 128, "settle_kernel+tail": 128,
-                              "filter_tail_kernel": 64,
-                              "dare_kernel": 256}), flush=True)
+        len(SW_OBS)), flush=True)
 
     # ---- phase 3: each kernel against its plain version, same inputs
     report = {}
@@ -550,6 +582,7 @@ def main() -> int:
         small_data.astype("float32"), n_settle=SMALL_SETTLE, settle=settle)
         for settle in ("pallas", "fused")]
     small_fns = {
+        "filter_tail": (filter_tail, _filter_tail_plain),
         "settle_parts": (settle_parts,
                          lambda *a: _settle_plain(*a, LYAP_ITERS)),
         "settle_filter_loglik": (
@@ -576,7 +609,7 @@ def main() -> int:
                          for k_ in got)
             checked = errs if f64 else {k_: v for k_, v in errs.items()
                                         if k_.startswith("ll")}
-            tol = 1e-9 if f64 else 5e-4
+            tol = SECOND_TOL[name][tag]
             if differ or max(checked.values()) > tol:
                 failures.append(f"{name} {tag} at {SMALL_MODEL}: entries "
                                 f"finite in one only {differ}, rel diff "
@@ -585,7 +618,8 @@ def main() -> int:
             print(f"phase 3 {KERNELS[name][0]} {name} {tag} at {SMALL_MODEL} "
                   f"(n = {args[1].shape[-1]}, k = {args[3].shape[-2]}, "
                   f"{SMALL_SETTLE} + {SMALL_PERIODS - SMALL_SETTLE} periods, "
-                  f"batch {args[1].shape[0]}): max rel [{rels}], "
+                  f"batch {args[1].shape[0]}): max rel [{rels}] (tolerance "
+                  f"{tol:g}), "
                   f"{int(acc.sum())} accepted draws, entries finite in one "
                   f"only: {differ} [{card}]", flush=True)
     # ---- phase 3, second shape: K1 and K4 at n = 20 (no multiple of the
@@ -621,6 +655,35 @@ def main() -> int:
                   f"{SMALL_BATCH}): max rel [{rels}], success flags agree on "
                   f"{agree:.4f} of draws ({int(ok_k.sum())} solved) [{card}]",
                   flush=True)
+    # ---- phase 3, second shapes: K3 with two state rows a lane and more
+    # than 8 observables, K6 at ragged n and k, once with k > 8 and once
+    # with H = 0, on synthetic inputs from a seed, batch 1001
+    from tail_dare_variants import dare_inputs, tail_inputs
+
+    n3, k3 = TAIL_SMALL_NK
+    cases = [("filter_tail", f"n = {n3}, k = {k3}, {TAIL_SMALL_STEPS} steps",
+              tail_inputs(n3, k3, SMALL_BATCH, TAIL_SMALL_STEPS, seed=33))]
+    for n6, k6, h_scale in DARE_SMALL:
+        T6, RQR6, Z6, H6 = dare_inputs(n6, k6, SMALL_BATCH, seed=n6)
+        cases.append(("dare_settle", f"n = {n6}, k = {k6}, H " + (
+            "= 0" if h_scale == 0 else "positive definite"),
+            (T6, RQR6, Z6, h_scale * H6)))
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, shape, arrays in cases:
+            args = tuple(torch.as_tensor(X, device=dev, dtype=dtype)
+                         for X in arrays)
+            got, ref = kernel[name](*args), plain[name](*args)
+            torch.cuda.synchronize()
+            rel, agree = compare(got, ref)
+            tol = SECOND_TOL[name][tag]
+            if agree < 1.0 or rel > tol:
+                failures.append(f"{name} {tag} at {shape}: finiteness agrees "
+                                f"on {agree:.4f}, rel {rel:.3e} > {tol}")
+            print(f"phase 3 {KERNELS[name][0]} {name} {tag} at {shape} "
+                  f"(synthetic, batch {SMALL_BATCH}): max rel {rel:.2e} "
+                  f"(tolerance {tol:g}), finiteness agrees on {agree:.4f} of "
+                  f"entries [{card}]", flush=True)
     if failures:
         raise AssertionError("kernel vs plain: " + "; ".join(failures))
 
@@ -952,8 +1015,9 @@ def device_time_us(prof) -> tuple[float, int]:
 def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
                     dare_settle, loglik_from_P, cr_iters, reps: int = 5):
     """Host-clock time of each stage of one value+grad call (a synchronize
-    after each; mean of ``reps`` runs after one warm-up), and the device's
-    kernel time and launch count over one call from ``torch.profiler``."""
+    after each; mean of ``reps`` runs after one warm-up), and for each
+    settle the device's kernel time and launch count over one call from
+    ``torch.profiler``."""
     import torch
 
     pre_policy, post_policy = ss._solution_pieces()
@@ -994,21 +1058,22 @@ def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
     print(f"phase 5 stages (batch {batch.shape[0]}, float32 draws, host clock, "
           f"{reps}-run means): {parts} [{card}]", flush=True)
 
-    vag = ss.build_batched_logpost_and_grad(data)
-    vag(batch)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    for settle in ("xla", "pallas"):
+        vag = ss.build_batched_logpost_and_grad(data, settle=settle)
         vag(batch)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_us, n_kernels = device_time_us(prof)
-    print(f"phase 5 profile (settle=xla, one call): wall {wall:.3f} ms, "
-          f"device kernel time {dev_us / 1e3:.3f} ms, busy share "
-          f"{dev_us / 1e3 / wall:.3f}, {n_kernels} kernel launches [{card}]",
-          flush=True)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vag(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_us, n_kernels = device_time_us(prof)
+        print(f"phase 5 profile (settle={settle}, one call): wall {wall:.3f} "
+              f"ms, device kernel time {dev_us / 1e3:.3f} ms, busy share "
+              f"{dev_us / 1e3 / wall:.3f}, {n_kernels} kernel launches "
+              f"[{card}]", flush=True)
 
 
 def float32_io_effect(ss, data, batch, card, settled_gate, dare_settle,

@@ -217,10 +217,11 @@ __device__ __forceinline__ void cr_pivot(const double* aug, int lda, int n,
 }
 
 // Gauss-Jordan on one draw's augmented system by its kCrThreads threads,
-// on gj_solve's schedule (small_linalg.cuh): at step k rows k and p swap,
-// the pivot row is scaled by 1 / pivot and eliminated from every other
-// row.  The left block is n x n at column 0; the n_right right-hand
-// columns come in blocks of bw, block q at column n8 (1 + q).  On return
+// on _gj_solve's schedule (warp_gj_solve_shared, small_linalg.cuh): at
+// step k rows k and p swap, the pivot row is scaled by 1 / pivot and
+// eliminated from every other row.  The left block is n x n at column 0;
+// the n_right right-hand columns come in blocks of bw, block q at column
+// n8 (1 + q).  On return
 // the right-hand columns hold the solution; the left block's columns are
 // left as they were at the step that pivoted on them.  Thread c of the draw
 // owns logical column c (c < n: left block), updates it alone and so reads
@@ -280,7 +281,7 @@ static __device__ __noinline__ void cr_eliminate(
 // One warp of a draw: the pivots of cr_solve_regs.  Lane q holds row q of the
 // n x n matrix Lm (tile layout, leading dimension ldl); rows are not moved:
 // linv, the logical row that lane q stands for, follows the swaps of
-// gj_solve's schedule, which gives that schedule's arithmetic.  Step k: the
+// _gj_solve's schedule, which gives that schedule's arithmetic.  Step k: the
 // first maximal |column k| over logical rows >= k (pivot_wins, in logical
 // order), the pivot row scaled by 1 / pivot (its entries reach the other
 // lanes by shuffles), the rank-1 update of the columns > k, and a record of

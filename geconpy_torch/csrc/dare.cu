@@ -1,179 +1,234 @@
-// Batched DARE settle (predictive covariance fixed point): one thread block
-// per draw.
+// Batched DARE settle (predictive covariance fixed point): four warps per
+// draw, one draw a block, the products on the FP64 tensor cores.
 //
 // Replaces the TPU kernel _dare_kernel (geconpy_tpu/ops/pallas_dare.py:37,
 // reached through pallas_dare_settle).  For each draw, a fixed schedule:
 // P = the unconditional covariance by lyap_iters Lyapunov doublings
 // (P += A P A'; A = A A from A = T, P = RQR), then hewer_iters Hewer
 // polishes, each
-//   S = Z P Z' + H inverted by the pivoted Gauss-Jordan helper,
+//   S = Z P Z' + H inverted by a pivoted Gauss-Jordan elimination,
 //   Kp = T (P Z' S^{-1}),  A_cl = T - Kp Z,  Qc = sym(RQR + (Kp H) Kp'),
-//   P = sym(Lyapunov doubling of (A_cl, Qc), inner_iters doublings).
-// Starting from the open-loop unconditional covariance matters: with H = 0
-// the DARE has several fixed points and the right one is the limit from
-// there (geconpy_tpu/ops/kalman.py:287-294).  The schedule has no early
-// exit; the caller gates convergence outside the kernel with one Riccati
-// step (dare_residual_settled).  The TPU wrapper pads the batch to whole
-// lane tiles with H = I in the padded slots; here the grid is exactly one
-// block per draw, so there is no padded slot to keep finite.
+//   P = sym(Lyapunov doubling of (A_cl, Qc), inner_iters doublings),
+// with sym(X) = (X + X') / 2.  Starting from the open-loop unconditional
+// covariance matters: with H = 0 the DARE has several fixed points and the
+// right one is the limit from there (geconpy_tpu/ops/kalman.py:287-294).
+// The schedule has no early exit; the caller gates convergence outside the
+// kernel with one Riccati step (dare_residual_settled).  The TPU wrapper
+// pads the batch to whole lane tiles with H = I in the padded slots; here
+// the grid is exactly one block per draw, so there is no padded slot.
 //
 // Precision: the kernel reads and writes the caller's dtype but runs the
-// recursion in float64, as the settle kernel does: without measurement
-// error S = Z P Z' is ill-conditioned on SW-2007.
+// recursion in float64, as the settle kernels do: without measurement error
+// S = Z P Z' is ill-conditioned on SW-2007.
 //
-// What bounds it on the H100: (lyap_iters + hewer_iters * inner_iters) * 3
-// n^3 FMAs per draw in dependent doubling steps, ~7.4 MFMA at n = 26 with
-// the default 12 + 8 * 16 schedule, on inputs of 2 n^2 + k n + k^2 values:
-// latency- and shared-memory-bound, far from HBM.  The design keeps every
-// matrix in shared memory for the whole schedule (one block per draw, about
-// 40 KB in float64 at n = 26, k = 7) and spreads each n x n product's
-// entries over the block's threads.
+// What bounds it on the H100.  On paper the operations: (lyap_iters +
+// hewer_iters * inner_iters) * 3 n^3 multiply-adds per draw, ~7.4M at
+// n = 26 with the default 12 + 8 * 16 schedule, on inputs of 2 n^2 + k n +
+// k^2 values.  In fact the chain: 140 dependent doublings, each a few small
+// products, and the warps of a draw issue about one instruction every ~5
+// clocks.  An earlier design (one block of 256 threads per draw, one output
+// entry per thread, two shared-memory loads per multiply-add on the FP64
+// vector units, three block barriers a doubling, a block-wide elimination
+// with three barriers a pivot) took 2.466 ms for 512 draws in float64,
+// NVIDIA H100 80GB HBM3 at 700.00 W: ~17 us a doubling.  This design
+// (small_linalg.cuh has the helpers and the tile layout):
+//
+//  * every product is tile_mm: mma.sync m16n8k4 in float64 on matrices
+//    zero-padded to whole tiles, so that nothing tests a bound.  In the
+//    doublings a warp takes 32 x 16 of the result at a time (kTall), so that
+//    six shared-memory loads feed four mma, not eight: 0.492 against 0.535
+//    ms with 16 x 16 items (same card and limit);
+//  * a doubling takes two phases: A P and A A read the same A and go to
+//    different buffers, so the four warps take both at once; P += (A P) A'
+//    with the old A follows, then the doubling matrix changes buffers.  Two
+//    block barriers a doubling, not three (tile_lyap_doubling, which the
+//    settle kernels run in three phases for want of a fifth buffer);
+//  * five n x n buffers (T, P, A and the doubling's two work buffers), Z
+//    and H.  The Hewer step's n x k products, S and the elimination's
+//    scratch live in the two work buffers, which the doubling does not use
+//    then; RQR is read from device memory in the epilogue that adds it.  At
+//    n = 26, k = 7 a draw takes 52,224 B of shared memory, so an SM holds
+//    four draws and 512 draws run in one wave on 132 SMs;
+//  * S^{-1} belongs to one warp (warp_solve_innovation: for k <= 8 a
+//    Gauss-Jordan elimination in registers, a column per lane; above 8 in
+//    shared memory), with the reference's pivot rule (first maximum, NaN
+//    largest, ties to the lower row);
+//  * A_cl = T - Kp Z and RQR + (Kp H) Kp' are epilogues of their products;
+//    sym is a pass over the pairs (i, j), (j, i), in place: each pair is
+//    summed once, so both entries get the reference's value.
 #include "small_linalg.cuh"
+
 
 namespace gcp {
 
-__host__ __device__ inline size_t dare_smem_elems(int n, int k) {
-  // T, RQR, P, A, A-next, W1 (n^2 each); Z, PZt, Kp, KpH (k n each); H
-  // (k^2); aug k x 2k; GJ column (k) and row (2k); scalars / reduce slots
-  return (size_t)6 * n * n + (size_t)4 * k * n + (size_t)k * k +
-         (size_t)2 * k * k + 3 * (size_t)k + 48;
-}
+constexpr int kDareWarps = 4;
+constexpr int kDareThreads = 32 * kDareWarps;
+constexpr int kDareMinBlocks = 4;   // draws an SM holds: 128 registers
 
-// P += A P A'; A = A A, iters times.  Am / An are swapped in place so the
-// caller's pointers follow the current doubling matrix.
-__device__ void lyap_doubling(double*& Am, double*& An, double* P, double* W1,
-                              int n, int iters) {
-  const int nn = n * n;
-  for (int it = 0; it < iters; ++it) {
-    for_each_mm(Am, n, P, n, false, n, n, n,
-                [&](int i, int j, double s) { W1[i * n + j] = s; });
-    __syncthreads();
-    for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-      const int i = e / n, j = e - i * n;
-      double sp = 0.0, sa = 0.0;
-      for (int l = 0; l < n; ++l) {
-        sp += W1[i * n + l] * Am[j * n + l];
-        sa += Am[i * n + l] * Am[l * n + j];
-      }
-      P[e] = P[e] + sp;
-      An[e] = sa;
-    }
-    __syncthreads();
-    double* t = Am; Am = An; An = t;
+// Offsets (in doubles) of one draw's shared memory, matrices in the tile
+// layout; every size even, so that each buffer starts 16-byte aligned.
+struct DareLayout {
+  int ld, ldk, nr, kr;
+  int T, P, A, Z, H, An, W, PZt, S, X, Kp, aug, col, row;
+  int total;
+  __host__ __device__ DareLayout(int n, int k) {
+    nr = ceil32(n);   // stored rows: the doublings' 32-row items read them
+    kr = ceil16(k);
+    ld = tile_ld(n); ldk = tile_ld(k);
+    int o = 0;
+    T = o; o += nr * ld;
+    P = o; o += nr * ld;
+    A = o; o += nr * ld;    // the doubling matrix; A_cl
+    Z = o; o += kr * ld;    // k x n
+    H = o; o += kr * ldk;   // k x k
+    // the doubling's work buffers An and W, and over them, during a Hewer
+    // step, its n x k and k x k buffers and the elimination's scratch
+    An = o;
+    W = o + nr * ld;
+    int s = o;
+    PZt = s; s += nr * ldk;   // P Z'
+    S = s; s += kr * ldk;     // S, then S^{-1}
+    X = s; s += nr * ldk;     // P Z' S^{-1}, then Kp H
+    Kp = s; s += nr * ldk;
+    const int big = k > 8 ? 1 : 0;   // the shared-memory elimination
+    aug = s; s += big * 2 * k * k;
+    col = s; s += big * ceil8(k);
+    row = s; s += big * ceil8(2 * k);
+    total = s > o + 2 * nr * ld ? s : o + 2 * nr * ld;
   }
-}
+};
 
-// P <- (P + P') / 2, through W1
-__device__ void symmetrise(double* P, double* W1, int n) {
-  const int nn = n * n;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) W1[e] = P[e];
-  __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
+// P <- (P + P') / 2 over the logical entries, in place: one thread sums
+// each pair once and writes both entries.
+__device__ __forceinline__ void symmetrise(double* P, int n, int ld,
+                                           int tid) {
+  for (int e = tid; e < n * n; e += kDareThreads) {
     const int i = e / n, j = e - i * n;
-    P[e] = 0.5 * (W1[e] + W1[j * n + i]);
+    if (i <= j) {
+      const double s = 0.5 * (P[i * ld + j] + P[j * ld + i]);
+      P[i * ld + j] = s;
+      P[j * ld + i] = s;
+    }
   }
-  __syncthreads();
 }
 
 template <typename S>
-__global__ void dare_kernel(const S* __restrict__ gT,
-                            const S* __restrict__ gRQR,
-                            const S* __restrict__ gZ,
-                            const S* __restrict__ gH, S* __restrict__ gP,
-                            int n, int k, int lyap_iters, int hewer_iters,
-                            int inner_iters) {
-  using Acc = double;  // the recursion runs in float64 for either I/O type
+__global__ void __launch_bounds__(kDareThreads, kDareMinBlocks)
+    dare_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
+                const S* __restrict__ gZ, const S* __restrict__ gH,
+                S* __restrict__ gP, int n, int k, int lyap_iters,
+                int hewer_iters, int inner_iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* sm = reinterpret_cast<Acc*>(smem_raw);
-  const int nn = n * n;
-  const int kn = k * n;
-  const int w = 2 * k;
-  Acc* Tm = sm;
-  Acc* RQR = Tm + nn;
-  Acc* P = RQR + nn;
-  Acc* Am = P + nn;
-  Acc* An = Am + nn;
-  Acc* W1 = An + nn;
-  Acc* Z = W1 + nn;     // k x n
-  Acc* PZt = Z + kn;    // n x k
-  Acc* Kp = PZt + kn;   // n x k
-  Acc* KpH = Kp + kn;   // n x k (first P Z' S^{-1}, then Kp H)
-  Acc* H = KpH + kn;    // k x k
-  Acc* aug = H + k * k; // k x 2k
-  GJScratch<Acc> gj;
-  gj.col = aug + k * w;  // k
-  gj.row = gj.col + k;   // 2k
-  Acc* scal = gj.row + w;  // [0] pivot [1] minpiv [2] logdet [4] prow
-  gj.pivot = scal;
-  gj.prow = reinterpret_cast<int*>(scal + 4);
-
+  const DareLayout L(n, k);
+  // the warp's number through a shuffle, so that the compiler knows it to
+  // be the same in all lanes (no reconvergence code around the mma)
+  const WarpCtx w{__shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0),
+                  kDareWarps, (int)(threadIdx.x & 31)};
+  const WarpCtx solo{0, 1, w.lane};
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
-  for (int e = tid; e < nn; e += blockDim.x) {
-    Tm[e] = gT[b * nn + e];
-    RQR[e] = gRQR[b * nn + e];
-    P[e] = RQR[e];
-    Am[e] = Tm[e];
+  const int nn = n * n, kn = k * n;
+  const int ld = L.ld, ldk = L.ldk;
+
+  double* sm = reinterpret_cast<double*>(smem_raw);
+  double* Tm = sm + L.T;
+  double* P = sm + L.P;
+  double* A = sm + L.A;
+  double* Z = sm + L.Z;
+  double* H = sm + L.H;
+  double* An = sm + L.An;
+  double* W = sm + L.W;
+  double* PZt = sm + L.PZt;
+  double* Sm = sm + L.S;
+  double* X = sm + L.X;
+  double* Kp = sm + L.Kp;
+  const S* rqr = gRQR + b * nn;
+  const S* no_g = nullptr;
+  S* no_o = nullptr;
+  auto sync = [] { __syncthreads(); };
+
+  // ---- inputs, zero-padded: T, P = R Q R', Z, H.  Every other buffer is
+  // written whole, pads included, before it is read.
+  for (int e = tid; e < L.nr * ld; e += kDareThreads) {
+    const int i = e / ld, j = e - i * ld;
+    const bool in = i < n && j < n;
+    Tm[e] = in ? double(gT[b * nn + i * n + j]) : 0.0;
+    P[e] = in ? double(rqr[i * n + j]) : 0.0;
   }
-  for (int e = tid; e < kn; e += blockDim.x) Z[e] = gZ[b * kn + e];
-  for (int e = tid; e < k * k; e += blockDim.x) H[e] = gH[b * k * k + e];
-  __syncthreads();
+  for (int e = tid; e < L.kr * ld; e += kDareThreads) {
+    const int i = e / ld, j = e - i * ld;
+    Z[e] = (i < k && j < n) ? double(gZ[b * kn + i * n + j]) : 0.0;
+  }
+  for (int e = tid; e < L.kr * ldk; e += kDareThreads) {
+    const int i = e / ldk, j = e - i * ldk;
+    H[e] = (i < k && j < k) ? double(gH[b * k * k + i * k + j]) : 0.0;
+  }
+  sync();
 
   // K = 0 start: the unconditional covariance of the stable transition
-  lyap_doubling(Am, An, P, W1, n, lyap_iters);
+  tile_lyap_doubling<true>(Tm, P, A, An, W, n, ld, lyap_iters, w, sync);
 
   for (int h = 0; h < hewer_iters; ++h) {
     // PZt = P Z'
-    for_each_mm(P, n, Z, n, true, n, n, k,
-                [&](int i, int j, Acc s) { PZt[i * k + j] = s; });
-    __syncthreads();
-    // aug = [Z PZt + H | I]
-    for_each_mm(Z, n, PZt, k, false, k, n, k, [&](int i, int j, Acc s) {
-      aug[i * w + j] = s + H[i * k + j];
-    });
-    for (int e = tid; e < k * k; e += blockDim.x) {
-      const int i = e / k, j = e - i * k;
-      aug[i * w + k + j] = Acc(i == j ? 1 : 0);
+    tile_mm(tile_product(P, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0,
+            no_o, 0, w);
+    sync();
+    // one warp: S = Z PZt + H, then S^{-1} in its place
+    if (w.warp == 0) {
+      TileProduct s = tile_product(Z, ld, PZt, ldk, false, k, n, k, Sm, ldk);
+      s.E = H;
+      s.lde = ldk;
+      tile_mm(s, no_g, 0, no_o, 0, solo);
+      __syncwarp();
+      double minpiv = INFINITY, logdet = 0.0;
+      warp_solve_innovation<false>(Sm, ldk, nullptr, k, sm + L.aug,
+                                   sm + L.col, sm + L.row, w.lane, minpiv,
+                                   logdet);
     }
-    if (tid == 0) { scal[1] = Acc(INFINITY); scal[2] = Acc(0); }
-    __syncthreads();
-    gj_solve(aug, k, w, gj, &scal[1], &scal[2]);
-    // KpH = PZt S^{-1}
-    for_each_mm(PZt, k, aug + k, w, false, n, k, k,
-                [&](int i, int j, Acc s) { KpH[i * k + j] = s; });
-    __syncthreads();
-    // Kp = T (PZt S^{-1})
-    for_each_mm(Tm, n, KpH, k, false, n, n, k,
-                [&](int i, int j, Acc s) { Kp[i * k + j] = s; });
-    __syncthreads();
-    // A_cl = T - Kp Z;  KpH = Kp H
-    for_each_mm(Kp, k, Z, n, false, n, k, n, [&](int i, int j, Acc s) {
-      Am[i * n + j] = Tm[i * n + j] - s;
-    });
-    for_each_mm(Kp, k, H, k, false, n, k, k,
-                [&](int i, int j, Acc s) { KpH[i * k + j] = s; });
-    __syncthreads();
-    // P = sym(RQR + KpH Kp')
-    for_each_mm(KpH, k, Kp, k, true, n, k, n, [&](int i, int j, Acc s) {
-      P[i * n + j] = RQR[i * n + j] + s;
-    });
-    __syncthreads();
-    symmetrise(P, W1, n);
-    lyap_doubling(Am, An, P, W1, n, inner_iters);
-    symmetrise(P, W1, n);
+    sync();
+    // X = PZt S^{-1}
+    tile_mm(tile_product(PZt, ldk, Sm, ldk, false, n, k, k, X, ldk), no_g, 0,
+            no_o, 0, w);
+    sync();
+    // Kp = T X
+    tile_mm(tile_product(Tm, ld, X, ldk, false, n, n, k, Kp, ldk), no_g, 0,
+            no_o, 0, w);
+    sync();
+    // A = A_cl = T - Kp Z;  X = Kp H
+    TileProduct acl = tile_product(Kp, ldk, Z, ld, false, n, k, n, A, ld);
+    acl.sign = -1.0;
+    acl.E = Tm;
+    acl.lde = ld;
+    tile_mm(acl, no_g, 0, no_o, 0, w);
+    tile_mm(tile_product(Kp, ldk, H, ldk, false, n, k, k, X, ldk), no_g, 0,
+            no_o, 0, w);
+    sync();
+    // P = sym(RQR + (Kp H) Kp'), RQR added from device memory
+    tile_mm(tile_product(X, ldk, Kp, ldk, true, n, k, n, P, ld), rqr, n, no_o,
+            0, w);
+    sync();
+    symmetrise(P, n, ld, tid);
+    sync();
+    // P = sym(the Lyapunov doubling of (A_cl, Qc))
+    tile_lyap_doubling<true>(A, P, A, An, W, n, ld, inner_iters, w, sync);
+    symmetrise(P, n, ld, tid);
+    sync();
   }
-  for (int e = tid; e < nn; e += blockDim.x) gP[b * nn + e] = S(P[e]);
+  for (int e = tid; e < nn; e += kDareThreads) {
+    const int i = e / n, j = e - i * n;
+    gP[b * nn + e] = S(P[i * ld + j]);
+  }
 }
 
 template <typename S>
 int launch_dare(const void* T, const void* RQR, const void* Z, const void* H,
                 void* P, int batch, int n, int k, int lyap_iters,
                 int hewer_iters, int inner_iters, cudaStream_t stream) {
-  const size_t bytes = dare_smem_elems(n, k) * sizeof(double);
+  const size_t bytes = (size_t)DareLayout(n, k).total * sizeof(double);
   cudaError_t err = cudaFuncSetAttribute(
       dare_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dare_kernel<S><<<batch, 256, bytes, stream>>>(
+  dare_kernel<S><<<batch, kDareThreads, bytes, stream>>>(
       static_cast<const S*>(T), static_cast<const S*>(RQR),
       static_cast<const S*>(Z), static_cast<const S*>(H), static_cast<S*>(P),
       n, k, lyap_iters, hewer_iters, inner_iters);
@@ -196,9 +251,13 @@ int gcp_dare(int dtype, const void* T, const void* RQR, const void* Z,
                                   hewer_iters, inner_iters, s);
 }
 
-// shared memory per block; the recursion is float64 for either I/O type
+// Shared memory per block (one draw); the recursion is float64 for either
+// I/O type.
 size_t gcp_dare_smem_bytes(int n, int k) {
-  return gcp::dare_smem_elems(n, k) * sizeof(double);
+  return (size_t)gcp::DareLayout(n, k).total * sizeof(double);
 }
+
+// Threads per block (one draw).
+int gcp_dare_block_threads(void) { return gcp::kDareThreads; }
 
 }  // extern "C"

@@ -1,92 +1,189 @@
-// Batched constant-gain Kalman filter tail: one thread block per draw.
+// Batched constant-gain Kalman filter tail: one warp per draw, the draw's
+// matrices in that warp's registers, no barrier in the step loop.
 //
 // Replaces the TPU kernel _tail_kernel (geconpy_tpu/ops/pallas_filter.py
 // :34, reached through pallas_filter_tail).  For each draw and step t:
 //   yd = y_t - d;  v = yd - Z x;  ll += const - v' F^{-1} v / 2;
 //   x <- M x + TK yd.
+// It computes in the caller's dtype, as the reference kernel does (float32
+// on the sweep).
 //
-// What bounds it on the H100: each step is n^2 + n k + k n + k^2 FMAs
-// (~1.3 kFMA at n = 26, k = 7) that depend on the previous step's x, so the
-// 168-step recursion is latency-bound; the per-draw matrices (n^2 + 2 n k +
-// k^2 values) are read from device memory once.  The design keeps them in
-// shared memory for the whole recursion, runs a block of 64 threads per
-// draw (4096 draws fill the SMs' resident-block slots), and reads y_t
-// straight from device memory, shared by every draw (L1/L2 resident).
-#include "small_linalg.cuh"
+// What bounds it on the H100: each step is n^2 + 2 n k + k^2 multiply-adds
+// per draw (~1.3k at n = 26, k = 7) that depend on the previous step's x,
+// 168 dependent steps on SW-2007; the per-draw matrices are read from
+// device memory once.  So it is bound by how many instructions a draw's
+// step takes, not by memory.  An earlier design (a 64-thread block per
+// draw, matrices in shared memory, two block barriers a step, thread 0
+// alone summing the quadratic form) took 1.441 ms for 4096 draws in
+// float32, NVIDIA H100 80GB HBM3 at 700.00 W: ~17k clocks a step.  This
+// design:
+//
+//  * one warp owns one draw.  Lane i holds row i of M and of TK (and row
+//    i + 32 when 32 < n <= 64: kRows = 2), x_i, and, on lanes i < k, row i
+//    of Z and of F^{-1} and d_i, all zero-padded to whole compile-time
+//    widths, so that every loop is unrolled over registers and tests no
+//    bound;
+//  * a step hands x, y_t - d and v round the warp through a few hundred
+//    bytes of shared memory of its own: each lane writes its entries, and
+//    after __syncwarp every lane reads them all back as broadcasts, four
+//    floats (two doubles) a load, and accumulates its entries of M x and,
+//    on lanes < k, of Z x from the same values, two accumulators each for
+//    ILP; F^{-1} v and TK (y_t - d) likewise; v' F^{-1} v is a warp
+//    reduction by shuffles.  No barrier but the warp's own: the only chain
+//    from step to step is x.  Broadcasting x by __shfl_sync instead, a
+//    shuffle a column, took 0.249 against 0.159 ms (same card and limit):
+//    the SM runs one shuffle a clock;
+//  * y_t is shared by every draw and read through the read-only L1 path
+//    (__ldg): 168 x 7 values in float32 stay resident there;
+//  * four draws (warps) a block; a warp past the batch returns at once.
+//    4096 draws are ~31 warps an SM, two waves at 128 registers a thread,
+//    and the work is bound by issue either way (1, 4 and 8 draws a block
+//    read alike).
+//
+// n <= 64 and k <= 32 (the wrapper raises beyond): the largest filter core
+// of the bundled models is 26, with 7 observables.
+#include <cuda_runtime.h>
+
+#ifndef GCP_TAIL_DRAWS
+#define GCP_TAIL_DRAWS 4   // draws (warps) per block
+#endif
 
 namespace gcp {
 
-constexpr int kTailThreads = 64;
+constexpr int kTailDraws = GCP_TAIL_DRAWS;
+constexpr int kTailMaxN = 64;
+constexpr int kTailMaxK = 32;
 
-__host__ __device__ inline size_t tail_smem_elems(int n, int k) {
-  return (size_t)n * n + (size_t)2 * n * k + (size_t)k * k + 2 * (size_t)n +
-         3 * (size_t)k + 8;
+// four consecutive entries of a 16-byte aligned array in shared memory
+__device__ __forceinline__ void load4(const float* p, float (&out)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&out)[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 c = *reinterpret_cast<const double2*>(p + 2);
+  out[0] = a.x; out[1] = a.y; out[2] = c.x; out[3] = c.y;
 }
 
-template <typename S>
-__global__ void filter_tail_kernel(const S* __restrict__ gy,
-                                   const S* __restrict__ gM,
-                                   const S* __restrict__ gTK,
-                                   const S* __restrict__ gZ,
-                                   const S* __restrict__ gd,
-                                   const S* __restrict__ gFinv,
-                                   const S* __restrict__ gconst,
-                                   const S* __restrict__ gx0,
-                                   S* __restrict__ gll, int n, int k,
-                                   int n_steps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* sm = reinterpret_cast<S*>(smem_raw);
-  const int nn = n * n, nk = n * k;
-  S* M = sm;
-  S* TK = M + nn;       // n x k
-  S* Z = TK + nk;       // k x n
-  S* Finv = Z + nk;     // k x k
-  S* x = Finv + k * k;
-  S* xn = x + n;
-  S* d = xn + n;
-  S* yd = d + k;
-  S* v = yd + k;
+// kRows rows of M a lane (n <= 32 * kRows), each held as kCols = 32 * kRows
+// columns; kK >= k columns held per row of TK and F^{-1}.
+template <typename S, int kRows, int kK>
+__global__ void __launch_bounds__(32 * kTailDraws)
+    filter_tail_kernel(const S* __restrict__ gy, const S* __restrict__ gM,
+                       const S* __restrict__ gTK, const S* __restrict__ gZ,
+                       const S* __restrict__ gd, const S* __restrict__ gFinv,
+                       const S* __restrict__ gconst,
+                       const S* __restrict__ gx0, S* __restrict__ gll,
+                       int batch, int n, int k, int n_steps) {
+  constexpr int kCols = 32 * kRows;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const size_t b = (size_t)blockIdx.x * kTailDraws + (threadIdx.x >> 5);
+  if (b >= (size_t)batch) return;   // the whole warp: no barrier follows
+  const size_t nn = (size_t)n * n, nk = (size_t)n * k;
 
-  const int tid = threadIdx.x;
-  const size_t b = blockIdx.x;
-  for (int e = tid; e < nn; e += blockDim.x) M[e] = gM[b * nn + e];
-  for (int e = tid; e < nk; e += blockDim.x) {
-    TK[e] = gTK[b * nk + e];
-    Z[e] = gZ[b * nk + e];
+  S m[kRows][kCols], tk[kRows][kK], x[kRows], z[kCols], fi[kK];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = lane + 32 * r;
+    const bool in = row < n;
+    const S* mrow = gM + b * nn + (size_t)row * n;
+    const S* tkrow = gTK + b * nk + (size_t)row * k;
+#pragma unroll
+    for (int l = 0; l < kCols; ++l) m[r][l] = (in && l < n) ? mrow[l] : S(0);
+#pragma unroll
+    for (int j = 0; j < kK; ++j) tk[r][j] = (in && j < k) ? tkrow[j] : S(0);
+    x[r] = in ? gx0[b * n + row] : S(0);
   }
-  for (int e = tid; e < k * k; e += blockDim.x) Finv[e] = gFinv[b * k * k + e];
-  for (int i = tid; i < n; i += blockDim.x) x[i] = gx0[b * n + i];
-  for (int i = tid; i < k; i += blockDim.x) d[i] = gd[b * k + i];
+  const bool obs = lane < k;
+  const S* zrow = gZ + b * nk + (size_t)lane * n;
+  const S* firow = gFinv + b * (size_t)k * k + (size_t)lane * k;
+#pragma unroll
+  for (int l = 0; l < kCols; ++l) z[l] = (obs && l < n) ? zrow[l] : S(0);
+#pragma unroll
+  for (int j = 0; j < kK; ++j) fi[j] = (obs && j < k) ? firow[j] : S(0);
+  const S d = obs ? gd[b * k + lane] : S(0);
   const S cnst = gconst[b];
-  S ll = S(0);   // thread 0's copy is the result
-  __syncthreads();
+  S ll = S(0);
+
+  // the warp's broadcast buffers: x, y_t - d and v
+  __shared__ __align__(16) S bcast[kTailDraws][kCols + 2 * kK];
+  S* xs = bcast[threadIdx.x >> 5];
+  S* yds = xs + kCols;
+  S* vs = yds + kK;
 
   for (int t = 0; t < n_steps; ++t) {
-    const S* yt = gy + (size_t)t * k;
-    for (int i = tid; i < k; i += blockDim.x) {
-      const S ydi = yt[i] - d[i];
-      S s = S(0);
-      for (int l = 0; l < n; ++l) s += Z[i * n + l] * x[l];
-      yd[i] = ydi;
-      v[i] = ydi - s;
+    // y_t - d on lanes < k (zero elsewhere)
+    const S yd = obs ? __ldg(gy + (size_t)t * k + lane) - d : S(0);
+    S tky[kRows], mx0[kRows], mx1[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) tky[r] = mx0[r] = mx1[r] = S(0);
+    S zx0 = S(0), zx1 = S(0), fv = S(0);
+    // every lane writes its entries, then reads all of them back as
+    // broadcasts, four floats (two doubles) a load
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) xs[lane + 32 * r] = x[r];
+    if (lane < kK) yds[lane] = yd;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kK; j += 4) {
+      S ydj[4];
+      load4(yds + j, ydj);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) tky[r] += tk[r][j + q] * ydj[q];
     }
-    __syncthreads();
-    if (tid == 0) {
-      S quad = S(0);
-      for (int i = 0; i < k; ++i)
-        for (int j = 0; j < k; ++j) quad += v[i] * Finv[i * k + j] * v[j];
-      ll = (ll + cnst) - S(0.5) * quad;
+#pragma unroll
+    for (int l = 0; l < kCols; l += 4) {
+      S xl[4];
+      load4(xs + l, xl);
+#pragma unroll
+      for (int q = 0; q < 4; q += 2) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          mx0[r] += m[r][l + q] * xl[q];
+          mx1[r] += m[r][l + q + 1] * xl[q + 1];
+        }
+        zx0 += z[l + q] * xl[q];
+        zx1 += z[l + q + 1] * xl[q + 1];
+      }
     }
-    for (int i = tid; i < n; i += blockDim.x) {
-      S s1 = S(0), s2 = S(0);
-      for (int l = 0; l < n; ++l) s1 += M[i * n + l] * x[l];
-      for (int l = 0; l < k; ++l) s2 += TK[i * k + l] * yd[l];
-      xn[i] = s1 + s2;
+    const S v = yd - (zx0 + zx1);
+    if (lane < kK) vs[lane] = v;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kK; j += 4) {
+      S vj[4];
+      load4(vs + j, vj);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fv += fi[j + q] * vj[q];
     }
-    __syncthreads();
-    S* tmp = x; x = xn; xn = tmp;
+    // v on lanes < k; v' F^{-1} v = sum_i v_i (F^{-1} v)_i
+    S quad = v * fv;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      quad += __shfl_xor_sync(kAll, quad, off);
+    ll = (ll + cnst) - S(0.5) * quad;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) x[r] = (mx0[r] + mx1[r]) + tky[r];
   }
-  if (tid == 0) gll[b] = ll;
+  if (lane == 0) gll[b] = ll;
+}
+
+template <typename S, int kRows, int kK>
+int launch_tail(const void* y, const void* M, const void* TK, const void* Z,
+                const void* d, const void* Finv, const void* cnst,
+                const void* x0, void* ll, int batch, int n, int k,
+                int n_steps, cudaStream_t stream) {
+  const int blocks = (batch + kTailDraws - 1) / kTailDraws;
+  filter_tail_kernel<S, kRows, kK><<<blocks, 32 * kTailDraws, 0, stream>>>(
+      static_cast<const S*>(y), static_cast<const S*>(M),
+      static_cast<const S*>(TK), static_cast<const S*>(Z),
+      static_cast<const S*>(d), static_cast<const S*>(Finv),
+      static_cast<const S*>(cnst), static_cast<const S*>(x0),
+      static_cast<S*>(ll), batch, n, k, n_steps);
+  return (int)cudaGetLastError();
 }
 
 template <typename S>
@@ -94,25 +191,27 @@ int launch_filter_tail(const void* y, const void* M, const void* TK,
                        const void* Z, const void* d, const void* Finv,
                        const void* cnst, const void* x0, void* ll, int batch,
                        int n, int k, int n_steps, cudaStream_t stream) {
-  const size_t bytes = tail_smem_elems(n, k) * sizeof(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      filter_tail_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  filter_tail_kernel<S><<<batch, kTailThreads, bytes, stream>>>(
-      static_cast<const S*>(y), static_cast<const S*>(M),
-      static_cast<const S*>(TK), static_cast<const S*>(Z),
-      static_cast<const S*>(d), static_cast<const S*>(Finv),
-      static_cast<const S*>(cnst), static_cast<const S*>(x0),
-      static_cast<S*>(ll), n, k, n_steps);
-  return (int)cudaGetLastError();
+  if (n > kTailMaxN || k > kTailMaxK) return (int)cudaErrorInvalidValue;
+  if (n <= 32) {
+    if (k <= 8)
+      return launch_tail<S, 1, 8>(y, M, TK, Z, d, Finv, cnst, x0, ll, batch,
+                                  n, k, n_steps, stream);
+    return launch_tail<S, 1, 32>(y, M, TK, Z, d, Finv, cnst, x0, ll, batch,
+                                 n, k, n_steps, stream);
+  }
+  if (k <= 8)
+    return launch_tail<S, 2, 8>(y, M, TK, Z, d, Finv, cnst, x0, ll, batch, n,
+                                k, n_steps, stream);
+  return launch_tail<S, 2, 32>(y, M, TK, Z, d, Finv, cnst, x0, ll, batch, n,
+                               k, n_steps, stream);
 }
 
 }  // namespace gcp
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = float64.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue, without a launch, for n or k out of range).
 int gcp_filter_tail(int dtype, const void* y, const void* M, const void* TK,
                     const void* Z, const void* d, const void* Finv,
                     const void* cnst, const void* x0, void* ll, int batch,
@@ -125,9 +224,17 @@ int gcp_filter_tail(int dtype, const void* y, const void* M, const void* TK,
                                          batch, n, k, n_steps, s);
 }
 
+// The launch's geometry: draws (one warp each) and threads per block, its
+// static shared memory for n states and k observables in this element
+// size, and the largest n and k the kernel takes.
+int gcp_filter_tail_draws_per_block(void) { return gcp::kTailDraws; }
+int gcp_filter_tail_block_threads(void) { return 32 * gcp::kTailDraws; }
 size_t gcp_filter_tail_smem_bytes(int n, int k, int elem_size) {
-  return gcp::tail_smem_elems(n, k) * (size_t)elem_size;
+  const int cols = n <= 32 ? 32 : 64, kk = k <= 8 ? 8 : 32;
+  return (size_t)gcp::kTailDraws * (cols + 2 * kk) * elem_size;
 }
+int gcp_filter_tail_max_n(void) { return gcp::kTailMaxN; }
+int gcp_filter_tail_max_k(void) { return gcp::kTailMaxK; }
 
 const char* gcp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -220,12 +220,6 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
     ysrc = sy;
   }
 
-  // C (tile layout, ldc) = A op(B) for an (r x m) result over c terms
-  auto product = [](const double* A, int lda, const double* B, int ldb,
-                    bool transB, int r, int c, int m, double* C, int ldc) {
-    return TileProduct{A, lda, B, ldb, transB, r, c, m, nullptr, 0, nullptr,
-                       0, 0, 1.0, false, nullptr, 0, C, ldc};
-  };
   const S* no_g = nullptr;
   S* no_o = nullptr;
   const S* rqr = gRQR + b * nn;
@@ -253,25 +247,10 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
     draw_barrier(draw);
 
     // ---- P0: discrete Lyapunov by doubling.  P stays in Wa; the doubling
-    // matrix A starts as T itself and then alternates between Wb and Wc.
-    const double* Am = Tm;
-    double* work = Wb;    // receives A P, then A A
-    double* other = Wc;   // holds A from the second pass on
-    for (int it = 0; it < lyap_iters; ++it) {
-      tile_mm(product(Am, ld, Wa, ld, false, n, n, n, work, ld), no_g, 0,
-              no_o, 0, w);
-      draw_barrier(draw);
-      TileProduct acc = product(work, ld, Am, ld, true, n, n, n, Wa, ld);
-      acc.E = Wa;   // P += (A P) A'
-      acc.lde = ld;
-      tile_mm(acc, no_g, 0, no_o, 0, w);
-      draw_barrier(draw);
-      tile_mm(product(Am, ld, Am, ld, false, n, n, n, work, ld), no_g, 0,
-              no_o, 0, w);
-      draw_barrier(draw);
-      Am = work;
-      double* tmp = work; work = other; other = tmp;
-    }
+    // matrix A starts as T itself and then alternates between Wb and Wc,
+    // three phases a doubling (no fifth buffer)
+    tile_lyap_doubling(Tm, Wa, Wb, Wc, nullptr, n, ld, lyap_iters, w,
+                       [&] { draw_barrier(draw); });
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();   // y is in shared memory for every draw of the block
@@ -286,18 +265,18 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
   // P_pred = T P T' + R Q R' into B2 (through B1); the caller's
   // matrix-vector product rides on the first of the two products
   auto predict = [&](auto&& first_step_extra) {
-    tile_mm(product(Tm, ld, P, ld, false, n, n, n, B1, ld), no_g, 0, no_o, 0,
-            w);
+    tile_mm(tile_product(Tm, ld, P, ld, false, n, n, n, B1, ld), no_g, 0,
+            no_o, 0, w);
     first_step_extra();
     draw_barrier(draw);
-    tile_mm(product(B1, ld, Tm, ld, true, n, n, n, B2, ld), rqr, n, no_o, 0,
-            w);
+    tile_mm(tile_product(B1, ld, Tm, ld, true, n, n, n, B2, ld), rqr, n,
+            no_o, 0, w);
   };
 
   // one warp: F = Z PZt + H into the buffer of F^{-1}, then the elimination
   // of [F | v | I] (or [F | I]) there; returns v' F^{-1} v
   auto solve_innovation = [&](auto with_v) {
-    TileProduct f = product(Z, ld, PZt, ldk, false, k, n, k, Finv, ldk);
+    TileProduct f = tile_product(Z, ld, PZt, ldk, false, k, n, k, Finv, ldk);
     f.E = H;
     f.lde = ldk;
     tile_mm(f, no_g, 0, no_o, 0, solo);
@@ -318,8 +297,8 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
     });
     draw_barrier(draw);
     // PZt = P_pred Z';  v = y_t - Z x_pred - d
-    tile_mm(product(B2, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0, no_o, 0,
-            w);
+    tile_mm(tile_product(B2, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0,
+            no_o, 0, w);
     tile_mv(Z, ld, xp, k, n, nullptr, 0, nullptr, 0, w,
             [&](int i, double s) {
               v[i] = i < k ? (double(yt[i]) - s) - dv[i] : 0.0;
@@ -332,25 +311,25 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
     }
     draw_barrier(draw);
     // K = PZt F^{-1}
-    tile_mm(product(PZt, ldk, Finv, ldk, false, n, k, k, K, ldk), no_g, 0,
+    tile_mm(tile_product(PZt, ldk, Finv, ldk, false, n, k, k, K, ldk), no_g, 0,
             no_o, 0, w);
     draw_barrier(draw);
     // B1 = I - K Z;  KH = K H;  x = x_pred + K v
-    TileProduct ikz = product(K, ldk, Z, ld, false, n, k, n, B1, ld);
+    TileProduct ikz = tile_product(K, ldk, Z, ld, false, n, k, n, B1, ld);
     ikz.sign = -1.0;
     ikz.eye = true;
     tile_mm(ikz, no_g, 0, no_o, 0, w);
-    tile_mm(product(K, ldk, H, ldk, false, n, k, k, KH, ldk), no_g, 0, no_o,
-            0, w);
+    tile_mm(tile_product(K, ldk, H, ldk, false, n, k, k, KH, ldk), no_g, 0,
+            no_o, 0, w);
     tile_mv(K, ldk, v, n, k, nullptr, 0, nullptr, 0, w,
             [&](int i, double s) { x[i] = xp[i] + s; });
     draw_barrier(draw);
     // P (old, dead) = (I - K Z) P_pred
-    tile_mm(product(B1, ld, B2, ld, false, n, n, n, P, ld), no_g, 0, no_o, 0,
-            w);
+    tile_mm(tile_product(B1, ld, B2, ld, false, n, n, n, P, ld), no_g, 0,
+            no_o, 0, w);
     draw_barrier(draw);
     // new P = that (I - K Z)' + KH K'   (Joseph form), into B2
-    TileProduct joseph = product(P, ld, B1, ld, true, n, n, n, B2, ld);
+    TileProduct joseph = tile_product(P, ld, B1, ld, true, n, n, n, B2, ld);
     joseph.A2 = KH;
     joseph.lda2 = ldk;
     joseph.B2 = K;
@@ -370,8 +349,8 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
             });
   });
   draw_barrier(draw);
-  tile_mm(product(B2, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0, no_o, 0,
-          w);
+  tile_mm(tile_product(B2, ld, Z, ld, true, n, n, k, PZt, ldk), no_g, 0,
+          no_o, 0, w);
   draw_barrier(draw);
   if (w.warp == 0) {
     solve_innovation(std::false_type{});
@@ -384,15 +363,15 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
   }
   draw_barrier(draw);
   // K = PZt F^{-1}
-  tile_mm(product(PZt, ldk, Finv, ldk, false, n, k, k, K, ldk), no_g, 0, no_o,
-          0, w);
+  tile_mm(tile_product(PZt, ldk, Finv, ldk, false, n, k, k, K, ldk), no_g,
+          0, no_o, 0, w);
   draw_barrier(draw);
   // TK = T K  (into KH)
-  tile_mm(product(Tm, ld, K, ldk, false, n, n, k, KH, ldk), no_g, 0,
+  tile_mm(tile_product(Tm, ld, K, ldk, false, n, n, k, KH, ldk), no_g, 0,
           kFused ? no_o : gTK + b * kn, k, w);
   draw_barrier(draw);
   // M = T - TK Z  (fused: into B1; else straight to device memory)
-  TileProduct m_prod = product(KH, ldk, Z, ld, false, n, k, n,
+  TileProduct m_prod = tile_product(KH, ldk, Z, ld, false, n, k, n,
                                kFused ? B1 : nullptr, ld);
   m_prod.sign = -1.0;
   m_prod.E = Tm;

@@ -1,18 +1,17 @@
-// Per-draw small dense linear algebra in shared memory: helpers for one
-// thread block per draw (for_each_mm, gj_solve; dare.cu) and, further
-// down, for a few warps per draw (tile_mm on the FP64 tensor cores, tile_mv,
-// warp_gj_solve; settle.cu and cycle_reduction.cu).
+// Per-draw small dense linear algebra in shared memory for kernels that
+// give a draw a few warps of its own (settle.cu, cycle_reduction.cu,
+// dare.cu): products on the FP64 tensor cores (tile_mm), the Lyapunov
+// doubling built on them (tile_lyap_doubling), matrix-vector products
+// (tile_mv) and a Gauss-Jordan elimination that one warp runs alone
+// (warp_gj_solve_regs, warp_gj_solve_shared).
 //
 // Counterparts of the shared Pallas helpers in
 // geconpy_tpu/ops/pallas_cycle_reduction.py: _mm (:52), _mmT (:73) and
 // _gj_solve (:90).  The TPU kernels keep the batch in the 128 vector lanes;
-// here one thread block owns one draw, its matrices live in shared memory
-// (row-major, explicit leading dimension), and the block's threads stride
-// over the entries.  Every helper is called by all threads of the block;
-// the caller synchronises before (inputs written) and after (outputs read).
+// here a few warps own one draw and its matrices live in shared memory.
 //
 // Reductions (max |.|, min |pivot|, the pivot search) run in a fixed order
-// inside one block with no atomics, so results are deterministic.  NaN
+// inside one warp with no atomics, so results are deterministic.  NaN
 // propagates through every min/max, as jnp.minimum/jnp.max do, so a
 // non-finite draw poisons only its own outputs and flags.
 #pragma once
@@ -34,39 +33,6 @@ __device__ __forceinline__ S nan_max(S a, S b) {
   return (isnan(a) || isnan(b)) ? (a + b) : (a > b ? a : b);
 }
 
-// out(i, j) for an (r x m) product A(r x c) B(c x m) with the sum taken
-// over l = 0..c-1 in order; B is read transposed (B is m x c) when transB.
-// f(i, j, sum) consumes each entry; it may write only memory that no
-// thread reads during this call.
-template <typename S, typename F>
-__device__ __forceinline__ void for_each_mm(const S* A, int lda, const S* B,
-                                            int ldb, bool transB, int r,
-                                            int c, int m, F f) {
-  for (int e = threadIdx.x; e < r * m; e += blockDim.x) {
-    const int i = e / m;
-    const int j = e - i * m;
-    const S* a = A + i * lda;
-    S acc = S(0);
-    if (transB) {
-      const S* b = B + j * ldb;
-      for (int l = 0; l < c; ++l) acc += a[l] * b[l];
-    } else {
-      const S* b = B + j;
-      for (int l = 0; l < c; ++l) acc += a[l] * b[l * ldb];
-    }
-    f(i, j, acc);
-  }
-}
-
-// Scratch for gj_solve, in shared memory.
-template <typename S>
-struct GJScratch {
-  S* col;     // n: column k after the swap, pivot row zeroed
-  S* row;     // w: pivot row divided by the pivot
-  S* pivot;   // 1
-  int* prow;  // 1
-};
-
 // Does (v, i) win over (best, bi) as the pivot?  Larger |entry| wins; a
 // tie goes to the lower row, as jnp.argmax takes the FIRST maximum; NaN
 // counts as the largest value (jnp.argmax and torch.argmax agree).
@@ -77,68 +43,8 @@ __device__ __forceinline__ bool pivot_wins(S v, int i, S best, int bi) {
   return v > best || (v == best && i < bi);
 }
 
-// Partially pivoted Gauss-Jordan on aug = [A | RHS] (n x w, leading
-// dimension w): on return aug[:, n:] = A^{-1} RHS.  The same schedule as
-// _gj_solve: at step k the pivot is the first maximal |aug[i, k]| over
-// rows i >= k; rows k and p swap (identical writes when p == k); the
-// pivot row is divided by the pivot and eliminated from every other row
-// over all w columns.  min|pivot| and sum log|pivot| = log|det A| are
-// accumulated into *minpiv and *logdet by thread 0 (caller initialises).
-template <typename S>
-__device__ void gj_solve(S* aug, int n, int w, GJScratch<S> s, S* minpiv,
-                         S* logdet) {
-  const int tid = threadIdx.x;
-  for (int k = 0; k < n; ++k) {
-    if (tid < 32) {
-      S best = S(-1);
-      int bi = 0x7fffffff;
-      for (int i = k + tid; i < n; i += 32) {
-        const S v = fabs(aug[i * w + k]);
-        if (pivot_wins(v, i, best, bi)) { best = v; bi = i; }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const S ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (pivot_wins(ov, oi, best, bi)) { best = ov; bi = oi; }
-      }
-      if (tid == 0) {
-        const S pv = aug[bi * w + k];
-        *s.prow = bi;
-        *s.pivot = pv;
-        *minpiv = nan_min(*minpiv, S(fabs(pv)));
-        *logdet += S(log(fabs(pv)));
-      }
-    }
-    __syncthreads();
-    const int p = *s.prow;
-    const S pv = *s.pivot;
-    // column k after the swap (row p picks up the old aug[k, k]), with the
-    // pivot row's entry zeroed; row p is not read here except through k
-    for (int i = tid; i < n; i += blockDim.x)
-      s.col[i] = (i == k) ? S(0) : aug[(i == p ? k : i) * w + k];
-    // swap rows k and p; keep the normalised pivot row aside
-    for (int j = tid; j < w; j += blockDim.x) {
-      const S rp = aug[p * w + j];
-      const S rk = aug[k * w + j];
-      s.row[j] = rp / pv;
-      aug[p * w + j] = rk;
-    }
-    __syncthreads();
-    for (int e = tid; e < n * w; e += blockDim.x) {
-      const int i = e / w;
-      const int j = e - i * w;
-      aug[e] = (i == k) ? s.row[j] : aug[e] - s.col[i] * s.row[j];
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Warp-level helpers for kernels that give a draw a few warps of its own
-// (settle.cu, cycle_reduction.cu): products on the FP64 tensor cores
-// (tile_mm), matrix-vector products (tile_mv) and a Gauss-Jordan
-// elimination that one warp runs alone (warp_gj_solve_regs,
-// warp_gj_solve_shared).
+// The warp-level helpers.
 //
 // Such a kernel spends its time dispatching instructions, not waiting for
 // memory: a warp that owns one 16 x 16 tile of a 26 x 26 product has 16 mma
@@ -158,6 +64,7 @@ __device__ void gj_solve(S* aug, int n, int w, GJScratch<S> s, S* minpiv,
 
 __host__ __device__ inline int ceil8(int v) { return (v + 7) & ~7; }
 __host__ __device__ inline int ceil16(int v) { return (v + 15) & ~15; }
+__host__ __device__ inline int ceil32(int v) { return (v + 31) & ~31; }
 
 // leading dimension of the tile layout: the smallest value >= ceil8(cols)
 // that is 4 mod 8
@@ -206,41 +113,62 @@ struct TileProduct {
 // columns of the result (x 8 where the result has no more columns): per
 // 8-wide step of the inner dimension a warp loads four A and four B operands
 // for four mma (2,048 multiply-adds) on two sets of accumulators, so its
-// chain of dependent mma is half the inner dimension.  Only an epilogue that
-// reads or writes device memory, or adds the identity, tests bounds.  The
-// caller synchronises the draw's warps before (operands written) and after
-// (result read); E and C may be the same buffer.
-template <typename S>
+// chain of dependent mma is half the inner dimension.  With kTall a work item
+// is 32 rows x 16 columns and a warp loads six operands for four mma per
+// 4-wide step: the matrices then need ceil32(rows) stored rows.  Only an
+// epilogue that reads or writes device memory, or adds the identity, tests
+// bounds.  The caller synchronises the draw's warps before (operands
+// written) and after (result read); E and C may be the same buffer.
+template <typename S, bool kTall = false>
 __device__ __forceinline__ void tile_mm(const TileProduct& p, const S* G,
                                         int ldg, S* O, int ldo, WarpCtx w) {
+  constexpr int kRowShift = kTall ? 5 : 4;   // 32 or 16 rows an item
   const int g = w.lane >> 2, t = w.lane & 3;
   const int col_tiles = (p.m + 7) >> 3;
   const int chunks = (col_tiles + 1) >> 1;
-  const int items = ((p.r + 15) >> 4) * chunks;
+  const int items = ((p.r + (1 << kRowShift) - 1) >> kRowShift) * chunks;
   // B(l, j) = B[j * sj + l * sl]
   const int sj = p.transB ? p.ldb : 1, sl = p.transB ? 1 : p.ldb;
   for (int item = w.warp; item < items; item += w.n_warps) {
     const int ic = item / chunks;
-    const int i0 = ic << 4, j0 = (item - ic * chunks) << 4;
+    const int i0 = ic << kRowShift, j0 = (item - ic * chunks) << 4;
     // the item's right-hand 8 columns exist?  If not, that half repeats the
     // left-hand one and is not stored
     const bool second = (j0 >> 3) + 1 < col_tiles;
     const int jr = second ? j0 + 8 : j0;
-    double acc[2][2][4] = {};   // [set][left or right 8 columns][fragment]
+    // [set of the inner dimension, or with kTall the item's upper or lower
+    // 16 rows][left or right 8 columns][fragment]
+    double acc[2][2][4] = {};
     auto accumulate = [&](const double* a0, int lda, const double* b0,
                           const double* b1, int step, int c) {
       const double* a1 = a0 + 8 * lda;
-      // not unrolled: two steps at once cost registers (spills at 128 a
-      // thread) and time (3.95 against 3.74 ms for the settle kernel)
+      if constexpr (kTall) {
+        // 16 more rows share each B operand: 6 loads a 4 mma, not 8
+        const double* a2 = a0 + 16 * lda;
+        const double* a3 = a0 + 24 * lda;
 #pragma unroll 1
-      for (int l = 0; l < c; l += 8) {
-        const double x0 = a0[l], x1 = a1[l], x2 = a0[l + 4], x3 = a1[l + 4];
-        const double y0 = b0[l * step], y1 = b1[l * step];
-        const double y2 = b0[(l + 4) * step], y3 = b1[(l + 4) * step];
-        dmma_16x8x4(acc[0][0], x0, x1, y0);
-        dmma_16x8x4(acc[0][1], x0, x1, y1);
-        dmma_16x8x4(acc[1][0], x2, x3, y2);
-        dmma_16x8x4(acc[1][1], x2, x3, y3);
+        for (int l = 0; l < c; l += 4) {
+          const double x0 = a0[l], x1 = a1[l], x2 = a2[l], x3 = a3[l];
+          const double y0 = b0[l * step], y1 = b1[l * step];
+          dmma_16x8x4(acc[0][0], x0, x1, y0);
+          dmma_16x8x4(acc[0][1], x0, x1, y1);
+          dmma_16x8x4(acc[1][0], x2, x3, y0);
+          dmma_16x8x4(acc[1][1], x2, x3, y1);
+        }
+      } else {
+        // not unrolled: two steps at once cost registers (spills at 128 a
+        // thread) and time (3.95 against 3.74 ms for the settle kernel)
+#pragma unroll 1
+        for (int l = 0; l < c; l += 8) {
+          const double x0 = a0[l], x1 = a1[l], x2 = a0[l + 4],
+                       x3 = a1[l + 4];
+          const double y0 = b0[l * step], y1 = b1[l * step];
+          const double y2 = b0[(l + 4) * step], y3 = b1[(l + 4) * step];
+          dmma_16x8x4(acc[0][0], x0, x1, y0);
+          dmma_16x8x4(acc[0][1], x0, x1, y1);
+          dmma_16x8x4(acc[1][0], x2, x3, y2);
+          dmma_16x8x4(acc[1][1], x2, x3, y3);
+        }
       }
     };
     accumulate(p.A + (i0 + g) * p.lda + t, p.lda,
@@ -252,29 +180,88 @@ __device__ __forceinline__ void tile_mm(const TileProduct& p, const S* G,
                  p.c2);
     const bool bounded = G != nullptr || O != nullptr || p.eye;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + 8 * h + g;
+    for (int rt = 0; rt < (kTall ? 2 : 1); ++rt) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (q == 1 && !second) continue;
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + 16 * rt + 8 * h + g;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = j0 + 8 * q + 2 * t + e;
-          double val = p.sign * (acc[0][q][2 * h + e] + acc[1][q][2 * h + e]);
-          if (p.E) val += p.E[i * p.lde + j];
-          if (bounded) {
-            if (i < p.r && j < p.m) {
-              if (p.eye && i == j) val += 1.0;
-              if (G) val += double(G[i * ldg + j]);
-              if (O) O[i * ldo + j] = S(val);
-            } else {
-              val = 0.0;
+        for (int q = 0; q < 2; ++q) {
+          if (q == 1 && !second) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 8 * q + 2 * t + e;
+            const int f = 2 * h + e;
+            double val = p.sign * (kTall ? acc[rt][q][f]
+                                         : acc[0][q][f] + acc[1][q][f]);
+            if (p.E) val += p.E[i * p.lde + j];
+            if (bounded) {
+              if (i < p.r && j < p.m) {
+                if (p.eye && i == j) val += 1.0;
+                if (G) val += double(G[i * ldg + j]);
+                if (O) O[i * ldo + j] = S(val);
+              } else {
+                val = 0.0;
+              }
             }
+            if (p.C) p.C[i * p.ldc + j] = val;
           }
-          if (p.C) p.C[i * p.ldc + j] = val;
         }
       }
     }
+  }
+}
+
+// A plain product for tile_mm: C (tile layout, ldc) = A op(B), an (r x m)
+// result over c terms, with no second term, sign +1, no identity and no
+// epilogue matrix.
+__device__ __forceinline__ TileProduct tile_product(const double* A, int lda,
+                                                    const double* B, int ldb,
+                                                    bool transB, int r, int c,
+                                                    int m, double* C,
+                                                    int ldc) {
+  return TileProduct{A, lda, B, ldb, transB, r, c, m, nullptr, 0, nullptr,
+                     0, 0, 1.0, false, nullptr, 0, C, ldc};
+}
+
+// `iters` Lyapunov doublings P += (A P) A'; A = A A (n x n, tile layout,
+// leading dimension ld) by the warps of one draw, from A = A0, which is not
+// written.  The doubling matrix alternates between the buffers X and Y (A0
+// may be one of them).  With a fifth buffer W, A P goes to W and A A to the
+// next of X and Y in one phase, and P += (A P) A' follows in a second: two
+// draw barriers a doubling.  Without one (W null), A P goes to the next
+// buffer, and A A overwrites it in a third phase.  With kTall the products
+// run on 32-row items (tile_mm); the buffers then hold ceil32(n) rows.
+// sync() is the draw's barrier; the caller synchronises before the call (P
+// and A0 written), the helper after its last phase.
+template <bool kTall = false, typename Sync>
+__device__ __forceinline__ void tile_lyap_doubling(const double* A0,
+                                                   double* P, double* X,
+                                                   double* Y, double* W,
+                                                   int n, int ld, int iters,
+                                                   WarpCtx w, Sync sync) {
+  const double* A = A0;
+  for (int it = 0; it < iters; ++it) {
+    double* next = A == X ? Y : X;
+    double* ap = W ? W : next;
+    tile_mm<double, kTall>(tile_product(A, ld, P, ld, false, n, n, n, ap, ld),
+                           nullptr, 0, nullptr, 0, w);
+    if (W)
+      tile_mm<double, kTall>(
+          tile_product(A, ld, A, ld, false, n, n, n, next, ld), nullptr, 0,
+          nullptr, 0, w);
+    sync();
+    TileProduct acc = tile_product(ap, ld, A, ld, true, n, n, n, P, ld);
+    acc.E = P;
+    acc.lde = ld;
+    tile_mm<double, kTall>(acc, nullptr, 0, nullptr, 0, w);
+    sync();
+    if (!W) {
+      tile_mm<double, kTall>(
+          tile_product(A, ld, A, ld, false, n, n, n, next, ld), nullptr, 0,
+          nullptr, 0, w);
+      sync();
+    }
+    A = next;
   }
 }
 
@@ -353,9 +340,12 @@ __device__ __forceinline__ double warp_sum_rows(double v) {
   return v;
 }
 
-// gj_solve by ONE warp, with __syncwarp() in place of block barriers: the
-// same schedule on aug = [A | RHS] (n x w, leading dimension w, NOT the tile
-// layout), the same pivot rule (pivot_wins), min|pivot| and log|det A|
+// Partially pivoted Gauss-Jordan by ONE warp, on _gj_solve's schedule: at
+// step k the pivot is the first maximal |aug[i, k]| over rows i >= k; rows k
+// and p swap (identical writes when p == k); the pivot row is divided by the
+// pivot and eliminated from every other row over all w columns.  On aug =
+// [A | RHS] (n x w, leading dimension w, NOT the tile layout), with the
+// pivot rule of pivot_wins; min|pivot| and log|det A|
 // accumulated into the caller's registers (every lane holds the same
 // values).  `col` (n) and `row` (w) are shared-memory scratch.  The caller
 // runs __syncwarp() after writing aug; on return aug is visible to the warp.

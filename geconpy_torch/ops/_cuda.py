@@ -48,6 +48,7 @@ _SIGNATURES = {
     "gcp_dare": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                  ctypes.c_int),
     "gcp_dare_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_dare_block_threads": ([], ctypes.c_int),
     "gcp_settle": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_filter": ([_I, _P, _P, _P, _P, _P, _P, _P,
@@ -56,7 +57,11 @@ _SIGNATURES = {
     "gcp_settle_draws_per_block": ([_I, _I, _I, _I], ctypes.c_int),
     "gcp_filter_tail": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_filter_tail_draws_per_block": ([], ctypes.c_int),
+    "gcp_filter_tail_block_threads": ([], ctypes.c_int),
     "gcp_filter_tail_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "gcp_filter_tail_max_n": ([], ctypes.c_int),
+    "gcp_filter_tail_max_k": ([], ctypes.c_int),
     "gcp_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -15,13 +15,18 @@ early per draw.
 
 Kernel source note.  ``csrc/dare.cu`` replaces the TPU kernel
 ``_dare_kernel`` (``ops/pallas_dare.py:37``).  On the H100 it is bound by
-the per-draw chain of ~(12 + 8·16)·3 dependent n × n products (~7.4 MFMA
-per draw at n = 26) in shared memory, not by device memory; the design
-keeps every matrix in shared memory for the whole schedule, one thread
-block per draw.  The TPU wrapper's lane padding (H = I in the padded
-slots) has no counterpart: the grid is exactly one block per draw.  It
-takes and returns the caller's dtype but runs the recursion in float64, as
-the settle kernel K2 does, and so does the plain version.
+the per-draw chain of 140 dependent doublings (~7.4M multiply-adds per
+draw at n = 26), not by device memory.  The design gives each draw one
+block of four warps and keeps its matrices in shared memory, zero-padded
+to whole tiles: every product runs on the FP64 tensor cores
+(``tile_mm``), a doubling takes two barriers (A P and A A in one phase,
+P += (A P) A' in the next), S⁻¹ is one warp's Gauss-Jordan elimination
+(in registers for k <= 8), and RQR is added from device memory in an
+epilogue, so that a draw needs five n × n buffers (52,224 B at n = 26,
+k = 7: four draws an SM).  The TPU wrapper's lane padding (H = I in the
+padded slots) has no counterpart: the grid is exactly one block per draw.
+It takes and returns the caller's dtype but runs the recursion in float64,
+as the settle kernel K2 does, and so does the plain version.
 
 :func:`_dare_recursion` is the plain PyTorch version of the same schedule.
 The wrapper uses it for CPU tensors; a CUDA tensor goes to the kernel or

@@ -9,10 +9,17 @@ as :func:`filter_tail`.  Per draw and step t:
 
 Kernel source note.  ``csrc/filter_tail.cu`` replaces the TPU kernel
 ``_tail_kernel`` (``ops/pallas_filter.py:34``).  On the H100 each step is
-~1.3 kFMA per draw that depends on the previous step, so the recursion is
-latency-bound; the design reads each draw's matrices from device memory
-once into shared memory, runs one 64-thread block per draw for all steps,
-and reads the shared observations ``y_tail`` straight from device memory.
+~1.3k multiply-adds per draw (n = 26, k = 7) that depend on the previous
+step's state, so the recursion is bound by the instructions of a draw's
+step.  The design gives each draw one warp: lane i holds row i of M and
+TK (two rows a lane for 32 < n <= 64) and, on lanes i < k, row i of Z and
+F^{-1} in registers; each step hands x, y_t - d and v round the warp
+through a small shared-memory buffer of its own (broadcast loads, four
+floats a load), forms the quadratic form with a warp reduction, and
+synchronises nothing but the warp.  The shared observations ``y_tail``
+are read through the read-only cache.  It computes in the caller's dtype,
+as the reference does; results differ from the plain version only by
+summation order.  It takes n <= 64 and k <= 32 and raises beyond.
 
 :func:`_filter_tail_plain` is the plain PyTorch version of the same
 recursion.  The wrapper uses it for CPU tensors; a CUDA tensor goes to the
@@ -52,12 +59,11 @@ def _filter_tail_cuda(y_tail, M, TK, Z, d, Finv, const, x0):
          "Finv": (Finv, (Bn, k, k)), "const": (const, (Bn,)),
          "x0": (x0, (Bn, n))}, M.dtype, M.device)
     lib = _cuda.library()
-    smem = lib.gcp_filter_tail_smem_bytes(n, k, M.element_size())
-    if smem > _cuda.smem_limit(M.device):
+    max_n, max_k = lib.gcp_filter_tail_max_n(), lib.gcp_filter_tail_max_k()
+    if n > max_n or k > max_k:
         raise ValueError(
-            f"filter_tail: n={n}, k={k} in {M.dtype} needs {smem} bytes of "
-            f"shared memory per block, above the device's "
-            f"{_cuda.smem_limit(M.device)}")
+            f"filter_tail: the kernel takes n <= {max_n} states and k <= "
+            f"{max_k} observables, got n={n}, k={k}")
     ll = torch.empty((Bn,), dtype=M.dtype, device=M.device)
     if Bn:
         code = lib.gcp_filter_tail(

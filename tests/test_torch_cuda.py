@@ -6,10 +6,12 @@ On the GPU: ``python -m pytest tests/test_torch_cuda.py -q``.  The inputs
 are SW-2007's own kernel inputs from the sweep (K1-K3, K5) and from the
 value+grad path (K4, K6) at a small batch; float64 outputs agree at rel
 1e-9 (min |pivot| aside: near-tied pivots may take another row at rounding
-level) and each wrapper counts its launches.  The settle kernels K2 and K5,
-and the cycle-reduction kernels K1 and K4, are also run on synthetic
-inputs whose sizes are not multiples of their tiles, at batches that do
-not fill the last block.
+level) and each wrapper counts its launches.  Every kernel is also run on
+synthetic inputs whose sizes are not multiples of its tiles, at batches
+that do not fill the last block: K2 and K5, K1 and K4, and K3 (float64
+within 1e-12 of the plain version, float32 within the sweep's 5e-4) and K6
+(float64 within 1e-11), with a NaN draw that must stay isolated and a
+shape the kernel does not take, which must raise.
 """
 
 import numpy as np
@@ -326,3 +328,121 @@ def test_cycle_reduction_kernels_refuse_more_shared_memory_than_the_device_has(
         cr_policy_raw(*args, CR_ITERS)
     with pytest.raises(ValueError, match="shared memory"):
         cr_raw(*args[:3], CR_ITERS)
+
+
+# ---- K3 on ragged shapes: synthetic stable tails from a seed
+
+TAIL_NK = [(n, k) for n in (1, 7, 26, 32, 33, 64) for k in (1, 7, 9)]
+TAIL_STEPS = 40
+
+
+def _tail_inputs(device, n, k, batch, seed, steps=TAIL_STEPS):
+    """float64 (y, M, TK, Z, d, F^{-1}, const, x0) with M of spectral
+    radius 0.9 and F^{-1} positive definite."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((batch, n, n))
+    M *= 0.9 / np.abs(np.linalg.eigvals(M)).max(axis=-1)[:, None, None]
+    TK = 0.3 * rng.standard_normal((batch, n, k))
+    Z = rng.standard_normal((batch, k, n))
+    d = 0.1 * rng.standard_normal((batch, k))
+    E = rng.standard_normal((batch, k, k))
+    Finv = E @ E.transpose(0, 2, 1) / k + np.eye(k)
+    const = rng.standard_normal(batch)
+    x0 = rng.standard_normal((batch, n))
+    y = rng.standard_normal((steps, k))
+    return [torch.as_tensor(a, device=device)
+            for a in (y, M, TK, Z, d, Finv, const, x0)]
+
+
+@pytest.mark.parametrize("batch", [1, 5, 67])
+@pytest.mark.parametrize("n,k", TAIL_NK)
+def test_filter_tail_kernel_matches_plain_on_ragged_shapes(device, n, k,
+                                                           batch):
+    args = _tail_inputs(device, n, k, batch, seed=100 * n + k)
+    before = filter_tail.launches
+    ll = filter_tail(*args)
+    assert filter_tail.launches == before + 1
+    assert ll.shape == (batch,) and _rel(ll, _filter_tail_plain(*args)) < 1e-12
+    # float32, the sweep's dtype: the sweep's bar against the plain version
+    # on the same rounded inputs
+    args32 = [a.float() for a in args]
+    ll32 = filter_tail(*args32)
+    assert ll32.dtype == torch.float32
+    assert _rel(ll32, _filter_tail_plain(*args32)) < 5e-4
+
+
+@pytest.mark.parametrize("n", [26, 64])
+def test_filter_tail_kernel_nan_draw_poisons_only_itself(device, n):
+    """A NaN draw between good draws of one block: the good ones are
+    bitwise what they are without it."""
+    args = _tail_inputs(device, n, 7, 9, seed=3)
+    bad = [a.clone() for a in args]
+    bad[1][2, 0, 0] = float("nan")      # M of draw 2
+    clean, got = filter_tail(*args), filter_tail(*bad)
+    keep = [0, 1, 3, 4, 5, 6, 7, 8]
+    assert torch.isnan(got[2])
+    assert torch.equal(got[keep], clean[keep])
+
+
+def test_filter_tail_kernel_refuses_more_states_than_it_holds(device):
+    with pytest.raises(ValueError, match="n <= 64"):
+        filter_tail(*_tail_inputs(device, 65, 3, 2, seed=1))
+    with pytest.raises(ValueError, match="k <= 32"):
+        filter_tail(*_tail_inputs(device, 40, 33, 2, seed=1))
+
+
+# ---- K6 on ragged shapes: synthetic stable systems from a seed
+
+DARE_NK = [(n, k) for n in (1, 9, 17, 26, 32, 40) for k in (1, 7, 9)]
+
+
+def _dare_inputs(device, n, k, batch, seed, h_scale=1.0):
+    """float64 (T, R Q R', Z, H): T of spectral radius 0.9, R Q R' positive
+    definite, H = h_scale times a positive definite matrix."""
+    _y, T, RQR, Z, H, _d = _stable_system(n, k, batch, 1, seed)
+    return [torch.as_tensor(a, device=device)
+            for a in (T, RQR, Z, h_scale * H)]
+
+
+@pytest.mark.parametrize("batch", [1, 5, 67])
+@pytest.mark.parametrize("n,k", DARE_NK)
+def test_dare_kernel_matches_plain_on_ragged_shapes(device, n, k, batch):
+    args = _dare_inputs(device, n, k, batch, seed=100 * n + k)
+    before = dare_settle.launches
+    P = dare_settle(*args)
+    assert dare_settle.launches == before + 1
+    P0 = _dare_plain(*args)
+    assert P.shape == P0.shape and _rel(P, P0) < 1e-11
+    assert torch.equal(P, P.mT)      # sym is exact, as in the reference
+    # float32 I/O around the float64 recursion: the plain version's P
+    # rounded to float32, up to the rounding of a last-place difference
+    args32 = [a.float() for a in args]
+    P32 = dare_settle(*args32)
+    assert P32.dtype == torch.float32
+    assert _rel(P32, _dare_plain(*args32)) < 1e-6
+
+
+@pytest.mark.parametrize("n,k", [(26, 7), (9, 3)])
+def test_dare_kernel_without_measurement_error(device, n, k):
+    """H = 0, as on SW-2007: the fixed point the open-loop start leads to,
+    as the plain version finds it, and settled by the residual gate."""
+    args = _dare_inputs(device, n, k, 5, seed=11, h_scale=0.0)
+    P = dare_settle(*args)
+    P0 = _dare_plain(*args)
+    assert _rel(P, P0) < 1e-11
+    assert bool(dare_residual_settled(*args, P).all())
+
+
+def test_dare_kernel_nan_draw_poisons_only_itself(device):
+    args = _dare_inputs(device, 26, 7, 9, seed=5)
+    bad = [a.clone() for a in args]
+    bad[0][1, 0, 0] = float("nan")      # T of draw 1
+    clean, got = dare_settle(*args), dare_settle(*bad)
+    keep = [0, 2, 3, 4, 5, 6, 7, 8]
+    assert not torch.isfinite(got[1]).all()
+    assert torch.equal(got[keep], clean[keep])
+
+
+def test_dare_kernel_refuses_more_shared_memory_than_the_device_has(device):
+    with pytest.raises(ValueError, match="shared memory"):
+        dare_settle(*_dare_inputs(device, 80, 7, 2, seed=1))

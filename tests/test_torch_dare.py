@@ -2,8 +2,10 @@
 
 - ``batched_dare.dare_settle`` on CPU tensors equals
   ``pallas_dare_settle(..., tile=8, interpret=True)`` at rtol 1e-10, on
-  random pencils (a batch that is not a whole tile) and on SW-2007's own
-  DARE inputs from the value+grad path.
+  random pencils (a batch that is not a whole tile), on SW-2007's own
+  DARE inputs from the value+grad path, and at every (n, k) at which
+  ``tests/test_torch_cuda.py`` holds the kernel to the plain version on a
+  GPU.
 - It meets ``scipy.linalg.solve_discrete_are`` and the predictive Riccati
   fixed point at the tolerances of ``tests/ops/test_pallas_dare.py``.
 - ``dare_residual_settled`` passes the full schedule and flags a starved
@@ -73,10 +75,20 @@ def sw_dare_inputs():
     return tuple(x.numpy() for x in record["dare_settle"])
 
 
-@pytest.mark.parametrize("case", ["random", "sw2007"])
+# the (n, k) of the GPU tests of K6 (tests/test_torch_cuda.py)
+GPU_NK = [(n, k) for n in (1, 9, 17, 26, 32, 40) for k in (1, 7, 9)]
+
+
+@pytest.mark.parametrize("case", ["random", "sw2007"]
+                         + [f"n{n}-k{k}" for n, k in GPU_NK])
 def test_plain_k6_matches_pallas_interpret(case, request):
-    args = make_batch(B=13) if case == "random" else \
-        request.getfixturevalue("sw_dare_inputs")
+    if case == "random":
+        args = make_batch(B=13)
+    elif case == "sw2007":
+        args = request.getfixturevalue("sw_dare_inputs")
+    else:
+        n, k = (int(part[1:]) for part in case.split("-"))
+        args = make_batch(B=2, n=n, k=k, seed=100 * n + k)
     P_ref = np.asarray(jax.jit(lambda *a: pallas_dare_settle(
         *a, tile=8, interpret=True))(*(jnp.asarray(a) for a in args)))
     P = dare_settle(*(torch.as_tensor(a) for a in args)).numpy()

@@ -3,7 +3,10 @@
 ``geconpy_torch.ops.batched_filter.filter_tail`` on CPU tensors runs the
 plain PyTorch version of the CUDA kernel; it must equal the reference's
 ``reference_filter_tail`` and the Pallas kernel in interpret mode at rtol
-1e-10, the tolerance of ``tests/ops/test_pallas_filter.py``.
+1e-10, the tolerance of ``tests/ops/test_pallas_filter.py``.  The
+interpret-mode comparison runs at every (n, k) at which
+``tests/test_torch_cuda.py`` holds the kernel to the plain version on a
+GPU, so that kernel, plain version and JAX kernel are chained at each.
 """
 
 import os
@@ -57,8 +60,22 @@ def test_filter_tail_matches_reference(B, n, k, T):
     np.testing.assert_allclose(got, ref, rtol=1e-10)
 
 
-def test_filter_tail_matches_pallas_interpret():
-    arrays = make_batch(9, seed=3)
+def stable_batch(B, n, k, T, seed):
+    """make_batch with M scaled to spectral radius 0.9 per draw, so that
+    the state stays bounded at any n."""
+    y, M, *rest = make_batch(B, n, k, T, seed=seed)
+    M = M * (0.9 / np.abs(np.linalg.eigvals(M)).max(axis=-1))[:, None, None]
+    return (y, M, *rest)
+
+
+# the (n, k) of the GPU tests of K3 (tests/test_torch_cuda.py)
+GPU_NK = [(n, k) for n in (1, 7, 26, 32, 33, 64) for k in (1, 7, 9)]
+
+
+@pytest.mark.parametrize("n,k", [(6, 3)] + GPU_NK)
+def test_filter_tail_matches_pallas_interpret(n, k):
+    arrays = make_batch(9, seed=3) if (n, k) == (6, 3) else \
+        stable_batch(5, n, k, 40, seed=100 * n + k)
     pal = np.asarray(pallas_filter_tail(*(jnp.asarray(a) for a in arrays),
                                         tile=128, interpret=True))
     got = filter_tail(*(torch.as_tensor(a) for a in arrays)).numpy()
