@@ -54,13 +54,30 @@ Phases, one line each (plus one line per kernel in phase 3):
    once per sweep (1 + stages x 2), K2 and K3 never.  Prints stages,
    sweeps, wall seconds, sweeps/s, the evidence, the acceptance, how many
    generating values lie inside the particles' 0.5%-99.5% range and the
-   share of unsolvable prior particles.
+   share of unsolvable prior particles;
+7. NUTS estimation at full width: the value+grad path's configuration on
+   200 periods made at the bench's generating point, through
+   ``geconpy_torch.fit`` with ``bench.py::_ess_fit_kwargs`` (128 chains,
+   ``policy="pallas"``, pooled dense adaptation from the mode,
+   ``max_depth=8``, ``target_accept=0.95``), float32 data and chains.
+   Only the numbers of warmup and sampling transitions and the mode
+   search's Adam steps are cut (``NUTS_CUT``; printed on a ``reduced``
+   line).  K4 (and nothing else) launches during the fit; all 128 chains
+   are finite at the end; on the inputs of one real leapfrog call at
+   batch 128, K4 agrees with its plain version (float64 rel 1e-9, equal
+   success flags) and the call's values and gradients with the float64
+   CPU path (rel 5e-4 and 1e-3).  Prints the seconds of the mode search,
+   the Hessian seed, warmup and sampling; value+grad calls per transition
+   and ms per call; the bare call's time against the sampler's own host
+   time; min ESS, max split R-hat, the divergent fraction, min ESS/hour
+   (labelled as from a cut run) and the peak device memory.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
 line is ``{"ok": true, "device": {...}}``; the line before the ``nvidia-smi``
-line is one JSON object with each kernel's launches, error, times and
-bound.
+line is one JSON object with each kernel's launches (on the path that runs
+it: K1 and K5 the sweep's, K2 and K3 the ``"pallas"`` sweep's, K6 the
+``"pallas"`` value+grad's, K4 the NUTS fit's), error, times and bound.
 """
 
 from __future__ import annotations
@@ -104,6 +121,26 @@ SECOND_TOL = {"filter_tail": {"f64": 1e-12, "f32": 5e-4},
 # ESS under it (the reference's sampler does the same)
 SMC_KW = dict(n_particles=4096, n_mh=2, seed=0, settle="fused",
               resample_ess=0.6)
+# phase 7: NUTS with bench.py::_ess_fit_kwargs (128 chains, pooled dense
+# adaptation from the mode), on 200 periods made at the bench's _SW_TRUTH
+# point (a copy: bench.py imports JAX).  Only the numbers of transitions
+# (the bench's 384 warmup + 256 samples) and the mode search's Adam steps
+# (find_map's 500) are cut, to keep the phase near 300 s on the card: a
+# first chip run (tools/nuts_probe.py) read ~237 ms a value+grad call at
+# batch 128 and ~130 calls a transition in the first transitions, ~30 s a
+# transition.  So fewer than 20 warmup transitions: no slow window runs.
+NUTS_KW = dict(num_chains=128, policy="pallas", pooled_adaptation=True,
+               max_depth=8, init="map", target_accept=0.95,
+               mass_matrix="dense", segment_size=25)
+NUTS_FULL = {"num_warmup": 384, "num_samples": 256, "adam_steps": 500}
+NUTS_CUT = {"num_warmup": 2, "num_samples": 4, "adam_steps": 20}
+SW_TRUTH = {
+    "crhoa": 0.95, "crhob": 0.2, "crhog": 0.95, "crhoqs": 0.7,
+    "crhoms": 0.15, "crhopinf": 0.9, "crhow": 0.95, "cmap": 0.74,
+    "cmaw": 0.88, "cgy": 0.5, "crpi": 2.0, "crr": 0.8, "cry": 0.1,
+    "chabb": 0.7, "csigma": 1.4, "sigma_ea": 0.01, "sigma_eb": 0.01,
+    "sigma_eg": 0.01, "sigma_eqs": 0.01, "sigma_em": 0.01,
+    "sigma_epinf": 0.01, "sigma_ew": 0.01}
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -915,6 +952,10 @@ def main() -> int:
           f"generating values inside the particles' 0.5%-99.5% range; "
           f"unsolvable prior particles {unsolvable:.4f} [{card}]", flush=True)
 
+    # ---- phase 7: NUTS estimation at full width, through the user's entry
+    path_launches["cycle_reduction"] = nuts_phase(
+        ss_vg, ss_vg_cpu, card, reset_counts, read_counts, **NUTS_CUT)
+
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
         entry = report[name]
@@ -929,6 +970,189 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def nuts_phase(ss, ss_cpu, card, reset_counts, read_counts, num_warmup: int,
+               num_samples: int, adam_steps: int) -> int:
+    """Phase 7: ``geconpy_torch.fit`` on SW-2007 at full width with the
+    bench's NUTS arguments (``NUTS_KW``) and ``num_warmup`` +
+    ``num_samples`` transitions, the posterior mode first searched with
+    ``adam_steps`` Adam steps (the memo ``fit`` reads).  Checks the chains
+    (all finite at the end), that K4 launched during the fit, K4 against
+    its plain version on the inputs of one real leapfrog call at batch 128
+    (float64, rel 1e-9, success flags equal) and that call's values and
+    gradients against the float64 CPU path (rel 5e-4 and 1e-3, phase 5's
+    bars).  Returns K4's launches during the fit."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.ops.batched_cycle_reduction import _cr_plain, cr_raw
+    from geconpy_torch.stats.diagnostics import summarize_chains
+    from geconpy_torch.stats.estimation import posterior_mode
+    from geconpy_torch.stats.nuts import nuts_kernel
+    from geconpy_torch.stats.statespace import CR_ITERS
+
+    dev = torch.device("cuda", 0)
+    cuts = {"num_warmup": num_warmup, "num_samples": num_samples,
+            "adam_steps": adam_steps}
+    reduced = {k: f"{v} of {NUTS_FULL[k]}" for k, v in cuts.items()
+               if v != NUTS_FULL[k]}
+    print(f"phase 7 NUTS config: SW-2007, {len(SW_ESTIMATED)} estimated "
+          f"parameters, {len(SW_OBS)} observables, filter_type='stationary', "
+          f"kalman_settle {N_SETTLE}, {PERIODS} periods at the bench's truth, "
+          f"float32 data and chains; fit {NUTS_KW}; reduced: {reduced}",
+          flush=True)
+    data, _ = ss.data_from_prior(torch.Generator(device="cuda").manual_seed(0),
+                                 periods=PERIODS, params=SW_TRUTH)
+    data32 = data.astype("float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    u_mode, mode_logp = posterior_mode(ss, data32, dtype=torch.float32,
+                                       adam_steps=adam_steps)
+    map_s = time.perf_counter() - t0
+    map_launches = read_counts()["cycle_reduction"]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = geconpy_torch.fit(ss, data32, num_warmup=num_warmup,
+                            num_samples=num_samples, seed=0, **NUTS_KW)
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    k4 = launches["cycle_reduction"]
+    if k4 < 1 or any(v for k_, v in launches.items()
+                     if k_ != "cycle_reduction"):
+        raise AssertionError(f"NUTS launched {launches}: K4 and only K4 "
+                             "runs on this path")
+    n_chains, n_dim = NUTS_KW["num_chains"], len(SW_ESTIMATED)
+    if res.unconstrained.shape != (n_chains, num_samples, n_dim) \
+            or not np.isfinite(res.unconstrained[:, -1]).all() \
+            or not np.isfinite(res.logp[:, -1]).all():
+        raise AssertionError(
+            f"NUTS chains: shape {res.unconstrained.shape}, finite at the end "
+            f"{int(np.isfinite(res.logp[:, -1]).sum())}/{n_chains}")
+    calls_w, calls_s = res.n_calls[:num_warmup], res.n_calls[num_warmup:]
+    sec = res.seconds
+    ms_call = 1e3 * (sec["warmup"] + sec["sampling"]) / res.n_calls.sum()
+    other_s = fit_s - sum(sec.values())
+    print(f"phase 7 seconds: find_map {map_s:.3f} ({adam_steps} Adam steps, "
+          f"{map_launches} value+grad calls, logpost at the mode "
+          f"{mode_logp:.3f}), fit {fit_s:.3f}: Hessian seed "
+          f"{sec['hessian']:.3f}, warmup {sec['warmup']:.3f}, sampling "
+          f"{sec['sampling']:.3f}, the rest (starts, transfers) "
+          f"{other_s:.3f} [{card}]", flush=True)
+    print(f"phase 7 value+grad calls per transition: warmup mean "
+          f"{calls_w.mean():.2f} max {calls_w.max()}, sampling mean "
+          f"{calls_s.mean():.2f} max {calls_s.max()}; {ms_call:.2f} ms per "
+          f"call at batch {n_chains} (warmup and sampling); K4 launches "
+          f"during the fit {k4} ({res.n_calls.sum()} in transitions, "
+          f"{k4 / len(res.n_calls):.2f} per transition) [{card}]", flush=True)
+    summ = summarize_chains(res.unconstrained, res.param_names)
+    ess, rhat = summ["ess"], summ["r_hat"]
+    div = float(res.diverging.mean())
+    print(f"phase 7 chains: min ESS {ess.min():.1f} ({summ['names'][ess.argmin()]}), "
+          f"max split R-hat {rhat.max():.4f} ({summ['names'][rhat.argmax()]}) "
+          f"over {n_dim} parameters; divergent fraction {div:.4f}; mean "
+          f"acceptance {res.accept_prob.mean():.3f}; step size "
+          f"{float(res.step_size[0]):.4g}; min ESS/hour over the sampling "
+          f"wall time {ess.min() * 3600.0 / sec['sampling']:.1f}, over the "
+          f"whole fit {ess.min() * 3600.0 / fit_s:.1f} (a cut run: "
+          f"{reduced}); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} B [{card}]", flush=True)
+
+    # the bare value+grad call at the chains' last state, and one real
+    # leapfrog call from there, at batch 128
+    vag = ss.build_batched_logpost_and_grad(data32)
+    q = torch.as_tensor(res.unconstrained[:, -1], device=dev)
+    logp, grad = vag(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        vag(q)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) / 5 * 1e3
+    trans_s = sec["warmup"] + sec["sampling"]
+    # the sampler's own work: the same transition code at the same batch
+    # and dimension on a target that costs three launches (a standard
+    # normal), with a step so short that no chain turns in 255 leaves
+    def normal(U):
+        return -0.5 * (U * U).sum(-1), -U
+
+    z = torch.zeros_like(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, _, info = nuts_kernel(normal, z, *normal(z), 1e-4,
+                                torch.eye(n_dim, device=dev).expand(
+                                    n_chains, n_dim, n_dim), max_depth=8,
+                                generator=torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    own_ms = (time.perf_counter() - t0) * 1e3 / info["n_calls"]
+    print(f"phase 7 where a transition's time goes: {res.n_calls.sum()} "
+          f"value+grad calls in {trans_s:.3f} s of transitions, "
+          f"{1e3 * trans_s / res.n_calls.sum():.2f} ms a call in the loop; "
+          f"the bare call at batch {n_chains} {bare_ms:.2f} ms (5 calls); "
+          f"the sampler's own work {own_ms:.3f} ms a leaf ({info['n_calls']} "
+          f"leaves on a standard normal at the same batch, dense metric), "
+          f"{100 * own_ms / bare_ms:.2f}% of a call; calls per transition "
+          f"{res.n_calls.tolist()} [{card}]", flush=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vag(q)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us, n_kernels = device_time_us(prof)
+    print(f"phase 7 profile (one value+grad call at batch {n_chains}): wall "
+          f"{wall:.3f} ms, device kernel time {dev_us / 1e3:.3f} ms, busy "
+          f"share {dev_us / 1e3 / wall:.3f}, {n_kernels} kernel launches "
+          f"[{card}]", flush=True)
+    metric = torch.as_tensor(np.cov(res.unconstrained.reshape(-1, n_dim).T),
+                             dtype=torch.float32, device=dev)
+    seen = {}
+
+    def recorded(U):
+        if not seen:
+            seen["U"], seen["rec"] = U.clone(), {}
+            out = vag(U, record=seen["rec"])
+            seen["out"] = out
+            return out
+        return vag(U)
+
+    nuts_kernel(recorded, q, logp, grad, torch.as_tensor(res.step_size[0]),
+                metric.expand(n_chains, n_dim, n_dim), max_depth=1,
+                generator=torch.Generator(device=dev).manual_seed(7))
+    args = seen["rec"]["cycle_reduction"]
+    T_k, fl_k = cr_raw(*args, CR_ITERS)
+    T_p, fl_p = _cr_plain(*args, CR_ITERS)
+    torch.cuda.synchronize()
+    tol = 200 * float(torch.finfo(torch.float64).eps)
+    ok_k = (fl_k[:, 1] < tol) & (fl_k[:, 0] > 1e-7)
+    ok_p = (fl_p[:, 1] < tol) & (fl_p[:, 0] > 1e-7)
+    rel_T = compare(T_k[ok_k & ok_p], T_p[ok_k & ok_p])[0]
+    vals, grads = seen["out"]
+    v_ref, g_ref = ss_cpu.build_batched_logpost_and_grad(data32)(
+        seen["U"].double().cpu())
+    v_got, g_got = vals.double().cpu(), grads.double().cpu()
+    both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+    rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
+    rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                   / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+    print(f"phase 7 one leapfrog call (batch {seen['U'].shape[0]}, "
+          f"{args[0].dtype}): K4 vs plain max rel T {rel_T:.3e}, success "
+          f"flags equal on {int((ok_k == ok_p).sum())}/{ok_k.numel()}; "
+          f"vs float64 CPU path on {int(both.sum())}/{both.numel()}: value "
+          f"rel {rel_v:.3e}, gradient rel {rel_g:.3e}", flush=True)
+    if args[0].shape[0] != n_chains or not bool((ok_k == ok_p).all()) \
+            or rel_T > 1e-9:
+        raise AssertionError(f"K4 on the leapfrog call: rel {rel_T:.3e}, "
+                             f"flags equal {bool((ok_k == ok_p).all())}")
+    if float(both.double().mean()) < 0.99 or rel_v > 5e-4 or rel_g > 1e-3:
+        raise AssertionError(f"leapfrog call off the float64 path: value rel "
+                             f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+    return k4
 
 
 def sweep_breakdown(ss, data, batch, card, sweeps, reps: int = 5):

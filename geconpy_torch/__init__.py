@@ -10,8 +10,10 @@ and imports ``torch``, never ``jax`` nor anything of ``geconpy_tpu``.
 Ported so far: the batched forward likelihood sweep
 (``DSGEStateSpace.build_batched_loglik`` with its ``"xla"``, ``"pallas"``
 and ``"fused"`` settles), the batched value+gradient
-(``build_batched_logpost_and_grad``) and SMC estimation on the sweep
-(``fit_smc``), with hand-written CUDA kernels for cycle reduction, the
+(``build_batched_logpost_and_grad``), SMC estimation on the sweep
+(``fit_smc``) and NUTS estimation on the value+gradient (``fit`` with
+``policy="pallas"``: one batched value+gradient call for all chains per
+leapfrog step), with hand-written CUDA kernels for cycle reduction, the
 Riccati settle, the filter tail, the fused settle + tail and the DARE
 settle: every TPU kernel of the reference has its counterpart.
 A ``DSGEStateSpace`` runs on the GPU unless it is built with
@@ -23,11 +25,12 @@ __version__ = "0.1.0"
 import pathlib as _pathlib
 
 from .models.model import Model, model_from_gcn
+from .stats.estimation import PosteriorResult, fit
 from .stats.smc import SMCResult, fit_smc
 from .stats.statespace import DSGEStateSpace
 
-__all__ = ["DSGEStateSpace", "Model", "SMCResult", "fit_smc",
-           "get_example_gcn", "model_from_gcn"]
+__all__ = ["DSGEStateSpace", "Model", "PosteriorResult", "SMCResult", "fit",
+           "fit_smc", "get_example_gcn", "model_from_gcn"]
 
 
 def get_example_gcn(name: str = "rbc") -> str:

@@ -7,8 +7,10 @@ The tests hand both packages the same numpy arrays.  The reference's
 plan; :func:`state_from_reference` checks each against the port's own
 ``configure`` and refuses any mismatch, so both sides are known to compute
 the same thing.  :func:`particles_from_reference` does the same for an SMC
-particle cloud (the draws with their log-likelihoods and log-priors).  This
-module imports no JAX: it takes numpy arrays only.
+particle cloud (the draws with their log-likelihoods and log-priors), and
+:func:`adaptation_from_reference` for a NUTS sampler's adaptation state
+with its chains' positions.  This module imports no JAX: it takes numpy
+arrays only.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_reference", "particles_from_reference"]
+from .stats.nuts import WindowedAdaptation
+
+__all__ = ["state_from_reference", "particles_from_reference",
+           "adaptation_from_reference"]
 
 _KEYS = ("param_labels", "theta_default", "est_idx", "static_idx",
          "dynamic_idx", "U")
@@ -81,6 +86,44 @@ def particles_from_reference(arrays: dict[str, np.ndarray], port_ss
                              f"particle, got {v.shape}")
         out[key] = torch.as_tensor(v)
     return out
+
+
+def adaptation_from_reference(arrays: dict[str, np.ndarray], port_ss
+                              ) -> dict[str, object]:
+    """Map a reference NUTS adaptation state and its chains onto
+    ``port_ss``.
+
+    ``arrays`` holds ``param_labels`` (the reference's column order), ``q``
+    (C, n_estimated) chain positions, and the fields of the reference's
+    ``WindowedAdaptation`` as numpy arrays: scalars with a pooled state, a
+    leading chain dimension with an unpooled one.  Returns ``{"q",
+    "adapt"}``: float64 positions and a
+    :class:`~geconpy_torch.stats.nuts.WindowedAdaptation` (``count`` and
+    ``welford_n`` int32).  Raises ``ValueError`` on a mismatch in names or
+    order, or when a field's shape does not fit ``q``'s dimension.
+    """
+    fields = WindowedAdaptation._fields
+    missing = [k for k in ("param_labels", "q") + fields if k not in arrays]
+    if missing:
+        raise ValueError(f"adaptation_from_reference: missing arrays {missing}")
+    labels = _checked_labels(arrays["param_labels"], port_ss)
+    q = _checked_draws(arrays["q"], labels)
+    dim = len(labels)
+    vals = {k: np.asarray(arrays[k]) for k in fields}
+    lead = vals["log_eps"].shape
+    dense = vals["welford_m2"].ndim == len(lead) + 2
+    want = {"welford_mean": lead + (dim,),
+            "welford_m2": lead + ((dim, dim) if dense else (dim,)),
+            "inv_mass": lead + ((dim, dim) if dense else (dim,))}
+    want.update({k: lead for k in ("log_eps_bar", "h_bar", "mu", "count",
+                                   "welford_n")})
+    for k, shape in want.items():
+        if vals[k].shape != shape:
+            raise ValueError(f"{k} must be {shape}, got {vals[k].shape}")
+    adapt = WindowedAdaptation(**{
+        k: torch.as_tensor(np.array(v, dtype=np.int32 if k in (
+            "count", "welford_n") else np.float64)) for k, v in vals.items()})
+    return {"q": torch.as_tensor(q), "adapt": adapt}
 
 
 def _checked_labels(param_labels, port_ss) -> list[str]:

@@ -1,8 +1,11 @@
 """Estimation layer (mirrors ``geconpy_tpu/stats``): the state space with its
-batched likelihood sweep and value+gradient, and the SMC sampler on the
-sweep."""
+batched likelihood sweep and value+gradient, the SMC sampler on the sweep,
+and NUTS on the value+gradient (``fit``) with its mode search and
+diagnostics."""
 
+from .estimation import PosteriorResult, fit
 from .smc import SMCResult, fit_smc
 from .statespace import DSGEStateSpace, EstimatedParameter
 
-__all__ = ["DSGEStateSpace", "EstimatedParameter", "SMCResult", "fit_smc"]
+__all__ = ["DSGEStateSpace", "EstimatedParameter", "PosteriorResult",
+           "SMCResult", "fit", "fit_smc"]

@@ -1,0 +1,224 @@
+"""Bayesian estimation front-end: NUTS over the DSGE state-space posterior.
+
+Mirrors ``geconpy_tpu/stats/estimation.py`` (``PosteriorResult`` :92,
+``fit`` :123) on the ported path, ``policy="pallas"``: every leapfrog step
+is one call of ``DSGEStateSpace.build_batched_logpost_and_grad`` for all
+chains (the reference's ``make_batched_logp_grad``, :53, routes the vmapped
+chains to the same batched call), which launches the cycle-reduction
+kernel K4 on the GPU.  The chains run on the state space's device.
+"""
+
+from __future__ import annotations
+
+import logging
+import weakref
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .diagnostics import summarize_chains
+from .model_comparison import find_map
+from .nuts import NUTSResult, sample_nuts
+
+_log = logging.getLogger(__name__)
+
+__all__ = ["fit", "PosteriorResult", "posterior_mode"]
+
+_ROADMAP = "ROADMAP Queue 1"
+
+# the mode per (value+grad function, start point): DSGEStateSpace caches
+# its built functions, so it returns the same one for the same model and
+# data, and a repeat fit skips the search (reference ``estimation.py:31,
+# :233-252``)
+_MAP_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+@dataclass
+class PosteriorResult:
+    """Posterior draws in constrained space, with sampler diagnostics."""
+
+    samples: np.ndarray            # (chains, draws, n_params) constrained
+    unconstrained: np.ndarray      # (chains, draws, n_params)
+    logp: np.ndarray               # (chains, draws)
+    param_names: list[str]
+    diverging: np.ndarray
+    accept_prob: np.ndarray
+    step_size: np.ndarray
+    summary_: dict | None = None
+    n_leapfrog: np.ndarray | None = None   # (chains, draws)
+    n_calls: np.ndarray | None = None      # value+grad calls per transition,
+                                           # warmup then sampling
+    seconds: dict | None = None            # host clock: "hessian",
+                                           # "warmup", "sampling"
+
+    def summary(self) -> dict:
+        """Per-parameter posterior table (cached): a plain dict with
+        ``"names"`` and the reference's columns mean, sd, hdi_3%, hdi_97%,
+        ess and r_hat, one array each (the reference returns a
+        ``pandas.DataFrame``; the port imports no pandas)."""
+        if self.summary_ is None:
+            self.summary_ = summarize_chains(self.samples, self.param_names)
+        return self.summary_
+
+    def posterior_mean(self) -> dict[str, float]:
+        """Posterior mean per parameter, pooled over chains and draws."""
+        flat = self.samples.reshape(-1, self.samples.shape[-1])
+        return dict(zip(self.param_names, flat.mean(axis=0)))
+
+
+def posterior_mode(ss_mod, data: np.ndarray, dtype: torch.dtype = torch.float32,
+                   **find_map_kwargs) -> tuple[torch.Tensor, float]:
+    """The posterior mode from ``ss_mod.initial_position()`` in ``dtype``,
+    and its log posterior, by :func:`find_map` on the batched value+grad.
+
+    Memoized per (value+grad function, start point), as the reference
+    memoizes its mode search: the first search for a model, data and start
+    point is kept, whatever ``find_map_kwargs`` a later call passes, and
+    ``fit(init="map")`` reads it."""
+    vag = ss_mod.build_batched_logpost_and_grad(data)
+    u0 = ss_mod.initial_position().to(dtype)
+    bucket = _MAP_CACHE.setdefault(vag, {})
+    key = (str(dtype), u0.cpu().numpy().tobytes())
+    if key not in bucket:
+        u_mode = find_map(vag, u0, **find_map_kwargs)
+        bucket[key] = (u_mode, float(vag(u_mode[None])[0][0]))
+    return bucket[key]
+
+
+def fit(
+    ss_mod,
+    data: np.ndarray,
+    num_chains: int = 4,
+    num_warmup: int = 500,
+    num_samples: int = 500,
+    seed: int = 0,
+    max_depth: int = 8,
+    target_accept: float = 0.8,
+    init_jitter: float = 0.5,
+    pooled_adaptation: bool = False,
+    policy: str = "xla",
+    init: str = "prior",
+    mass_init: str = "auto",
+    mass_matrix: str = "diag",
+    order: int = 1,
+    segment_size: int | None = None,
+    mesh=None,
+    cache_dir: str | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> PosteriorResult:
+    """Sample the posterior with batched NUTS chains on ``ss_mod``'s device.
+
+    The reference's signature and defaults.  ``policy="pallas"`` is the
+    ported path: each leapfrog step is one batched value+grad call for all
+    chains (``ss_mod.build_batched_logpost_and_grad(data)``, the default
+    Hewer settle), and the chains' termination is read back once per tree
+    level.  ``ss_mod`` must be configured with ``filter_type="stationary"``.
+    Not ported yet, and refused with ``NotImplementedError``:
+    ``policy="xla"`` (the reference's default, the XLA policy solve;
+    ROADMAP Queue 1 item 6), ``order=2``, ``mesh`` and ``cache_dir``
+    (item 8).
+
+    ``seed`` seeds one ``torch.Generator`` on the state space's device,
+    which draws the starts and every random number of the sampler.
+    ``dtype`` (not in the reference, which reads JAX's global x64 flag) is
+    the chains' dtype: the chain state, the adaptation and the Welford sums
+    run in it, while the value+grad computes in float64 inside and returns
+    ``dtype``.
+
+    ``init="map"`` starts every chain at 0.05 N(0, 1) around the posterior
+    mode (:func:`posterior_mode`, memoized); ``init="prior"`` jitters each
+    chain by ``init_jitter`` N(0, 1) around ``ss_mod.initial_position()``.
+    A start outside the support (-inf) is pulled half way to that anchor,
+    up to six times, as in the reference.  Where the reference calls its
+    single-draw XLA ``build_logpost`` (the mode search, the finiteness of
+    the starts), the port uses the batched path at a batch of one or of
+    the chains; the two agree at the parity bars
+    (``tests/test_torch_logpost_grad.py``).  ``mass_init="auto"`` seeds
+    the metric from the curvature at the start when ``init="map"``, else
+    from the identity.  ``segment_size`` changes nothing (every transition
+    returns to the host).  ``summary()`` of the result is a plain dict.
+    """
+    if cache_dir is not None:
+        raise NotImplementedError(
+            "cache_dir= (XLA's persistent compilation cache) has no "
+            f"counterpart in the port ({_ROADMAP} item 8)")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh= (chains sharded over several devices) is not ported yet "
+            f"({_ROADMAP} item 8)")
+    if order == 2:
+        raise NotImplementedError(
+            f"order=2 (second-order estimation) is not ported yet "
+            f"({_ROADMAP} item 8)")
+    if order != 1:
+        raise ValueError(f"order must be 1 or 2, got {order!r}")
+    if policy == "xla":
+        raise NotImplementedError(
+            "policy='xla' (the XLA policy solve) is not ported yet: pass "
+            f"policy='pallas' ({_ROADMAP} item 6)")
+    if policy != "pallas":
+        raise ValueError(f"policy must be 'xla' or 'pallas', got {policy!r}")
+    if init not in ("prior", "map"):
+        raise ValueError(f"init must be 'prior' or 'map', got {init!r}")
+    mass_init = {"auto": "hessian" if init == "map" else "unit"}.get(
+        mass_init, mass_init)
+    if mass_init not in ("unit", "hessian"):
+        raise ValueError(f"mass_init must be 'auto', 'unit' or 'hessian', "
+                         f"got {mass_init!r}")
+    if mass_matrix not in ("diag", "dense"):
+        raise ValueError(f"mass_matrix must be 'diag' or 'dense', "
+                         f"got {mass_matrix!r}")
+
+    vag = ss_mod.build_batched_logpost_and_grad(data)
+    logpost = ss_mod.build_batched_logpost(data)
+    device = ss_mod._device()
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if init == "map":
+        u_mode, mode_logp = posterior_mode(ss_mod, data, dtype=dtype)
+        _log.info("MAP found: logpost %.2f", mode_logp)
+        inits = u_mode[None, :] + 0.05 * torch.randn(
+            (num_chains, u_mode.shape[0]), generator=generator, dtype=dtype,
+            device=device)
+        anchor = u_mode[None, :]
+    else:
+        inits = torch.stack([
+            ss_mod.initial_position(jitter=init_jitter, generator=generator)
+            for _ in range(num_chains)]).to(dtype)
+        anchor = ss_mod.initial_position().to(dtype)[None, :]
+
+    # a chain starting outside the support (-inf) begins frozen, and under
+    # pooled adaptation a frozen chain degrades the shared metric for
+    # everyone: shrink such starts toward the anchor until all are finite
+    for _ in range(6):
+        with torch.no_grad():
+            finite = torch.isfinite(logpost(inits))
+        if bool(finite.all()):
+            break
+        _log.info("shrinking init jitter for %d/%d non-finite chain starts",
+                  int((~finite).sum()), num_chains)
+        shrunk = anchor + 0.5 * (inits - anchor)
+        inits = torch.where(finite[:, None], inits, shrunk)
+
+    _log.info("NUTS: %d chains x (%d warmup + %d samples), %d parameters",
+              num_chains, num_warmup, num_samples, len(ss_mod.estimated))
+    res: NUTSResult = sample_nuts(
+        vag, inits, generator, num_warmup=num_warmup,
+        num_samples=num_samples, max_depth=max_depth,
+        target_accept=target_accept, pooled=pooled_adaptation,
+        mass_init=mass_init, mass_matrix=mass_matrix,
+        segment_size=segment_size)
+
+    # one transfer of each result to the host
+    constrained = ss_mod.constrain(res.samples.to(torch.float64))
+    out = {k: v.cpu().numpy() for k, v in
+           (("samples", constrained), ("unconstrained", res.samples),
+            ("logp", res.logp), ("diverging", res.diverging),
+            ("accept_prob", res.accept_prob), ("step_size", res.step_size),
+            ("n_leapfrog", res.n_leapfrog))}
+    div_rate = float(out["diverging"].mean())
+    if div_rate > 0.05:
+        _log.warning("%.1f%% divergent transitions — treat results with care",
+                     100 * div_rate)
+    return PosteriorResult(param_names=ss_mod.param_labels,
+                           n_calls=res.n_calls, seconds=res.seconds, **out)

@@ -2,9 +2,11 @@
 value+gradient.
 
 Mirrors ``geconpy_tpu/stats/statespace.py`` (``DSGEStateSpace``) as a
-subset: ``configure`` (:102-336, directly observed variables only, diagonal
-shock covariance, the ``steady_state`` and ``stationary`` filters),
-``unconstrain``/``constrain``/``initial_position``/``param_labels``,
+subset: ``configure`` (:102-336, the reference's keywords; directly
+observed variables only, diagonal shock covariance, the ``steady_state``
+and ``stationary`` filters), the cache of built functions (:45, here
+``_cached_build``), ``unconstrain``/``constrain``/``initial_position`` (:501, a
+``torch.Generator`` in place of a key)/``param_labels``,
 ``_solution_pieces`` (:544), ``_data_and_loglik`` (:717, the stationary
 fully observed branch), ``_build_design`` (:394), ``_augment_lags`` (:457),
 ``_static_pivot_order`` (:1092), ``_build_pallas_policy_batch`` (:1154, here
@@ -33,6 +35,8 @@ never exceptions.  The TPU-only knobs (``cr_tile``, ``pallas_tile``,
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import logging
 import math
 from dataclasses import dataclass
@@ -66,6 +70,29 @@ _ROADMAP = "ROADMAP Queue 1"
 #: cycle-reduction doublings of the sweep's policy solve (the reference's
 #: ``cr_iters`` default)
 CR_ITERS = 14
+
+
+def _cached_build(method):
+    """Memoize a ``build_*(data, **kwargs)`` method on (data, kwargs), as
+    the reference does (``statespace.py:45``): the same function object for
+    the same inputs, so that ``fit``'s memo of the posterior mode (keyed on
+    the value+grad function) hits on a repeat fit.  ``configure`` clears
+    the cache."""
+    @functools.wraps(method)
+    def wrapper(self, data, **kwargs):
+        arr = np.asarray(data)
+        try:
+            cache_kwargs = tuple(sorted(kwargs.items()))
+            hash(cache_kwargs)
+        except TypeError:           # unhashable kwarg: skip caching
+            return method(self, data, **kwargs)
+        key = (method.__name__, arr.shape, arr.dtype.str,
+               hashlib.sha1(arr.tobytes()).hexdigest(), cache_kwargs)
+        cache = self.__dict__.setdefault("_build_cache", {})
+        if key not in cache:
+            cache[key] = method(self, data, **kwargs)
+        return cache[key]
+    return wrapper
 
 
 @dataclass(frozen=True)
@@ -108,21 +135,38 @@ class DSGEStateSpace:
             raise ValueError(f"{name} is on {t.device}, but this state space "
                              f"is on {dev}; move it there first")
 
+    def _check_generator(self, generator: torch.Generator) -> None:
+        device = self._device()
+        gen_device = generator.device
+        if gen_device.type == "cuda" and gen_device.index is None:
+            gen_device = torch.device("cuda", torch.cuda.current_device())
+        if gen_device != device:
+            raise ValueError(f"the generator is on {generator.device}, but "
+                             f"this state space is on {device}")
+
     # ------------------------------------------------------------- configure
     def configure(
         self,
         observed_states: list[str],
         measurement_error: list[str] | dict | None = None,
         shock_std: dict | float | None = None,
+        solver: str = "cycle_reduction",
         filter_type: str = "steady_state",
         kalman_settle: int = 48,
         kalman_settle_method: str = "hewer",
         loglin_variables="auto",
+        cycle_reduction_tol: float = 1e-10,
+        cycle_reduction_maxiter: int = 100,
         me_prior: Distribution | None = None,
         constant_params: list[str] | None = None,
-        ss_obs_intercept: bool = False,
         observation_equations: dict[str, str] | None = None,
+        aggregate: dict[str, tuple[str, str, int]] | None = None,
+        ss_obs_intercept: bool = False,
         full_shock_covariance: bool = False,
+        lkj_eta: float = 1.0,
+        p0_init: str = "stationary",
+        diffuse_kappa: float = 1e6,
+        diffuse_presample: int = 0,
     ) -> "DSGEStateSpace":
         """Choose observables, measurement error and estimated parameters.
 
@@ -135,19 +179,52 @@ class DSGEStateSpace:
         ``filter_type`` is ``"steady_state"`` (the forward sweep with its
         ``"xla"``, ``"pallas"`` and ``"fused"`` settles, which SMC runs on)
         or ``"stationary"`` (the value+grad path, with the ``"hewer"``
-        settle method).  Observation equations, a full shock covariance,
-        the other filters and settle methods are not ported yet.
+        settle method).  The keywords are the reference's, with its
+        defaults but for ``filter_type`` (the reference's
+        ``"sequential"`` is not ported yet).  What the port cannot honour
+        yet raises ``NotImplementedError`` naming its ROADMAP item:
+        observation equations and ``aggregate``, a full shock covariance,
+        ``solver="backward"``/``"gensys"``, ``p0_init="diffuse"`` and the
+        other filters and settle methods.  ``cycle_reduction_tol`` and
+        ``cycle_reduction_maxiter`` belong to the XLA policy solve, which
+        is not ported; the batched paths run a fixed number of
+        cycle-reduction doublings, as the reference's do.  ``lkj_eta``
+        shapes only the full shock covariance's prior.
         """
-        if observation_equations:
+        if p0_init not in ("stationary", "diffuse"):
+            raise ValueError(f"p0_init must be 'stationary' or 'diffuse', "
+                             f"got {p0_init!r}")
+        if p0_init == "diffuse" and filter_type not in ("sequential",
+                                                        "parallel"):
+            raise ValueError("p0_init='diffuse' requires filter_type="
+                             "'sequential' or 'parallel' (the constant-gain "
+                             "filters assume stationarity)")
+        if filter_type not in ("sequential", "parallel", "steady_state",
+                               "stationary", "chandrasekhar"):
+            raise ValueError("filter_type must be 'sequential', 'parallel', "
+                             "'steady_state', 'stationary' or 'chandrasekhar'")
+        if filter_type == "sequential":
             raise NotImplementedError(
-                f"observation equations are not ported yet ({_ROADMAP} item 6)")
-        if full_shock_covariance:
-            raise NotImplementedError(
-                f"a full shock covariance is not ported yet ({_ROADMAP} item 6)")
-        if filter_type not in ("steady_state", "stationary"):
+                "filter_type='sequential' is not ported yet: only "
+                f"'steady_state' and 'stationary' are ({_ROADMAP} item 3)")
+        if filter_type in ("parallel", "chandrasekhar"):
             raise NotImplementedError(
                 f"filter_type={filter_type!r} is not ported yet: only "
-                f"'steady_state' and 'stationary' are ({_ROADMAP} items 6-7)")
+                f"'steady_state' and 'stationary' are ({_ROADMAP} item 8)")
+        if observation_equations or aggregate:
+            raise NotImplementedError(
+                "observation equations (and aggregate=) are not ported yet "
+                f"({_ROADMAP} item 3)")
+        if full_shock_covariance:
+            raise NotImplementedError(
+                f"a full shock covariance is not ported yet ({_ROADMAP} item 3)")
+        if solver in ("backward", "gensys"):
+            raise NotImplementedError(
+                f"solver={solver!r} is not ported yet: only 'cycle_reduction' "
+                f"is ({_ROADMAP} item 6)")
+        if solver != "cycle_reduction":
+            raise ValueError("solver must be 'cycle_reduction', 'backward' "
+                             f"or 'gensys', got {solver!r}")
         if kalman_settle_method in ("sda", "auto"):
             raise NotImplementedError(
                 f"kalman_settle_method={kalman_settle_method!r} is not ported "
@@ -165,6 +242,8 @@ class DSGEStateSpace:
         self.filter_type = filter_type
         self.kalman_settle = int(kalman_settle)
         self.kalman_settle_method = kalman_settle_method
+        self.solver = solver
+        self.p0_init = p0_init
         self.ss_obs_intercept = ss_obs_intercept
         self.loglin_variables = loglin_variables
         self._obs_max_lag = 0
@@ -242,6 +321,7 @@ class DSGEStateSpace:
         else:
             self._filter_core = np.arange(mf.n_variables)
         self._pivot_order = None
+        self.__dict__.pop("_build_cache", None)   # built fns are now stale
         self._configured = True
         _log.info("configured: %d observables, %d estimated parameters "
                   "(%d model + %d meas. error)", len(self.observed_states),
@@ -285,7 +365,7 @@ class DSGEStateSpace:
         observation equations (the only case the port configures)."""
         if L:
             raise NotImplementedError(
-                f"lag augmentation needs observation equations ({_ROADMAP} item 6)")
+                f"lag augmentation needs observation equations ({_ROADMAP} item 3)")
         return T, R
 
     # ----------------------------------------------------------------- sizes
@@ -314,15 +394,24 @@ class DSGEStateSpace:
         return torch.stack([p.prior.from_unconstrained(u[..., i])[0]
                             for i, p in enumerate(self.estimated)], dim=-1)
 
-    def initial_position(self) -> torch.Tensor:
-        """Unconstrained start: GCN initial value or prior mean."""
+    def initial_position(self, jitter: float = 0.0,
+                         generator: torch.Generator | None = None
+                         ) -> torch.Tensor:
+        """Unconstrained start: GCN initial value or prior mean, plus
+        ``jitter`` x N(0, 1) drawn from ``generator`` when both are given
+        (the generator must be on the state space's device)."""
         vals = []
         for p in self.estimated:
             v = p.initial if p.initial is not None else p.prior.mean()
             if not np.isfinite(v):
                 v = float(p.prior.ppf(0.5))
             vals.append(v)
-        return self.unconstrain(np.asarray(vals))
+        u = self.unconstrain(np.asarray(vals))
+        if jitter and generator is not None:
+            self._check_generator(generator)
+            u = u + jitter * torch.randn(u.shape, generator=generator,
+                                         dtype=u.dtype, device=u.device)
+        return u
 
     # ------------------------------------------------------ solution pieces
     def _solution_pieces(self):
@@ -555,7 +644,7 @@ class DSGEStateSpace:
         if bool(np.isnan(data).any()):
             raise NotImplementedError(
                 "filter_type='stationary' with missing data needs the "
-                f"cyclostationary filter, not ported yet ({_ROADMAP} item 11)")
+                f"cyclostationary filter, not ported yet ({_ROADMAP} item 7)")
         y = torch.as_tensor(data, device=self._device())
         n_settle, method = self.kalman_settle, self.kalman_settle_method
 
@@ -604,6 +693,7 @@ class DSGEStateSpace:
 
         return solve_batch
 
+    @_cached_build
     def build_batched_logpost(self, data: np.ndarray, cr_iters: int = CR_ITERS,
                               settle: str = "xla"):
         """Differentiable batched log-posterior ``f(U) -> (B,)``.
@@ -665,6 +755,7 @@ class DSGEStateSpace:
 
         return batched
 
+    @_cached_build
     def build_batched_logpost_and_grad(self, data: np.ndarray, **kwargs):
         """``f(U) -> (logpost (B,), grad (B, dim))``: one forward pass over
         the batch and one backward pass.  Non-finite gradient rows (rejected
@@ -697,12 +788,7 @@ class DSGEStateSpace:
         (data (periods, k_obs) numpy float64, draw dict).
         """
         device = self._device()
-        gen_device = generator.device
-        if gen_device.type == "cuda" and gen_device.index is None:
-            gen_device = torch.device("cuda", torch.cuda.current_device())
-        if gen_device != device:
-            raise ValueError(f"the generator is on {generator.device}, but "
-                             f"this state space is on {device}")
+        self._check_generator(generator)
         mf = self.model.functions
         free_names = [p.name for p in mf.free_params]
         solve_batch = self._build_policy_batch()

@@ -446,3 +446,40 @@ def test_dare_kernel_nan_draw_poisons_only_itself(device):
 def test_dare_kernel_refuses_more_shared_memory_than_the_device_has(device):
     with pytest.raises(ValueError, match="shared memory"):
         dare_settle(*_dare_inputs(device, 80, 7, 2, seed=1))
+
+
+def test_fit_runs_its_chains_on_the_card(device):
+    """A short ``fit`` on ``rbc_estimation`` on the GPU: the chains are
+    finite, the draws came from the card, and K4 launched once for every
+    value+grad call of the transitions (plus the start, its finiteness
+    check and the curvature seed)."""
+    from geconpy_torch.ops.batched_cycle_reduction import cycle_reduction
+
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"))
+    ss = DSGEStateSpace(model, device=device).configure(
+        observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+        filter_type="stationary", kalman_settle=12)
+    data, _ = ss.data_from_prior(torch.Generator(device=device).manual_seed(0),
+                                 periods=48,
+                                 params={"rho_A": 0.9, "sigma_A": 0.012})
+    seen = []
+    vag = ss.build_batched_logpost_and_grad(data)
+
+    def watched(U, record=None):
+        seen.append(U.device)
+        return vag(U, record)
+
+    ss._build_cache = {k: (watched if v is vag else v)
+                         for k, v in ss._build_cache.items()}
+    cycle_reduction.launches = 0
+    res = geconpy_torch.fit(ss, data, num_chains=8, num_warmup=10,
+                            num_samples=5, max_depth=4, policy="pallas",
+                            pooled_adaptation=True, mass_init="hessian",
+                            seed=0)
+    assert res.samples.shape == (8, 5, 2)
+    assert np.isfinite(res.samples).all() and np.isfinite(res.logp).all()
+    assert res.unconstrained.dtype == np.float32
+    assert seen and all(d.type == "cuda" for d in seen)
+    assert cycle_reduction.launches == len(seen) + 1
+    assert len(seen) == 1 + 1 + int(res.n_calls.sum())

@@ -8,8 +8,11 @@ rtol/atol 1e-8 and gradients at rtol/atol 1e-6, the bars of
 ``tests/stats/test_pallas_grad.py``.  Cases: ``rbc_estimation`` (Y
 observed, alpha and sigma_C constant, stationary filter, kalman_settle 12,
 48 periods, batch 6) and SW-2007 (5 estimated parameters, y/pinf/r
-observed, stationary filter, 80 periods, batch 4), each on the reference's
-own data and draws.  Also: a rejected draw gets -inf and a zero gradient
+observed, stationary filter, 80 periods, batch 4) and SW-2007 at the
+bench's own configuration (``bench.py:91-96, :184-185``: all 22
+estimated parameters, the 7 observables, stationary filter,
+kalman_settle 32; 80 periods, batch 3), each on the reference's own data
+and draws.  Also: a rejected draw gets -inf and a zero gradient
 row without touching the others; float32 draws give the float64 path's
 results; and the device contract of ``DSGEStateSpace``.
 """
@@ -35,6 +38,12 @@ from geconpy_torch.stats.statespace import DSGEStateSpace as PortStateSpace
 from geconpy_tpu.stats.statespace import DSGEStateSpace as RefStateSpace
 
 SW_EST = ["crhoa", "sigma_ea", "crr", "crpi", "chabb"]
+SW_OBS = ["y", "c", "inve", "w", "pinf", "r", "lab"]
+SW_ESTIMATED_FULL = [
+    "crhoa", "crhob", "crhog", "crhoqs", "crhoms", "crhopinf", "crhow",
+    "cmap", "cmaw", "cgy", "sigma_ea", "sigma_eb", "sigma_eg", "sigma_eqs",
+    "sigma_em", "sigma_epinf", "sigma_ew", "crpi", "crr", "cry", "chabb",
+    "csigma"]
 CASES = {
     "rbc_estimation": dict(
         configure=lambda names: dict(
@@ -47,6 +56,12 @@ CASES = {
             kalman_settle=32,
             constant_params=[p for p in names if p not in SW_EST]),
         periods=80, batch=4, key=0),
+    "sw2007_bench": dict(
+        configure=lambda names: dict(
+            observed_states=SW_OBS, filter_type="stationary",
+            kalman_settle=32,
+            constant_params=[p for p in names if p not in SW_ESTIMATED_FULL]),
+        periods=80, batch=3, key=0, model="sw2007"),
 }
 
 
@@ -64,8 +79,9 @@ def _torch_cpu_float64():
 def case(request):
     name = request.param
     spec = CASES[name]
-    ref_model = geconpy_tpu.model_from_gcn(geconpy_tpu.get_example_gcn(name),
-                                           verbose=False)
+    model_name = spec.get("model", name)
+    ref_model = geconpy_tpu.model_from_gcn(
+        geconpy_tpu.get_example_gcn(model_name), verbose=False)
     ref_ss = RefStateSpace(ref_model).configure(
         **spec["configure"](ref_model.param_names))
     data, draw = ref_ss.data_from_prior(jax.random.PRNGKey(spec["key"]),
@@ -74,7 +90,8 @@ def case(request):
     u0 = np.asarray(ref_ss.unconstrain(draw))
     rng = np.random.default_rng(7)
     U = u0[None] + 0.05 * rng.standard_normal((spec["batch"], u0.shape[0]))
-    port_model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name))
+    port_model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn(model_name))
     port_ss = PortStateSpace(port_model, device="cpu").configure(
         **spec["configure"](port_model.param_names))
     assert port_ss.param_labels == ref_ss.param_labels
@@ -166,7 +183,7 @@ def test_unported_options_raise(rbc_port):
                                      periods=20)
     missing = data.copy()
     missing[3, 0] = np.nan
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ss.build_batched_logpost(missing)
     with pytest.raises(ValueError, match="settle"):
         ss.build_batched_logpost(data, settle="fused")
@@ -177,3 +194,53 @@ def test_unported_options_raise(rbc_port):
         **dict(kw, filter_type="steady_state"))
     with pytest.raises(NotImplementedError, match="'stationary'"):
         sweep_ss.build_batched_logpost(data)
+
+
+# the reference's configure keywords with its defaults (statespace.py:102-124)
+REFERENCE_CONFIGURE = dict(
+    measurement_error=None, shock_std=None, solver="cycle_reduction",
+    kalman_settle=48, kalman_settle_method="hewer", loglin_variables="auto",
+    cycle_reduction_tol=1e-10, cycle_reduction_maxiter=100, me_prior=None,
+    observation_equations=None, aggregate=None, ss_obs_intercept=False,
+    full_shock_covariance=False, lkj_eta=1.0, p0_init="stationary",
+    diffuse_kappa=1e6, diffuse_presample=0)
+
+
+def test_configure_takes_the_reference_keywords(rbc_port):
+    """Every keyword of the reference's ``configure`` at its default runs
+    through both packages (the filter the port has), with the same
+    estimated parameters; values the port cannot honour yet raise
+    ``NotImplementedError`` naming their ROADMAP item, not ``TypeError``."""
+    import inspect
+
+    model, kw = rbc_port
+    ref_params = inspect.signature(RefStateSpace.configure).parameters
+    port_params = inspect.signature(PortStateSpace.configure).parameters
+    assert list(port_params) == list(ref_params)
+    for name, p in ref_params.items():
+        if name not in ("self", "filter_type"):
+            assert port_params[name].default == p.default, name
+    call = dict(REFERENCE_CONFIGURE, observed_states=["Y"],
+                constant_params=["alpha", "sigma_C"], filter_type="stationary")
+    ref_ss = RefStateSpace(geconpy_tpu.model_from_gcn(
+        geconpy_tpu.get_example_gcn("rbc_estimation"), verbose=False)
+    ).configure(**call)
+    port_ss = PortStateSpace(model, device="cpu").configure(**call)
+    assert port_ss.param_labels == ref_ss.param_labels
+    assert (port_ss.solver, port_ss.p0_init) == ("cycle_reduction", "stationary")
+    for extra, item in ((dict(solver="gensys"), "item 6"),
+                        (dict(solver="backward"), "item 6"),
+                        (dict(aggregate={"Y_q": ("Y", "sum", 3)}), "item 3"),
+                        (dict(observation_equations={"dY": "Y[] - Y[-1]"}),
+                         "item 3"),
+                        (dict(full_shock_covariance=True), "item 3"),
+                        (dict(filter_type="sequential"), "item 3"),
+                        (dict(filter_type="sequential", p0_init="diffuse"),
+                         "item 3"),
+                        (dict(filter_type="chandrasekhar"), "item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            PortStateSpace(model, device="cpu").configure(**{**call, **extra})
+    for extra in (dict(p0_init="diffuse"), dict(p0_init="exact"),
+                  dict(solver="qz"), dict(filter_type="kalman")):
+        with pytest.raises(ValueError):
+            PortStateSpace(model, device="cpu").configure(**{**call, **extra})
