@@ -70,7 +70,33 @@ Phases, one line each (plus one line per kernel in phase 3):
    the Hessian seed, warmup and sampling; value+grad calls per transition
    and ms per call; the bare call's time against the sampler's own host
    time; min ESS, max split R-hat, the divergent fraction, min ESS/hour
-   (labelled as from a cut run) and the peak device memory.
+   (labelled as from a cut run) and the peak device memory;
+8. the sequential path (the reference's default filter and XLA policy),
+   one line a step, through the user's entry points on the card:
+   8a the twin of ``entry()``: ``rbc_estimation`` with Y observed, alpha
+   and sigma_C constant and otherwise the reference's defaults, 64 periods
+   of ``data_from_prior`` (CUDA generator, seed 0); the value and
+   ``torch.autograd`` gradient of ``build_logpost(data)(u0)`` on the card
+   within rel 1e-8 and 1e-6 of the same call on the CPU, no kernel
+   launched; ms a value+grad call (10 calls after a warm-up), and the
+   launches, host reads and host time of one call (profiler), whole and
+   split between the XLA solution, the filter's forward pass and the
+   backward pass.  8b SW-2007 at phase
+   5's configuration on the sequential filter:
+   ``build_batched_logpost_and_grad`` at batch 512, float32 draws; >= 99%
+   of values finite, every gradient finite, K4 launched once a call, the
+   first 64 draws within rel 5e-4 / 1e-3 of the float64 CPU path; us/draw
+   over 5 repetitions, the busy share, launches and host reads (whole and
+   split between the forward and the backward pass) and the peak device
+   memory.  8c the sweep with the reference's default policy:
+   ``build_batched_loglik(policy="xla", settle="pallas")`` at batch 512 on
+   phase 4's configuration; K2 and K3 launch and K1 does not, >= 99%
+   finite, within rel 5e-4 of the ``policy="pallas"`` sweep on the draws
+   both accept; one timed call after a warm-up.  8d ``fit(policy="xla")``
+   on 8a's configuration: 16 chains, ``init="prior"``, ``max_depth=4``,
+   seed 0, 5 warmup and 5 sampling transitions (``SEQ_FIT``, cut from 10 +
+   10; printed on the line); every chain finite, no kernel launched;
+   seconds and value+grad calls.  Each line ends with its seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -134,6 +160,12 @@ NUTS_KW = dict(num_chains=128, policy="pallas", pooled_adaptation=True,
                mass_matrix="dense", segment_size=25)
 NUTS_FULL = {"num_warmup": 384, "num_samples": 256, "adam_steps": 500}
 NUTS_CUT = {"num_warmup": 2, "num_samples": 4, "adam_steps": 20}
+# phase 8d: fit(policy="xla") on the entry() twin.  10 + 10 transitions
+# took 109 s on the card (270 value+grad calls of ~0.4 s, launch-bound), so
+# the transitions are cut to 5 + 5 to keep phase 8 near 120 s
+SEQ_FIT = dict(num_chains=16, num_warmup=5, num_samples=5, max_depth=4,
+               init="prior", seed=0, policy="xla")
+SEQ_FIT_FULL = {"num_warmup": 10, "num_samples": 10}
 SW_TRUTH = {
     "crhoa": 0.95, "crhob": 0.2, "crhog": 0.95, "crhoqs": 0.7,
     "crhoms": 0.15, "crhopinf": 0.9, "crhow": 0.95, "cmap": 0.74,
@@ -278,6 +310,231 @@ def bound(name, args, n_iter, lyap_iters) -> tuple[float, str]:
     flops, nbytes, peak = work(name, args, n_iter, lyap_iters)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def host_reads(prof) -> int:
+    """Device-to-host reads of scalars (``aten::_local_scalar_dense``: a
+    ``bool()`` or ``float()`` of a tensor on the card) in a profiler run."""
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.key == "aten::_local_scalar_dense")
+
+
+def profile_call(fn) -> tuple[float, float, int, int]:
+    """(wall ms, device kernel ms, kernel launches, host reads) of one
+    ``fn()`` under ``torch.profiler``."""
+    import torch
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us, n_kernels = device_time_us(prof)
+    return wall, dev_us / 1e3, n_kernels, host_reads(prof)
+
+
+def profile_parts(*parts) -> tuple[tuple[float, float, int, int], str]:
+    """One call profiled in parts: ``parts`` are (label, fn) pairs, each fn
+    doing more of the call than the one before, the last the whole call.
+    Returns the last one's ``profile_call`` numbers and a line with each
+    part's host time, launches and host reads less the previous one's."""
+    out, prev = [], (0.0, 0.0, 0, 0)
+    for label, fn in parts:
+        cur = profile_call(fn)
+        out.append(f"{label} {cur[0] - prev[0]:.1f} ms, {cur[2] - prev[2]} "
+                   f"launches, {cur[3] - prev[3]} reads")
+        prev = cur
+    return prev, "; ".join(out)
+
+
+def sequential_phase(card, reset_counts, read_counts, sw_model, constant,
+                     vg_data, vg_batch, sweep_data32, sweep_batch,
+                     sweep_pallas) -> None:
+    """Phase 8: the sequential filter and the XLA policy (8a-8d, see the
+    module docstring).  ``vg_data``/``vg_batch`` are phase 5's data and
+    float32 draws, ``sweep_data32``/``sweep_batch`` phase 4's at batch 512
+    and ``sweep_pallas`` phase 4's ``policy="pallas", settle="pallas"``
+    sweep."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    # ---- 8a: the twin of entry()
+    rbc = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"))
+    kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+              filter_type="sequential")
+    ss = DSGEStateSpace(rbc, device="cuda").configure(**kw)
+    ss_cpu = DSGEStateSpace(rbc, device="cpu").configure(**kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=64)
+    u0 = ss.unconstrain(draw)
+
+    def value_grad(lp, u):
+        u = u.detach().requires_grad_(True)
+        val = lp(u)
+        (grad,) = torch.autograd.grad(val, u)
+        return val.detach(), grad
+
+    reset_counts()
+    v, g = value_grad(ss.build_logpost(data), u0)
+    torch.cuda.synchronize()
+    launched = {k_: n_ for k_, n_ in read_counts().items() if n_}
+    v_cpu, g_cpu = value_grad(ss_cpu.build_logpost(data), u0.cpu())
+    rel_v = abs(float(v) - float(v_cpu)) / abs(float(v_cpu))
+    rel_g = float((g.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    if launched or not math.isfinite(float(v)) or rel_v > 1e-8 \
+            or rel_g > 1e-6:
+        raise AssertionError(f"8a entry() twin: value {float(v)} vs CPU "
+                             f"{float(v_cpu)} (rel {rel_v:.3e}), gradient rel "
+                             f"{rel_g:.3e}, kernels launched {launched}")
+    lp = ss.build_logpost(data)
+    value_grad(lp, u0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        value_grad(lp, u0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e2
+    solve = ss.build_solution_fn()
+    (wall, dev_ms, n_k, reads), split = profile_parts(
+        ("XLA policy and solution", lambda: solve(u0)),
+        ("+ filter forward (Lyapunov P0)", lambda: lp(u0)),
+        ("+ backward (Lyapunov, Sylvester adjoints)",
+         lambda: value_grad(lp, u0)))
+    print(f"phase 8a entry() twin (rbc_estimation, Y, alpha and sigma_C "
+          f"constant, sequential filter, XLA policy, 64 periods, float64): "
+          f"logpost {float(v):.10f}; vs CPU value rel {rel_v:.3e}, gradient "
+          f"rel {rel_g:.3e}; {ms:.3f} ms a value+grad call (10 calls); one "
+          f"call profiled: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
+          f"{n_k} kernel launches, {reads} host reads; by part: {split}; step "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+    # ---- 8b: SW-2007 at the bench's configuration, sequential filter
+    t_step = time.perf_counter()
+    sw_kw = dict(observed_states=SW_OBS, constant_params=constant,
+                 filter_type="sequential", kalman_settle=N_SETTLE)
+    ss_sw = DSGEStateSpace(sw_model, device="cuda").configure(**sw_kw)
+    ss_sw_cpu = DSGEStateSpace(sw_model, device="cpu").configure(**sw_kw)
+    vag = ss_sw.build_batched_logpost_and_grad(vg_data)
+    reset_counts()
+    vals, grads = vag(vg_batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["cycle_reduction"] != 1 or any(
+            n_ for k_, n_ in launches.items() if k_ != "cycle_reduction"):
+        raise AssertionError(f"8b: K4 once and nothing else, got {launches}")
+    frac = float(torch.isfinite(vals).float().mean())
+    if vals.shape != (VG_BATCH,) or vals.dtype != torch.float32 \
+            or frac < 0.99 or not bool(torch.isfinite(grads).all()):
+        raise AssertionError(f"8b: {tuple(vals.shape)} {vals.dtype}, "
+                             f"{frac:.4f} finite, gradients finite "
+                             f"{bool(torch.isfinite(grads).all())}")
+    t0 = time.perf_counter()
+    v_ref, g_ref = ss_sw_cpu.build_batched_logpost_and_grad(vg_data)(
+        vg_batch[:VG_CHECK].double().cpu())
+    cpu_s = time.perf_counter() - t0
+    v_got = vals[:VG_CHECK].double().cpu()
+    g_got = grads[:VG_CHECK].double().cpu()
+    both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+    rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
+    rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                   / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+    if float(both.double().mean()) < 0.99 or rel_v > 5e-4 or rel_g > 1e-3:
+        raise AssertionError(f"8b off the float64 CPU path: value rel "
+                             f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        vag(vg_batch)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    fwd = ss_sw.build_batched_logpost(vg_data)
+    (wall, dev_ms, n_k, reads), split = profile_parts(
+        ("forward (K4, Lyapunov P0)", lambda: fwd(vg_batch)),
+        ("+ backward (Lyapunov, Sylvester adjoints)", lambda: vag(vg_batch)))
+    print(f"phase 8b SW-2007 value+grad, sequential filter "
+          f"({len(SW_ESTIMATED)} parameters, {len(SW_OBS)} observables, "
+          f"{PERIODS} periods, batch {VG_BATCH}, float32 draws): launches "
+          f"{launches['cycle_reduction']} K4; finite {frac:.4f}; vs float64 "
+          f"CPU path on {int(both.sum())}/{VG_CHECK}: value rel {rel_v:.3e}, "
+          f"gradient rel {rel_g:.3e} (CPU {cpu_s:.1f} s); "
+          f"{elapsed / (5 * VG_BATCH) * 1e6:.2f} us/draw (5 reps, "
+          f"{elapsed:.3f} s); peak device memory {peak} B; one call "
+          f"profiled: wall {wall:.3f} ms, device {dev_ms:.3f} ms, busy share "
+          f"{dev_ms / wall:.3f}, {n_k} kernel launches, {reads} host reads; "
+          f"by part: {split}; step {time.perf_counter() - t_step:.1f} s "
+          f"[{card}]",
+          flush=True)
+
+    # ---- 8c: the sweep with the reference's default policy
+    t_step = time.perf_counter()
+    sweep_ss = DSGEStateSpace(sw_model, device="cuda").configure(
+        observed_states=SW_OBS, constant_params=constant,
+        filter_type="steady_state", kalman_settle=N_SETTLE)
+    sweep_xla = sweep_ss.build_batched_loglik(
+        sweep_data32, n_settle=N_SETTLE, policy="xla", settle="pallas")
+    reset_counts()
+    out = sweep_xla(sweep_batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["settle_parts"] < 1 or launches["filter_tail"] < 1 or any(
+            launches[k_] for k_ in ("cycle_reduction_policy",
+                                    "cycle_reduction", "dare_settle",
+                                    "settle_filter_loglik")):
+        raise AssertionError(f"8c: K2 and K3 only, got {launches}")
+    frac = float(torch.isfinite(out).float().mean())
+    ref = sweep_pallas(sweep_batch)
+    both = torch.isfinite(out) & torch.isfinite(ref)
+    rel = float(((out.double() - ref.double()).abs()
+                 / (1.0 + ref.double().abs()))[both].max())
+    if frac < 0.99 or rel > 5e-4:
+        raise AssertionError(f"8c: {frac:.4f} finite, rel {rel:.3e} to the "
+                             f"policy='pallas' sweep")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep_xla(sweep_batch)
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 8c sweep policy=xla settle=pallas (batch "
+          f"{sweep_batch.shape[0]}, float32): launches "
+          f"{ {k_: n_ for k_, n_ in launches.items() if n_} }; finite "
+          f"{frac:.4f}; vs the policy=pallas sweep rel {rel:.3e} on "
+          f"{int(both.sum())}/{sweep_batch.shape[0]}; one call after the "
+          f"warm-up {sweep_ms:.1f} ms; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 8d: fit(policy="xla") on the entry() twin
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = geconpy_torch.fit(ss, data, **SEQ_FIT)
+    fit_s = time.perf_counter() - t0
+    launched = {k_: n_ for k_, n_ in read_counts().items() if n_}
+    if launched or not bool(np.isfinite(res.unconstrained[:, -1]).all()) \
+            or not bool(np.isfinite(res.logp[:, -1]).all()):
+        raise AssertionError(f"8d: chains finite at the end "
+                             f"{np.isfinite(res.logp[:, -1]).tolist()}, "
+                             f"kernels launched {launched}")
+    print(f"phase 8d fit(policy='xla') on the entry() twin: {SEQ_FIT}, "
+          f"float32 chains; reduced: {SEQ_FIT['num_warmup']} + "
+          f"{SEQ_FIT['num_samples']} transitions of "
+          f"{SEQ_FIT_FULL['num_warmup']} + {SEQ_FIT_FULL['num_samples']}: "
+          f"{fit_s:.3f} s, "
+          f"{int(res.n_calls.sum())} value+grad calls "
+          f"({1e3 * fit_s / res.n_calls.sum():.2f} ms a call), calls per "
+          f"transition {res.n_calls.tolist()}; acceptance "
+          f"{float(res.accept_prob.mean()):.3f}; all 16 chains finite "
+          f"[{card}]", flush=True)
+    print(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
@@ -453,9 +710,10 @@ def main() -> int:
     batch = u0[None, :] + 0.05 * torch.randn(
         (BATCH, u0.shape[0]), generator=gen, device=dev, dtype=torch.float32)
     data32 = data.astype("float32")
-    sweep = ss.build_batched_loglik(data32, n_settle=N_SETTLE)
+    sweep = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                    policy="pallas", settle="pallas")
     sweep_fused = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
-                                          settle="fused")
+                                          policy="pallas", settle="fused")
 
     vg_kw = dict(observed_states=SW_OBS, constant_params=constant,
                  filter_type="stationary", kalman_settle=N_SETTLE)
@@ -616,7 +874,8 @@ def main() -> int:
         (SMALL_BATCH, small_u0.shape[0]), device=dev, dtype=small_u0.dtype,
         generator=torch.Generator(device="cuda").manual_seed(1))
     small_sweeps = [ss_small.build_batched_loglik(
-        small_data.astype("float32"), n_settle=SMALL_SETTLE, settle=settle)
+        small_data.astype("float32"), n_settle=SMALL_SETTLE, policy="pallas",
+        settle=settle)
         for settle in ("pallas", "fused")]
     small_fns = {
         "filter_tail": (filter_tail, _filter_tail_plain),
@@ -725,7 +984,8 @@ def main() -> int:
         raise AssertionError("kernel vs plain: " + "; ".join(failures))
 
     # ---- phase 4: the forward sweep, through the user's entry point
-    sweep_cpu = ss_cpu.build_batched_loglik(data32, n_settle=N_SETTLE)
+    sweep_cpu = ss_cpu.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                            policy="pallas", settle="pallas")
     ref = sweep_cpu(batch[:N_CHECK].double().cpu())
 
     def rel_to_ref(out):
@@ -807,7 +1067,7 @@ def main() -> int:
           f"{BATCH} draws both accept", flush=True)
     # the plain PyTorch settle: launch-bound, not the card's main path
     sweep_xla = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
-                                        settle="xla")
+                                        policy="pallas", settle="xla")
     sweep_xla(batch[:XLA_BATCH])
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -956,6 +1216,10 @@ def main() -> int:
     path_launches["cycle_reduction"] = nuts_phase(
         ss_vg, ss_vg_cpu, card, reset_counts, read_counts, **NUTS_CUT)
 
+    # ---- phase 8: the sequential path, through the user's entry points
+    sequential_phase(card, reset_counts, read_counts, model, constant,
+                     vg_data, vg_batch, data32, batch[:XLA_BATCH], sweep)
+
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
         entry = report[name]
@@ -1011,7 +1275,7 @@ def nuts_phase(ss, ss_cpu, card, reset_counts, read_counts, num_warmup: int,
     reset_counts()
     t0 = time.perf_counter()
     u_mode, mode_logp = posterior_mode(ss, data32, dtype=torch.float32,
-                                       adam_steps=adam_steps)
+                                       policy="pallas", adam_steps=adam_steps)
     map_s = time.perf_counter() - t0
     map_launches = read_counts()["cycle_reduction"]
 
@@ -1167,7 +1431,7 @@ def sweep_breakdown(ss, data, batch, card, sweeps, reps: int = 5):
     from geconpy_torch.ops.batched_settle import (settle_filter_loglik,
                                                   settle_parts)
 
-    pre_policy, post_policy = ss._solution_pieces()
+    pre_policy, _, post_policy = ss._solution_pieces()
     solve_batch = ss._build_policy_batch()
     y = torch.as_tensor(np.ascontiguousarray(data), device=batch.device,
                         dtype=batch.dtype)
@@ -1244,7 +1508,7 @@ def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
     ``torch.profiler``."""
     import torch
 
-    pre_policy, post_policy = ss._solution_pieces()
+    pre_policy, _, post_policy = ss._solution_pieces()
     solve_batch = ss._build_policy_batch_diff(cr_iters)
     y, _loglik = ss._data_and_loglik(data)
     names = ("pre-policy", "K4 + finalize", "post-policy", "Hewer settle",
@@ -1308,7 +1572,7 @@ def float32_io_effect(ss, data, batch, card, settled_gate, dare_settle,
     as max |a - b| / (1 + |b|) over the draws both accept."""
     import torch
 
-    pre_policy, post_policy = ss._solution_pieces()
+    pre_policy, _, post_policy = ss._solution_pieces()
     solve_batch = ss._build_policy_batch_diff(cr_iters)
     y, _loglik = ss._data_and_loglik(data)
     f32, f64 = torch.float32, torch.float64

@@ -15,6 +15,7 @@ from .core import (
     InverseGamma,
     LogNormal,
     Normal,
+    PartialCorrelation,
     StudentT,
     Truncated,
     TruncatedNormal,
@@ -26,7 +27,7 @@ from .from_ast import CompositeDistribution, ast_to_distribution, resolve_priors
 
 __all__ = [
     "Beta", "CompositeDistribution", "DIST_REGISTRY", "Distribution", "Exponential", "Gamma",
-    "HalfNormal", "InverseGamma", "LogNormal", "Normal",
+    "HalfNormal", "InverseGamma", "LogNormal", "Normal", "PartialCorrelation",
     "StudentT", "Truncated", "TruncatedNormal",
     "Uniform", "ast_to_distribution", "get_distribution_class", "maxent",
     "resolve_priors",

@@ -21,6 +21,7 @@ import torch
 __all__ = [
     "Distribution", "Normal", "HalfNormal", "TruncatedNormal", "Beta",
     "Gamma", "InverseGamma", "Uniform", "LogNormal", "Exponential",
+    "PartialCorrelation",
     "StudentT", "Truncated", "maxent", "DIST_REGISTRY", "get_distribution_class",
 ]
 
@@ -236,6 +237,53 @@ class Beta(Distribution):
     def variance(self):
         a, b = self.alpha, self.beta
         return a * b / ((a + b) ** 2 * (a + b + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialCorrelation(Distribution):
+    """Scaled Beta on (-1, 1): x = 2 B - 1 with B ~ Beta(alpha, alpha), the
+    marginal of a canonical partial correlation under the LKJ(eta)
+    correlation prior (the prior of ``configure(full_shock_covariance=True)``'s
+    correlation parameters)."""
+
+    alpha: float = 1.0
+    lower: ClassVar[float] = -1.0
+    upper: ClassVar[float] = 1.0
+    name: ClassVar[str] = "PartialCorrelation"
+
+    @classmethod
+    def lkj_marginal(cls, eta: float, dim: int, order: int
+                     ) -> "PartialCorrelation":
+        """Marginal of the ``order``-th canonical partial correlation under
+        LKJ(eta) in dimension ``dim``: a = eta + (dim - 2 - order) / 2."""
+        return cls(alpha=eta + (dim - 2 - order) / 2.0)
+
+    def logpdf(self, x):
+        a = self.alpha
+        norm = math.lgamma(2 * a) - 2 * math.lgamma(a)
+        inside = (x > -1) & (x < 1)
+        b = torch.clamp((x + 1) / 2, 1e-12, 1 - 1e-12)
+        # the Beta(a, a) density at (x + 1) / 2, times d b / d x = 1/2
+        return torch.where(
+            inside,
+            norm + (a - 1) * (torch.log(b) + torch.log1p(-b)) - math.log(2.0),
+            -math.inf)
+
+    def sample(self, generator, shape=()):
+        ga = _std_gamma(generator, self.alpha, shape)
+        gb = _std_gamma(generator, self.alpha, shape)
+        return 2.0 * ga / (ga + gb) - 1.0
+
+    def ppf(self, q):
+        from scipy.stats import beta as sp_beta
+
+        return 2.0 * sp_beta.ppf(q, self.alpha, self.alpha) - 1.0
+
+    def mean(self):
+        return 0.0
+
+    def variance(self):
+        return 1.0 / (2.0 * self.alpha + 1.0)
 
 
 @dataclasses.dataclass(frozen=True)

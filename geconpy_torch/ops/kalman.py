@@ -1,7 +1,10 @@
-"""The stationary Kalman filter of the value+grad path and the
-steady-state (settle, then constant gain) filter of the sweep, batched.
+"""The sequential Kalman filter of the single-draw log posterior, the
+stationary filter of the value+grad path and the steady-state (settle,
+then constant gain) filter of the sweep, batched.
 
-Mirrors ``geconpy_tpu/ops/kalman.py`` as a subset: ``_spd_inverse`` and
+Mirrors ``geconpy_tpu/ops/kalman.py`` as a subset: ``KalmanFilterResult``
+(:55), the masked filter step (:69-108, here :func:`_masked_filter_step`),
+``kalman_filter`` (:111) and ``kalman_loglik`` (:154), ``_spd_inverse`` and
 ``_spd_inverse_logdet`` (:161-184), ``_dare_step`` (:220),
 ``dare_residual_settled`` (:232), ``_stein_adjoint`` (:369), the implicit
 DARE adjoint ``_implicit_dare_P`` (:393-425), the Hewer settle
@@ -26,12 +29,15 @@ re-attach at the fixed point through :class:`_ImplicitDareP`.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .lyapunov import _doubling, amax_abs
+from .lyapunov import _doubling, amax_abs, solve_discrete_lyapunov
 from .precision import highest_precision
 
-__all__ = ["dare_residual_settled", "stationary_kalman_loglik",
+__all__ = ["KalmanFilterResult", "kalman_filter", "kalman_loglik",
+           "dare_residual_settled", "stationary_kalman_loglik",
            "stationary_loglik_from_P", "steady_state_filter_parts",
            "steady_state_kalman_loglik"]
 
@@ -287,13 +293,107 @@ def _filter_step(T, RQR, Z, d, H, x_prev, P_prev, y_t):
     return x_filt, P_filt, ll_t
 
 
+class KalmanFilterResult(NamedTuple):
+    loglik: torch.Tensor            # (...,) total log-likelihood
+    loglik_t: torch.Tensor          # (..., periods) per-period contributions
+    filtered_mean: torch.Tensor     # (..., periods, n) E[x_t | y_{1:t}]
+    filtered_cov: torch.Tensor      # (..., periods, n, n)
+    predicted_mean: torch.Tensor    # (..., periods, n) E[x_t | y_{1:t-1}]
+    predicted_cov: torch.Tensor     # (..., periods, n, n)
+
+
+def _masked_filter_step(T, RQR, Z, d, H, x_prev, P_prev, y_t):
+    """One exact predict + update where ``y_t`` (k,) may hold NaN
+    (``kalman.py:69-108``): a missing row of Z and d is zeroed, F gets a
+    unit diagonal there, and only observed rows count in the constant.
+    Returns (x_filt, P_filt, ll_t, x_pred, P_pred), the Joseph-form
+    covariance symmetrised."""
+    x_pred = (T @ x_prev[..., None])[..., 0]
+    P_pred = T @ P_prev @ T.mT + RQR
+    mask = torch.isfinite(y_t)
+    maskf = mask.to(x_pred.dtype)
+    y_eff = torch.where(mask, y_t, torch.zeros_like(y_t))
+    Z_eff = Z * maskf[..., :, None]
+    d_eff = d * maskf
+    v = y_eff - (Z_eff @ x_pred[..., None])[..., 0] - d_eff
+    PZt = P_pred @ Z_eff.mT
+    # unit variance on missing rows keeps F positive definite
+    H_eff = H * (maskf[..., :, None] * maskf[..., None, :]) \
+        + torch.diag_embed(1.0 - maskf)
+    F = Z_eff @ PZt + H_eff
+    chol_F = _chol_nan(F)
+    w = torch.cholesky_solve(v[..., None], chol_F)[..., 0]
+    K = torch.cholesky_solve(PZt.mT, chol_F).mT
+    x_filt = x_pred + (K @ v[..., None])[..., 0]
+    IKZ = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device) - K @ Z_eff
+    P_filt = IKZ @ P_pred @ IKZ.mT + K @ H_eff @ K.mT
+    P_filt = 0.5 * (P_filt + P_filt.mT)
+    logdet = 2.0 * torch.log(torch.diagonal(chol_F, dim1=-2, dim2=-1)).sum(-1)
+    ll_t = -0.5 * (maskf.sum(-1) * _LOG2PI + logdet + (v * w).sum(-1))
+    return x_filt, P_filt, ll_t, x_pred, P_pred
+
+
+def _filter_steps(y, T, R, Q, Z, H, d, x0, P0):
+    """The masked steps over ``y``, one (x_filt, P_filt, ll_t, x_pred,
+    P_pred) a period, from the reference's defaults: d and x0 zero, P0
+    the unconditional covariance
+    (:func:`~geconpy_torch.ops.lyapunov.solve_discrete_lyapunov` of T and
+    R Q Rᵀ)."""
+    y = y.to(T.dtype)
+    RQR = R @ Q @ R.mT
+    if d is None:
+        d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
+    x = T.new_zeros(T.shape[:-1]) if x0 is None else x0
+    P = solve_discrete_lyapunov(T, RQR) if P0 is None else P0
+    for t in range(y.shape[-2]):
+        step = _masked_filter_step(T, RQR, Z, d, H, x, P, y[..., t, :])
+        x, P = step[:2]
+        yield step
+
+
+@highest_precision()
+def kalman_filter(y, T, R, Q, Z, H, d=None, x0=None, P0=None
+                  ) -> KalmanFilterResult:
+    """The sequential Kalman filter over ``y`` (..., periods, k), NaN =
+    missing; T (..., n, n), R (..., n, m), Q (..., m, m), Z (..., k, n),
+    H (..., k, k), d (..., k).  ``d`` and ``x0`` default to zeros, ``P0``
+    to the unconditional covariance.  Differentiable by autograd through
+    the recursion (the reference differentiates its ``lax.scan``), and
+    through the Lyapunov adjoint where P0 is the default.  A draw whose F
+    is not positive definite gets NaN, never an exception."""
+    x_f, P_f, ll_t, x_p, P_p = zip(*_filter_steps(y, T, R, Q, Z, H, d, x0,
+                                                   P0))
+    ll_t = torch.stack(ll_t, dim=-1)
+    return KalmanFilterResult(
+        ll_t.sum(-1), ll_t, torch.stack(x_f, dim=-2),
+        torch.stack(P_f, dim=-3), torch.stack(x_p, dim=-2),
+        torch.stack(P_p, dim=-3))
+
+
+@highest_precision()
+def kalman_loglik_t(y, T, R, Q, Z, H, d=None, x0=None, P0=None
+                    ) -> torch.Tensor:
+    """``kalman_filter(...).loglik_t`` (..., periods) without stacking the
+    states and covariances."""
+    return torch.stack([step[2] for step in _filter_steps(
+        y, T, R, Q, Z, H, d, x0, P0)], dim=-1)
+
+
+def kalman_loglik(y, T, R, Q, Z, H, d=None, x0=None, P0=None):
+    """Log-likelihood only; a non-finite result is -inf, so that batched
+    samplers reject the draw."""
+    ll = kalman_loglik_t(y, T, R, Q, Z, H, d, x0, P0).sum(-1)
+    return torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -torch.inf))
+
+
 def _settle_exact(y_head, T, R, Q, Z, H, d):
     """The exact filter over ``y_head`` from the zero state and the
     unconditional covariance: (ll_head, x_filt, P_filt, RQR, d)."""
     if bool(torch.isnan(y_head).any()):
         raise NotImplementedError(
-            "the steady-state filter with missing data needs the sequential "
-            f"Kalman filter, not ported yet ({_ROADMAP} item 6)")
+            "the steady-state filter with missing data (its masked settle) "
+            "is not ported: use filter_type='sequential' "
+            f"({_ROADMAP} item 7)")
     if d is None:
         d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
     RQR = R @ Q @ R.mT

@@ -2,9 +2,10 @@
 
 Mirrors ``geconpy_tpu/ops/static_reduction.py``: ``plan_static_reduction``
 (:42), ``reduce_pencil`` (:95), ``expand_reduced_policy`` (:121) for the
-sweep, and for the value+grad path ``policy_from_reduced`` (:147),
+sweep, for the value+grad path ``policy_from_reduced`` (:147),
 ``finalize_reduced_policy`` (:165) and the implicit policy adjoint
-``_implicit_policy_T`` (:54-78).  A
+``_implicit_policy_T`` (:54-78), and the XLA policy of the single-draw log
+posterior ``solve_policy_reduced`` (:191).  A
 variable that appears neither lagged nor led contributes zero columns to A
 and C, so a complete-QR row transform of B's static columns splits the
 system into rows that back out the statics and a pure quadratic pencil in
@@ -26,7 +27,7 @@ from .precision import highest_precision
 
 __all__ = ["StaticReduction", "ReducedPencil", "plan_static_reduction",
            "reduce_pencil", "expand_reduced_policy", "policy_from_reduced",
-           "finalize_reduced_policy"]
+           "finalize_reduced_policy", "solve_policy_reduced"]
 
 
 class StaticReduction(NamedTuple):
@@ -149,13 +150,13 @@ class _ImplicitPolicyT(torch.autograd.Function):
 
 
 @highest_precision()
-def finalize_reduced_policy(A, B, C, D, T, T_d, cr_success):
+def finalize_reduced_policy(A, B, C, D, T, T_d, cr_success,
+                            tol: float = 1e-12):
     """Gradient re-attachment, selection matrix and success flag
     (``static_reduction.py:165``): T through the implicit adjoint, R through
-    the differentiable selection solve; success needs the kernel's flag,
+    the differentiable selection solve; success needs the solver's flag,
     ρ(T_d) < 1 + 1e-6 and max|A + B T + C T²| below
-    ``success_tol(dtype, 1e-6)`` (the reference's rule at its default
-    ``tol``).  ``dtype`` is T_d's: the
+    ``success_tol(dtype, max(tol·1e3, 1e-6))``.  ``dtype`` is T_d's: the
     kernel's working type, which is A's in the reference (where every array
     shares one dtype) and bounds how exact a T from the kernel can be."""
     from ..models.perturbation import spectral_radius
@@ -170,7 +171,7 @@ def finalize_reduced_policy(A, B, C, D, T, T_d, cr_success):
     Tsg = T.detach()
     resid = torch.amax((As + Bs @ Tsg + Cs @ Tsg @ Tsg).abs(), dim=(-2, -1))
     success = cr_success & stable & torch.isfinite(resid) & (
-        resid < success_tol(T_d.dtype, 1e-6)) \
+        resid < success_tol(T_d.dtype, max(tol * 1e3, 1e-6))) \
         & torch.isfinite(R).all(dim=(-2, -1))
     return T, R, success, resid
 
@@ -192,3 +193,27 @@ def expand_reduced_policy(T_d, R_d, red: ReducedPencil,
     R[..., d_idx, :] = R_d
     R[..., s_idx, :] = R_s_rows
     return T, R
+
+
+@highest_precision()
+def solve_policy_reduced(A, B, C, D, plan: StaticReduction,
+                         tol: float = 1e-12, maxiter: int = 100):
+    """Policy solve with the static block eliminated, batched:
+    (T, R, success, n_iter, resid_norm) in the original variable order, as
+    :func:`~geconpy_torch.ops.cycle_reduction.solve_policy_cycle_reduction`
+    on the full system gives them.  The QR reduction and the adaptive cycle
+    reduction run on detached pencils (primal only); gradients re-attach at
+    the full-system level through :func:`finalize_reduced_policy`."""
+    from .cycle_reduction import cycle_reduction, solve_policy_cycle_reduction
+
+    if len(plan.static_idx) == 0:
+        return solve_policy_cycle_reduction(A, B, C, D, tol=tol,
+                                            maxiter=maxiter)
+    n = A.shape[-1]
+    As, Bs, Cs, Ds = (X.detach() for X in (A, B, C, D))
+    red = reduce_pencil(As, Bs, Cs, Ds, plan)
+    cr = cycle_reduction(red.A2, red.B2, red.C2, tol=tol, maxiter=maxiter)
+    T = policy_from_reduced(cr.T, red, plan, n)
+    T, R, success, resid = finalize_reduced_policy(
+        A, B, C, D, T, cr.T, cr.success, tol=tol)
+    return T, R, success, cr.n_iter, resid

@@ -1,6 +1,6 @@
 """Estimation layer (mirrors ``geconpy_tpu/stats``): the state space with its
-batched likelihood sweep and value+gradient, the SMC sampler on the sweep,
-and NUTS on the value+gradient (``fit``) with its mode search and
+single-draw log posterior, batched likelihood sweep and value+gradient, the
+SMC sampler on the sweep, and NUTS (``fit``) with its mode search and
 diagnostics."""
 
 from .estimation import PosteriorResult, fit

@@ -1,11 +1,15 @@
 """Bayesian estimation front-end: NUTS over the DSGE state-space posterior.
 
 Mirrors ``geconpy_tpu/stats/estimation.py`` (``PosteriorResult`` :92,
-``fit`` :123) on the ported path, ``policy="pallas"``: every leapfrog step
-is one call of ``DSGEStateSpace.build_batched_logpost_and_grad`` for all
-chains (the reference's ``make_batched_logp_grad``, :53, routes the vmapped
-chains to the same batched call), which launches the cycle-reduction
-kernel K4 on the GPU.  The chains run on the state space's device.
+``fit`` :123).  Every leapfrog step is one value+grad call for all chains.
+With ``policy="xla"`` (the default) that is the batched form of the
+single-draw log posterior ``DSGEStateSpace.build_logpost`` (the adaptive
+cycle reduction and the configured filter, in plain PyTorch), which the
+reference differentiates per chain under ``vmap``.  With
+``policy="pallas"`` it is ``DSGEStateSpace.build_batched_logpost_and_grad``
+(the reference's ``make_batched_logp_grad``, :53, routes the vmapped chains
+to the same batched call), which launches the cycle-reduction kernel K4 on
+the GPU.  The chains run on the state space's device.
 """
 
 from __future__ import annotations
@@ -67,16 +71,25 @@ class PosteriorResult:
         return dict(zip(self.param_names, flat.mean(axis=0)))
 
 
+def _value_and_grad(ss_mod, data: np.ndarray, policy: str):
+    """The value+grad of ``fit``'s ``policy``."""
+    if policy == "xla":
+        return ss_mod.build_logpost_and_grad(data)
+    return ss_mod.build_batched_logpost_and_grad(data)
+
+
 def posterior_mode(ss_mod, data: np.ndarray, dtype: torch.dtype = torch.float32,
-                   **find_map_kwargs) -> tuple[torch.Tensor, float]:
+                   policy: str = "xla", **find_map_kwargs
+                   ) -> tuple[torch.Tensor, float]:
     """The posterior mode from ``ss_mod.initial_position()`` in ``dtype``,
-    and its log posterior, by :func:`find_map` on the batched value+grad.
+    and its log posterior, by :func:`find_map` on the value+grad of
+    ``fit``'s ``policy``.
 
     Memoized per (value+grad function, start point), as the reference
     memoizes its mode search: the first search for a model, data and start
     point is kept, whatever ``find_map_kwargs`` a later call passes, and
-    ``fit(init="map")`` reads it."""
-    vag = ss_mod.build_batched_logpost_and_grad(data)
+    ``fit(init="map")`` with the same ``policy`` reads it."""
+    vag = _value_and_grad(ss_mod, data, policy)
     u0 = ss_mod.initial_position().to(dtype)
     bucket = _MAP_CACHE.setdefault(vag, {})
     key = (str(dtype), u0.cpu().numpy().tobytes())
@@ -109,15 +122,16 @@ def fit(
 ) -> PosteriorResult:
     """Sample the posterior with batched NUTS chains on ``ss_mod``'s device.
 
-    The reference's signature and defaults.  ``policy="pallas"`` is the
-    ported path: each leapfrog step is one batched value+grad call for all
-    chains (``ss_mod.build_batched_logpost_and_grad(data)``, the default
-    Hewer settle), and the chains' termination is read back once per tree
-    level.  ``ss_mod`` must be configured with ``filter_type="stationary"``.
-    Not ported yet, and refused with ``NotImplementedError``:
-    ``policy="xla"`` (the reference's default, the XLA policy solve;
-    ROADMAP Queue 1 item 6), ``order=2``, ``mesh`` and ``cache_dir``
-    (item 8).
+    The reference's signature and defaults.  Each leapfrog step is one
+    value+grad call for all chains, and the chains' termination is read
+    back once per tree level.  ``policy="xla"`` (the default) takes the
+    value+grad of ``ss_mod.build_logpost(data)`` over the chains
+    (``ss_mod.build_logpost_and_grad``: the adaptive cycle reduction and
+    the configured filter, the sequential one by default).
+    ``policy="pallas"`` takes ``ss_mod.build_batched_logpost_and_grad(data)``
+    (the cycle-reduction kernel K4, the default settle).  Not ported yet,
+    and refused with ``NotImplementedError``: ``order=2``, ``mesh`` and
+    ``cache_dir`` (ROADMAP Queue 1 item 8).
 
     ``seed`` seeds one ``torch.Generator`` on the state space's device,
     which draws the starts and every random number of the sampler.
@@ -130,11 +144,11 @@ def fit(
     mode (:func:`posterior_mode`, memoized); ``init="prior"`` jitters each
     chain by ``init_jitter`` N(0, 1) around ``ss_mod.initial_position()``.
     A start outside the support (-inf) is pulled half way to that anchor,
-    up to six times, as in the reference.  Where the reference calls its
-    single-draw XLA ``build_logpost`` (the mode search, the finiteness of
-    the starts), the port uses the batched path at a batch of one or of
-    the chains; the two agree at the parity bars
-    (``tests/test_torch_logpost_grad.py``).  ``mass_init="auto"`` seeds
+    up to six times, as in the reference.  The mode search and the
+    finiteness of the starts run on the log posterior of ``policy``, at a
+    batch of one or of the chains (with ``policy="pallas"`` where the
+    reference calls its XLA ``build_logpost``: the two agree at the parity
+    bars of ``tests/test_torch_logpost_grad.py``).  ``mass_init="auto"`` seeds
     the metric from the curvature at the start when ``init="map"``, else
     from the identity.  ``segment_size`` changes nothing (every transition
     returns to the host).  ``summary()`` of the result is a plain dict.
@@ -153,11 +167,7 @@ def fit(
             f"({_ROADMAP} item 8)")
     if order != 1:
         raise ValueError(f"order must be 1 or 2, got {order!r}")
-    if policy == "xla":
-        raise NotImplementedError(
-            "policy='xla' (the XLA policy solve) is not ported yet: pass "
-            f"policy='pallas' ({_ROADMAP} item 6)")
-    if policy != "pallas":
+    if policy not in ("xla", "pallas"):
         raise ValueError(f"policy must be 'xla' or 'pallas', got {policy!r}")
     if init not in ("prior", "map"):
         raise ValueError(f"init must be 'prior' or 'map', got {init!r}")
@@ -170,12 +180,14 @@ def fit(
         raise ValueError(f"mass_matrix must be 'diag' or 'dense', "
                          f"got {mass_matrix!r}")
 
-    vag = ss_mod.build_batched_logpost_and_grad(data)
-    logpost = ss_mod.build_batched_logpost(data)
+    vag = _value_and_grad(ss_mod, data, policy)
+    logpost = (ss_mod.build_logpost(data) if policy == "xla"
+               else ss_mod.build_batched_logpost(data))
     device = ss_mod._device()
     generator = torch.Generator(device=device).manual_seed(seed)
     if init == "map":
-        u_mode, mode_logp = posterior_mode(ss_mod, data, dtype=dtype)
+        u_mode, mode_logp = posterior_mode(ss_mod, data, dtype=dtype,
+                                           policy=policy)
         _log.info("MAP found: logpost %.2f", mode_logp)
         inits = u_mode[None, :] + 0.05 * torch.randn(
             (num_chains, u_mode.shape[0]), generator=generator, dtype=dtype,

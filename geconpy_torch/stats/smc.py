@@ -118,8 +118,9 @@ def fit_smc(
 
     Every likelihood evaluation is one batched sweep over the whole cloud,
     ``ss_mod.build_batched_loglik(data, n_settle=kalman_settle,
-    settle=settle)``, on ``ss_mod``'s device in ``dtype``: 1 for the prior
-    cloud, then ``n_mh`` per stage.  ``target_ess`` and ``resample_ess``
+    policy="pallas", settle=settle)`` (the cycle-reduction kernel K1), on
+    ``ss_mod``'s device in ``dtype``: 1 for the prior cloud, then ``n_mh``
+    per stage.  ``target_ess`` and ``resample_ess``
     are fractions of ``n_particles``.  The same ``seed`` gives the same
     result on the same device.
 
@@ -134,7 +135,7 @@ def fit_smc(
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
     loglik = _build_loglik(ss_mod, ss_mod.build_batched_loglik(
-        data, n_settle=kalman_settle, settle=settle))
+        data, n_settle=kalman_settle, policy="pallas", settle=settle))
 
     def mh_sweep(U, ll, lp, phi, L_prop, scale):
         """One RW-Metropolis sweep over all particles."""

@@ -1,19 +1,34 @@
-"""DSGE state-space model: the batched likelihood sweep and the batched
-value+gradient.
+"""DSGE state-space model: the single-draw log posterior, the batched
+likelihood sweep and the batched value+gradient.
 
 Mirrors ``geconpy_tpu/stats/statespace.py`` (``DSGEStateSpace``) as a
-subset: ``configure`` (:102-336, the reference's keywords; directly
-observed variables only, diagonal shock covariance, the ``steady_state``
-and ``stationary`` filters), the cache of built functions (:45, here
-``_cached_build``), ``unconstrain``/``constrain``/``initial_position`` (:501, a
-``torch.Generator`` in place of a key)/``param_labels``,
-``_solution_pieces`` (:544), ``_data_and_loglik`` (:717, the stationary
-fully observed branch), ``_build_design`` (:394), ``_augment_lags`` (:457),
+subset: ``configure`` (:102-336, the reference's keywords and defaults;
+the ``sequential``, ``steady_state`` and ``stationary`` filters), the
+observation equations (``_setup_observation_equations``, :340, and
+``aggregated_obs_equation``, :1335), the full shock covariance (:652-669,
+``_vine_cholesky_np``, :1318), the cache of
+built functions (:45, here ``_cached_build``), ``LogPostExtras`` (:74),
+``unconstrain``/``constrain``/``initial_position`` (:501, a
+``torch.Generator`` in place of a key)/``param_labels``, ``build_logpost``
+(:516), ``build_solution_fn`` (:525), ``_solution_pieces`` (:544, with the
+XLA policy step ``solve_policy_reduced``), ``_data_and_loglik`` (:717, the
+sequential branch with and without ``p0_init="diffuse"`` and the stationary
+fully observed one), ``build_logpost_extras`` (:800),
+``_build_design`` (:394), ``_augment_lags`` (:457),
 ``_static_pivot_order`` (:1092), ``_build_pallas_policy_batch`` (:1154, here
 :meth:`_build_policy_batch`), ``_build_pallas_policy_batch_diff`` (:1109,
 here :meth:`_build_policy_batch_diff`), ``build_batched_loglik`` (:860),
 ``build_batched_logpost`` (:965), ``build_batched_logpost_and_grad``
 (:1076) and ``data_from_prior`` (:1252).
+
+The single-draw functions (``build_logpost``, ``build_logpost_extras``,
+``build_solution_fn``) take ``u`` of shape (dim,), as the reference's do,
+or (B, dim): a single draw runs as a batch of one through the same batched
+code that ``fit(policy="xla")`` and ``build_batched_loglik(policy="xla")``
+call.  Where the reference's ``vmap`` maps data-dependent loops (the
+adaptive cycle reduction, the Lyapunov doubling, the Sylvester adjoint),
+the port runs them over the batch with a per-draw freeze mask, so that
+every draw takes the iterations it takes alone.
 
 A state space lives on one device, the GPU unless it is built with
 ``device="cpu"``: its results are put there, and an input on another device
@@ -26,9 +41,11 @@ constant-gain tail (:mod:`~geconpy_torch.ops.batched_filter`), or the one
 fused kernel for both (``settle="fused"``).  The value+grad path runs the
 cycle-reduction kernel K4 and, with ``settle="pallas"``, the DARE kernel
 (:mod:`~geconpy_torch.ops.batched_dare`); gradients re-attach through the
-implicit policy and DARE adjoints.  On CPU tensors the kernels' plain
-PyTorch versions run instead.  Failed draws (steady state, policy,
-stability, settle, non-finite likelihood) get -inf; failures are flags,
+implicit policy and DARE adjoints.  The XLA policy (``policy="xla"``, the
+reference's default) is plain batched PyTorch in float64, as it is XLA
+code, outside every Pallas kernel, in the reference.  On CPU tensors the
+kernels' plain PyTorch versions run instead.  Failed draws (steady state,
+policy, stability, settle, non-finite likelihood) get -inf; failures are flags,
 never exceptions.  The TPU-only knobs (``cr_tile``, ``pallas_tile``,
 ``interpret``) are gone.
 """
@@ -40,12 +57,13 @@ import hashlib
 import logging
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..dists import from_ast
-from ..dists.core import Distribution, HalfNormal
+from ..dists.core import Distribution, HalfNormal, PartialCorrelation
 from ..models.model import Model
 from ..models.perturbation import _ZERO_TOL, make_loglin_mask, spectral_radius
 from ..ops.batched_cycle_reduction import (cycle_reduction,
@@ -54,16 +72,22 @@ from ..ops.batched_cycle_reduction import (cycle_reduction,
 from ..ops.batched_dare import dare_settle
 from ..ops.batched_filter import filter_tail
 from ..ops.batched_settle import settle_filter_loglik, settle_parts
-from ..ops.kalman import (dare_residual_settled, stationary_kalman_loglik,
-                          stationary_loglik_from_P, steady_state_filter_parts)
+from ..ops.kalman import (dare_residual_settled, kalman_loglik_t,
+                          stationary_kalman_loglik, stationary_loglik_from_P,
+                          steady_state_filter_parts)
+from ..ops.lyapunov import amax_abs
 from ..ops.precision import highest_precision
 from ..ops.static_reduction import (expand_reduced_policy,
                                     finalize_reduced_policy,
-                                    policy_from_reduced, reduce_pencil)
+                                    policy_from_reduced, reduce_pencil,
+                                    solve_policy_reduced)
+from ..ops.tolerances import success_tol
+from ..symbolic import TimeAwareSymbol
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["DSGEStateSpace", "EstimatedParameter", "CR_ITERS"]
+__all__ = ["DSGEStateSpace", "EstimatedParameter", "LogPostExtras",
+           "CR_ITERS", "aggregated_obs_equation"]
 
 _ROADMAP = "ROADMAP Queue 1"
 
@@ -101,6 +125,52 @@ class EstimatedParameter:
     prior: Distribution
     kind: str                     # "model" | "measurement_error"
     initial: float | None = None
+
+
+class LogPostExtras(NamedTuple):
+    """Per-draw diagnostics beside the log posterior (the reference's
+    ``LogPostExtras``, ``statespace.py:74``)."""
+
+    logpost: torch.Tensor
+    loglik: torch.Tensor
+    logprior: torch.Tensor
+    ss_success: torch.Tensor
+    solver_success: torch.Tensor
+    deterministic_norm: torch.Tensor
+    stochastic_norm: torch.Tensor
+    spectral_radius: torch.Tensor
+
+
+def _one_or_many(fn):
+    """Run ``fn(U (B, dim))`` on ``u`` (dim,) as a batch of one and drop
+    the batch dimension of every tensor it returns."""
+    @functools.wraps(fn)
+    def wrapper(u: torch.Tensor):
+        if u.ndim != 1:
+            return fn(u)
+        out = fn(u[None])
+        if isinstance(out, torch.Tensor):
+            return out[0]
+        if isinstance(out, dict):
+            return {k: v[0] for k, v in out.items()}
+        return type(out)(*(v[0] for v in out))
+    return wrapper
+
+
+def _value_and_grad(f):
+    """``U -> (f(U), d f / d U)`` by one backward pass over the batch;
+    non-finite gradient rows (rejected draws) are zeroed, the NUTS
+    kernel's convention."""
+    def value_and_grad(U: torch.Tensor, record: dict | None = None):
+        U = U.detach().requires_grad_(True)
+        with torch.enable_grad():
+            vals = f(U) if record is None else f(U, record)
+            (grads,) = torch.autograd.grad(vals, U, torch.ones_like(vals))
+        grads = torch.where(torch.isfinite(grads), grads,
+                            torch.zeros_like(grads))
+        return vals.detach(), grads
+
+    return value_and_grad
 
 
 class DSGEStateSpace:
@@ -151,7 +221,7 @@ class DSGEStateSpace:
         measurement_error: list[str] | dict | None = None,
         shock_std: dict | float | None = None,
         solver: str = "cycle_reduction",
-        filter_type: str = "steady_state",
+        filter_type: str = "sequential",
         kalman_settle: int = 48,
         kalman_settle_method: str = "hewer",
         loglin_variables="auto",
@@ -176,20 +246,24 @@ class DSGEStateSpace:
         ``shock_std``; ``measurement_error`` is a list of observed names
         (each with an estimated std, prior ``me_prior``, default
         HalfNormal(0.1)) or a dict name -> float | Distribution.
-        ``filter_type`` is ``"steady_state"`` (the forward sweep with its
-        ``"xla"``, ``"pallas"`` and ``"fused"`` settles, which SMC runs on)
-        or ``"stationary"`` (the value+grad path, with the ``"hewer"``
-        settle method).  The keywords are the reference's, with its
-        defaults but for ``filter_type`` (the reference's
-        ``"sequential"`` is not ported yet).  What the port cannot honour
-        yet raises ``NotImplementedError`` naming its ROADMAP item:
-        observation equations and ``aggregate``, a full shock covariance,
-        ``solver="backward"``/``"gensys"``, ``p0_init="diffuse"`` and the
-        other filters and settle methods.  ``cycle_reduction_tol`` and
-        ``cycle_reduction_maxiter`` belong to the XLA policy solve, which
-        is not ported; the batched paths run a fixed number of
-        cycle-reduction doublings, as the reference's do.  ``lkj_eta``
-        shapes only the full shock covariance's prior.
+        ``filter_type`` is ``"sequential"`` (the default: the exact Kalman
+        filter with missing data, from the unconditional covariance or,
+        with ``p0_init="diffuse"``, from ``diffuse_kappa``·I, dropping the
+        first ``diffuse_presample`` periods), ``"steady_state"`` (the
+        forward sweep's settle then constant gain) or ``"stationary"`` (the
+        value+grad path's constant gain from the DARE, with the
+        ``"hewer"`` settle method).  The keywords and defaults are the
+        reference's, and so are ``observation_equations`` (GCN
+        expressions in the model's variables, lags allowed: the filter
+        state gets one block per lag), ``aggregate`` and
+        ``full_shock_covariance`` (Q = S L Lᵀ S, L from estimated partial
+        correlations with an LKJ(``lkj_eta``) prior).  What the port cannot
+        honour yet raises ``NotImplementedError`` naming its ROADMAP item:
+        ``solver="backward"``/``"gensys"``, and the other filters and
+        settle methods.  ``cycle_reduction_tol`` and
+        ``cycle_reduction_maxiter`` drive the XLA policy solve of
+        ``build_logpost`` and of ``policy="xla"``; the kernel paths run a
+        fixed number of cycle-reduction doublings, as the reference's do.
         """
         if p0_init not in ("stationary", "diffuse"):
             raise ValueError(f"p0_init must be 'stationary' or 'diffuse', "
@@ -203,21 +277,11 @@ class DSGEStateSpace:
                                "stationary", "chandrasekhar"):
             raise ValueError("filter_type must be 'sequential', 'parallel', "
                              "'steady_state', 'stationary' or 'chandrasekhar'")
-        if filter_type == "sequential":
-            raise NotImplementedError(
-                "filter_type='sequential' is not ported yet: only "
-                f"'steady_state' and 'stationary' are ({_ROADMAP} item 3)")
         if filter_type in ("parallel", "chandrasekhar"):
             raise NotImplementedError(
                 f"filter_type={filter_type!r} is not ported yet: only "
-                f"'steady_state' and 'stationary' are ({_ROADMAP} item 8)")
-        if observation_equations or aggregate:
-            raise NotImplementedError(
-                "observation equations (and aggregate=) are not ported yet "
-                f"({_ROADMAP} item 3)")
-        if full_shock_covariance:
-            raise NotImplementedError(
-                f"a full shock covariance is not ported yet ({_ROADMAP} item 3)")
+                "'sequential', 'steady_state' and 'stationary' are "
+                f"({_ROADMAP} item 8)")
         if solver in ("backward", "gensys"):
             raise NotImplementedError(
                 f"solver={solver!r} is not ported yet: only 'cycle_reduction' "
@@ -235,7 +299,12 @@ class DSGEStateSpace:
         model = self.model
         mf = model.functions
 
-        unknown_obs = set(observed_states) - set(mf.variable_names)
+        observation_equations = dict(observation_equations or {})
+        for obs_name, (var, method, period) in (aggregate or {}).items():
+            observation_equations[obs_name] = aggregated_obs_equation(
+                var, method, period)
+        unknown_obs = set(observed_states) - set(mf.variable_names) \
+            - set(observation_equations)
         if unknown_obs:
             raise ValueError(f"observed_states not in model: {sorted(unknown_obs)}")
         self.observed_states = list(observed_states)
@@ -244,9 +313,13 @@ class DSGEStateSpace:
         self.kalman_settle_method = kalman_settle_method
         self.solver = solver
         self.p0_init = p0_init
+        self.diffuse_kappa = float(diffuse_kappa)
+        self.diffuse_presample = int(diffuse_presample)
+        self._cr_tol = cycle_reduction_tol
+        self._cr_maxiter = cycle_reduction_maxiter
         self.ss_obs_intercept = ss_obs_intercept
         self.loglin_variables = loglin_variables
-        self._obs_max_lag = 0
+        self._setup_observation_equations(observation_equations)
 
         param_priors, shock_dists = from_ast.resolve_priors(
             model.primitives.priors, model.primitives.shock_priors)
@@ -305,6 +378,21 @@ class DSGEStateSpace:
         self._me_estimated = me_estimated
         self.estimated.extend(p for _, p in me_estimated)
 
+        # a full shock covariance: one partial correlation per (i, j), i > j,
+        # with the LKJ(lkj_eta) vine marginal as its prior
+        corr_params: list[EstimatedParameter] = []
+        if full_shock_covariance:
+            m = mf.n_shocks
+            for i in range(1, m):
+                for j in range(i):
+                    corr_params.append(EstimatedParameter(
+                        f"corr_{mf.shock_names[i]}_{mf.shock_names[j]}",
+                        PartialCorrelation.lkj_marginal(lkj_eta, m, j),
+                        "shock_corr", 0.0))
+        self.full_shock_covariance = bool(full_shock_covariance)
+        self._n_corr = len(corr_params)
+        self.estimated.extend(corr_params)
+
         n_me = len(self._me_fixed) + len(me_estimated)
         if len(self.observed_states) > mf.n_shocks + n_me:
             raise ValueError(
@@ -312,11 +400,15 @@ class DSGEStateSpace:
                 f"but only {mf.n_shocks} shocks + {n_me} measurement errors. "
                 f"Add shocks or measurement error.")
 
-        # the Kalman state is the dynamic core when every observable is a
-        # dynamic variable (statics are outputs, not states)
+        # the Kalman state is the dynamic core when every variable an
+        # observable refers to is dynamic (statics are outputs, not states)
         plan = model.static_reduction
         dynamic_names = {mf.variable_names[i] for i in plan.dynamic_idx}
-        if set(self.observed_states) <= dynamic_names and len(plan.static_idx):
+        obs_refs = {name for name in self.observed_states
+                    if name not in self._obs_fns}
+        for expr in self._obs_exprs.values():
+            obs_refs |= {a.base_name for a in expr.atoms(TimeAwareSymbol)}
+        if obs_refs <= dynamic_names and len(plan.static_idx):
             self._filter_core = np.asarray(plan.dynamic_idx)
         else:
             self._filter_core = np.arange(mf.n_variables)
@@ -328,45 +420,115 @@ class DSGEStateSpace:
                   len(self.estimated), len(est_idx), len(me_estimated))
         return self
 
-    # ------------------------------------------------------------ design
-    def _build_design(self, x_ss, core):
-        """(Z (B, k, n_core), d (B, k)): design over the filter state and the
-        steady-state intercept (log(v_ss) for a log-linearized variable with
-        positive steady state, else v_ss; zero unless ``ss_obs_intercept``)."""
+    # ------------------------------------------------- observation equations
+    def _setup_observation_equations(self, observation_equations: dict
+                                     ) -> None:
+        """Parse each observation equation (a GCN expression in the model's
+        variables, lags allowed) and lower it to ``g(y_0, ..., y_L,
+        theta)``, where ``y_j`` is the variables at lag j and L the deepest
+        lag used (``statespace.py:340-392``)."""
+        from ..codegen.lower import lower_to_torch
+        from ..lang.parser import parse_expression
+        from ..lang.sympify import SympyConverter
+
         mf = self.model.functions
-        batch = x_ss.shape[:-1]
+        self._obs_fns, self._obs_exprs, self._obs_max_lag = {}, {}, 0
+        if not observation_equations:
+            return
+        converter = SympyConverter(self.model.primitives.assumptions)
+        var_names = set(mf.variable_names)
+        max_lag = 0
+        for name, src in observation_equations.items():
+            expr = converter.convert(parse_expression(src))
+            for atom in expr.atoms(TimeAwareSymbol):
+                if atom.base_name not in var_names:
+                    raise ValueError(
+                        f"observation equation {name!r} references unknown "
+                        f"variable {atom.base_name!r}")
+                if atom.time_index == "ss":
+                    continue
+                if atom.time_index > 0:
+                    raise ValueError(
+                        f"observation equation {name!r} may not reference "
+                        f"future values ({atom})")
+                max_lag = max(max_lag, -atom.time_index)
+            self._obs_exprs[name] = expr
+        self._obs_max_lag = max_lag
+        lag_groups = [(f"y_lag{j}", [v.set_t(-j) for v in mf.variables])
+                      for j in range(max_lag + 1)]
+        theta_syms = [*mf.free_params, *mf.deterministic_params,
+                      *mf.calibrated_params]
+        self._obs_fns = {
+            name: lower_to_torch([expr], lag_groups + [("theta", theta_syms)],
+                                 name=f"obs_{name}")
+            for name, expr in self._obs_exprs.items()}
+
+    # ------------------------------------------------------------ design
+    def _build_design(self, x_ss, theta_full, scale, core):
+        """(Z (..., k, (L+1) n_core), d (..., k)): the design over the
+        lag-augmented filter state and the steady-state intercept
+        (``statespace.py:394-455``).  A directly observed variable loads on
+        its own state with intercept log(v_ss) (log-linearized with a
+        positive steady state) or v_ss; an observation equation's row is
+        the ``torch.func.jacfwd`` of its lowered function at the steady
+        state in each lag block, times the log-linearization scale, and its
+        intercept the equation's value there.  d is zero unless
+        ``ss_obs_intercept``."""
+        mf = self.model.functions
         lv = self.loglin_variables
         if isinstance(lv, str) and lv == "auto":
             lv = self.model.default_loglin
         loglin_mask = make_loglin_mask(mf, lv)
         core = list(np.asarray(core))
-        k = len(self.observed_states)
-        Z0 = torch.zeros((k, len(core)), dtype=x_ss.dtype, device=x_ss.device)
-        intercepts = []
-        for row, name in enumerate(self.observed_states):
+        core_t = torch.as_tensor(core, dtype=torch.int64, device=x_ss.device)
+        n_core, L = len(core), self._obs_max_lag
+        batch = x_ss.shape[:-1]
+        rows, intercepts = [], []
+        for name in self.observed_states:
+            if name in self._obs_fns:
+                fn = self._obs_fns[name].fn
+                blocks = [x_ss] * (L + 1)
+                grads = [torch.func.vmap(torch.func.jacfwd(fn, argnums=j))(
+                    *(b.reshape(-1, b.shape[-1]) for b in blocks),
+                    theta_full.reshape(-1, theta_full.shape[-1]))[:, 0]
+                    .reshape(batch + x_ss.shape[-1:]) for j in range(L + 1)]
+                rows.append(torch.cat([(g * scale)[..., core_t]
+                                       for g in grads], dim=-1))
+                intercepts.append(fn(*blocks, theta_full)[..., 0])
+                continue
             idx = mf.variable_names.index(name)
+            row = x_ss.new_zeros(batch + ((L + 1) * n_core,))
             if idx in core:
-                Z0[row, core.index(idx)] = 1.0
+                row[..., core.index(idx)] = 1.0
+            rows.append(row)
             x_v = x_ss[..., idx]
             if loglin_mask[idx]:
                 x_v = torch.where(x_v > _ZERO_TOL,
                                   torch.log(torch.clamp(x_v, min=1e-30)), x_v)
             intercepts.append(x_v)
-        Z = Z0.expand(batch + Z0.shape)
+        Z = torch.stack(rows, dim=-2)
         if self.ss_obs_intercept:
             d = torch.stack(intercepts, dim=-1)
         else:
-            d = x_ss.new_zeros(batch + (k,))
+            d = x_ss.new_zeros(batch + (len(self.observed_states),))
         return Z, d
 
     @staticmethod
     def _augment_lags(T, R, L):
-        """Companion augmentation [y_t, ..., y_{t-L}]; L = 0 without
-        observation equations (the only case the port configures)."""
-        if L:
-            raise NotImplementedError(
-                f"lag augmentation needs observation equations ({_ROADMAP} item 3)")
-        return T, R
+        """Companion augmentation, state [y_t, y_{t-1}, ..., y_{t-L}]
+        (``statespace.py:457-472``), over leading batch dimensions."""
+        if L == 0:
+            return T, R
+        n = T.shape[-1]
+        batch = T.shape[:-2]
+        eye = torch.eye(L * n, dtype=T.dtype, device=T.device).expand(
+            batch + (L * n, L * n))
+        top = torch.cat([T, T.new_zeros(batch + (n, L * n))], dim=-1)
+        below = torch.cat([eye, T.new_zeros(batch + (L * n, n))], dim=-1)
+        T_aug = torch.cat([top, below], dim=-2)
+        R_aug = torch.cat([R, R.new_zeros(batch + (L * n, R.shape[-1]))],
+                          dim=-2)
+        return T_aug, R_aug
 
     # ----------------------------------------------------------------- sizes
     @property
@@ -413,10 +575,83 @@ class DSGEStateSpace:
                                          dtype=u.dtype, device=u.device)
         return u
 
+    # ------------------------------------------------------------------ logp
+    @_cached_build
+    def build_logpost(self, data: np.ndarray):
+        """data (periods, k_obs), NaN = missing -> ``logpost(u)``: ``u``
+        (dim,) gives a scalar, (B, dim) gives (B,), on the state space's
+        device in u's dtype (the algebra runs in float64).  Differentiable
+        by ``torch.autograd``."""
+        extras_fn = self.build_logpost_extras(data)
+
+        def logpost(u: torch.Tensor) -> torch.Tensor:
+            return extras_fn(u).logpost
+
+        return logpost
+
+    def build_solution_fn(self, full_state: bool = False):
+        """``u -> dict`` of the state-space solution: theta_full, x_ss, the
+        policy (T, R), the filter's (T_aug, R_aug), Z, d, Q, H, logprior,
+        the success flags and the residual norms.  ``u`` is (dim,) or
+        (B, dim), float64 algebra; the policy is the XLA solve
+        (``solve_policy_reduced`` with ``cycle_reduction_tol`` and
+        ``cycle_reduction_maxiter``).  ``full_state`` filters over every
+        variable, not the dynamic core."""
+        pre_policy, policy, post_policy = self._solution_pieces(full_state)
+
+        @_one_or_many
+        def solve_draw(U: torch.Tensor) -> dict:
+            self._check_device(U, "u")
+            pre = pre_policy(U.to(torch.float64))
+            T, R, solver_ok = policy(pre)
+            return post_policy(pre, T, R, solver_ok)
+
+        return solve_draw
+
+    @_cached_build
+    def build_logpost_extras(self, data: np.ndarray):
+        """``u -> LogPostExtras``: the log posterior and the per-draw
+        diagnostics (success flags, residual norms, spectral radius), for
+        ``u`` (dim,) or (B, dim).  The floating fields are in u's dtype."""
+        y, _loglik = self._data_and_loglik(data)
+        solve_draw = self.build_solution_fn()
+
+        @_one_or_many
+        @highest_precision()
+        def extras(U: torch.Tensor) -> LogPostExtras:
+            sol = solve_draw(U)
+            loglik = _loglik(y, sol["T_aug"], sol["R_aug"], sol["Q"],
+                             sol["Z"], sol["H"], d=sol["d"])
+            logprior = sol["logprior"]
+            ok = sol["ss_success"] & sol["solver_success"] & sol["stable"] \
+                & torch.isfinite(loglik) & torch.isfinite(logprior)
+            logpost = torch.where(ok, loglik + logprior,
+                                  torch.full_like(loglik, -math.inf))
+            dt = U.dtype
+            return LogPostExtras(
+                logpost=logpost.to(dt), loglik=loglik.to(dt),
+                logprior=logprior.to(dt), ss_success=sol["ss_success"],
+                solver_success=sol["solver_success"],
+                deterministic_norm=sol["deterministic_norm"].to(dt),
+                stochastic_norm=sol["stochastic_norm"].to(dt),
+                spectral_radius=sol["spectral_radius"].to(dt))
+
+        return extras
+
+    @_cached_build
+    def build_logpost_and_grad(self, data: np.ndarray):
+        """``f(U) -> (logpost (B,), grad (B, dim))`` of :meth:`build_logpost`
+        by one backward pass over the batch, non-finite gradient rows
+        zeroed: the value+grad of ``fit(policy="xla")``, where the
+        reference differentiates its single-draw log posterior per chain
+        under ``vmap``."""
+        return _value_and_grad(self.build_logpost(data))
+
     # ------------------------------------------------------ solution pieces
-    def _solution_pieces(self):
+    def _solution_pieces(self, full_state: bool = False):
         """The batched solution pipeline split at the policy solve:
-        (pre_policy, post_policy), both over a leading batch dimension."""
+        (pre_policy, policy, post_policy), all over a leading batch
+        dimension; ``policy`` is the XLA solve."""
         if not self._configured:
             raise RuntimeError("call .configure(...) first")
         model = self.model
@@ -429,7 +664,13 @@ class DSGEStateSpace:
         sigma_source = self._sigma_source
         me_fixed = self._me_fixed
         me_estimated = self._me_estimated
-        core = torch.as_tensor(self._filter_core, dtype=torch.int64)
+        filter_core = (np.arange(model.functions.n_variables) if full_state
+                       else self._filter_core)
+        core = torch.as_tensor(filter_core, dtype=torch.int64)
+        plan = model.static_reduction
+        cr_tol, cr_maxiter = self._cr_tol, self._cr_maxiter
+        diffuse = self.p0_init == "diffuse"
+        n_corr, n_shocks = self._n_corr, model.functions.n_shocks
 
         @highest_precision()
         def pre_policy(U: torch.Tensor) -> dict:
@@ -455,18 +696,49 @@ class DSGEStateSpace:
                     "loglin_scale": lin.loglin_scale}
 
         @highest_precision()
+        def policy(pre: dict):
+            T, R, solver_ok, _n_iter, _resid = solve_policy_reduced(
+                pre["A"], pre["B"], pre["C"], pre["D"], plan, tol=cr_tol,
+                maxiter=cr_maxiter)
+            return T, R, solver_ok
+
+        @highest_precision()
         def post_policy(pre: dict, T, R, solver_ok) -> dict:
             x = pre["x"]
             batch = x.shape[:-1]
             rho = spectral_radius(T.detach())
-            stable = torch.isfinite(rho) & (rho < 1.0 - 1e-9)
+            # diffuse init admits unit roots but not explosive dynamics; the
+            # Gelfand estimate overshoots on defective unit eigenvalues
+            rho_max = 1.0 + 1e-3 if diffuse else 1.0 - 1e-9
+            stable = torch.isfinite(rho) & (rho < rho_max)
+            A, B, C, D = (pre[m].detach() for m in "ABCD")
+            Td, Rd = T.detach(), R.detach()
+            det_norm = amax_abs(A + B @ Td + C @ Td @ Td)
+            stoch_norm = amax_abs((B + C @ Td) @ Rd + D)
+            if diffuse:
+                # cycle reduction converges only linearly at unit roots, so
+                # its criterion can fail an exact solvent: the residual
+                # decides, and the stability gate rejects explosive ones
+                tol = success_tol(x.dtype, 1e-7)
+                exact = (det_norm < tol) & (stoch_norm < tol) \
+                    & torch.isfinite(Td).all(dim=(-2, -1)) \
+                    & torch.isfinite(Rd).all(dim=(-2, -1))
+                solver_ok = solver_ok | (exact & stable)
             sigmas = []
             for kind, val in sigma_source:
                 if kind == "param":
                     sigmas.append(pre["theta_full"][..., val])
                 else:
                     sigmas.append(x.new_full(batch, val))
-            Q = torch.diag_embed(torch.stack(sigmas, dim=-1) ** 2)
+            sig = torch.stack(sigmas, dim=-1)
+            if n_corr:
+                # Q = S L Lᵀ S with the vine Cholesky factor L of the
+                # correlations, from the trailing n_corr partial correlations
+                Lq = sig[..., :, None] * _vine_cholesky(
+                    x[..., x.shape[-1] - n_corr:], n_shocks)
+                Q = Lq @ Lq.mT
+            else:
+                Q = torch.diag_embed(sig ** 2)
             h_diag = x.new_zeros(batch + (k,))
             for j, v in me_fixed.items():
                 h_diag[..., j] = v**2
@@ -476,7 +748,8 @@ class DSGEStateSpace:
             c = core.to(T.device)
             T_f = T[..., c[:, None], c]
             R_f = R[..., c, :]
-            Z, d_vec = self._build_design(pre["x_ss"], self._filter_core)
+            Z, d_vec = self._build_design(pre["x_ss"], pre["theta_full"],
+                                          pre["loglin_scale"], filter_core)
             T_safe = torch.where(stable[..., None, None], T_f,
                                  torch.zeros_like(T_f))
             T_aug, R_aug = self._augment_lags(T_safe, R_f, self._obs_max_lag)
@@ -486,14 +759,15 @@ class DSGEStateSpace:
                     "logprior": pre["logprior"],
                     "ss_success": pre["ss_success"],
                     "solver_success": solver_ok, "stable": stable,
-                    "spectral_radius": rho}
+                    "deterministic_norm": det_norm,
+                    "stochastic_norm": stoch_norm, "spectral_radius": rho}
 
-        return pre_policy, post_policy
+        return pre_policy, policy, post_policy
 
     def _static_pivot_order(self) -> np.ndarray:
         """Host-side static GJ row ordering from the calibration pencil."""
         if self._pivot_order is None:
-            pre_policy, _ = self._solution_pieces()
+            pre_policy, _, _ = self._solution_pieces()
             pre = pre_policy(self.initial_position()[None])
             plan = self.model.static_reduction
             if len(plan.static_idx) > 0:
@@ -546,7 +820,7 @@ class DSGEStateSpace:
 
     # ----------------------------------------------------- batched sweep
     def build_batched_loglik(self, data: np.ndarray, n_settle: int = 32,
-                             settle: str = "pallas"):
+                             policy: str = "xla", settle: str = "xla"):
         """Gradient-free batched log-posterior ``f(U) -> (B,)`` for sweeps.
 
         ``U`` is (B, n_estimated) unconstrained draws on the state space's
@@ -556,14 +830,18 @@ class DSGEStateSpace:
         in float32 that algebra alone moved the SW-2007 likelihood by
         ~3e-4 relative, where the float32 kernels fed float64 algebra
         stay near 1e-4 (see PERF.md).  Pipeline: batched priors,
-        steady state and linearization -> static reduction -> cycle
-        reduction kernel -> the settle over ``data[:n_settle]`` and the
-        constant-gain tail over the rest.  ``settle`` takes the reference's
-        three values: ``"pallas"`` (the default) is the settle kernel then
+        steady state and linearization -> the policy -> the settle over
+        ``data[:n_settle]`` and the constant-gain tail over the rest.
+        ``policy`` and ``settle`` take the reference's values and defaults.
+        ``policy="xla"`` (the default) solves the batch through
+        :meth:`build_solution_fn` (the adaptive cycle reduction, float64,
+        plain PyTorch); ``policy="pallas"`` runs the static reduction and
+        the cycle-reduction kernel K1 (``CR_ITERS`` doublings).
+        ``settle="pallas"`` is the settle kernel then
         the tail kernel; ``"fused"`` is one kernel for both
         (:func:`~geconpy_torch.ops.batched_settle.settle_filter_loglik`),
-        which never writes M, TK and F^{-1} to device memory; ``"xla"`` is
-        the plain batched Cholesky settle
+        which never writes M, TK and F^{-1} to device memory; ``"xla"`` (the
+        default) is the plain batched Cholesky settle
         (:func:`~geconpy_torch.ops.kalman.steady_state_filter_parts`, part
         of the float64 algebra) then the tail kernel.  Rejected draws get
         -inf.
@@ -574,11 +852,19 @@ class DSGEStateSpace:
                              f"{len(self.observed_states)}), got {data.shape}")
         if bool(np.isnan(data).any()):
             raise ValueError("build_batched_loglik requires fully observed data")
+        if policy not in ("xla", "pallas"):
+            raise ValueError(
+                f"policy must be 'xla' or 'pallas', got {policy!r}")
         if settle not in ("xla", "pallas", "fused"):
             raise ValueError(
                 f"settle must be 'xla', 'pallas' or 'fused', got {settle!r}")
-        pre_policy, post_policy = self._solution_pieces()
-        solve_batch = self._build_policy_batch()
+        pre_policy, policy_fn, post_policy = self._solution_pieces()
+        if policy == "pallas":
+            solve_batch = self._build_policy_batch()
+        else:
+            def solve_batch(pre, _kernel_dtype, _record):
+                with torch.no_grad():
+                    return policy_fn(pre)
         y_np = np.ascontiguousarray(data, dtype=np.float64)
 
         @highest_precision()
@@ -630,17 +916,36 @@ class DSGEStateSpace:
     # ------------------------------------------- batched value + gradient
     def _data_and_loglik(self, data: np.ndarray):
         """Validate the dataset and pick the differentiable Kalman
-        log-likelihood of the configured filter: the stationary filter on
-        fully observed data (``statespace.py:717-763``)."""
+        log-likelihood of the configured filter (``statespace.py:717-797``):
+        the sequential filter (NaN = missing), from the unconditional
+        covariance or, with ``p0_init="diffuse"``, from
+        ``diffuse_kappa``·I with the first ``diffuse_presample`` periods
+        dropped; or the stationary filter on fully observed data."""
         data = np.asarray(data, dtype=np.float64)
         if data.ndim != 2 or data.shape[1] != len(self.observed_states):
             raise ValueError(f"data must be (periods, "
                              f"{len(self.observed_states)}), got {data.shape}")
+        if self.filter_type == "sequential":
+            y = torch.as_tensor(data, device=self._device())
+            if self.p0_init == "diffuse":
+                kappa, pre = self.diffuse_kappa, self.diffuse_presample
+
+                def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
+                    eye = torch.eye(T_.shape[-1], dtype=T_.dtype,
+                                    device=T_.device)
+                    P0 = (kappa * eye).expand(T_.shape)
+                    return kalman_loglik_t(y_, T_, R_, Q_, Z_, H_, d=d,
+                                           P0=P0)[..., pre:].sum(-1)
+            else:
+                def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
+                    return kalman_loglik_t(y_, T_, R_, Q_, Z_, H_,
+                                           d=d).sum(-1)
+            return y, _loglik
         if self.filter_type != "stationary":
             raise NotImplementedError(
                 f"the differentiable likelihood of filter_type="
-                f"{self.filter_type!r} is not ported yet: only 'stationary' "
-                f"is ({_ROADMAP} items 6-7)")
+                f"{self.filter_type!r} is not ported yet: only 'sequential' "
+                f"and 'stationary' are ({_ROADMAP} item 8)")
         if bool(np.isnan(data).any()):
             raise NotImplementedError(
                 "filter_type='stationary' with missing data needs the "
@@ -701,13 +1006,15 @@ class DSGEStateSpace:
         ``U`` is (B, n_estimated) unconstrained draws on the state space's
         device; the result is there in U's dtype.  The forward pass runs the
         cycle-reduction kernel K4 (``cr_iters`` doublings) and the
-        stationary filter; with ``settle="pallas"`` the DARE fixed point
-        comes from the DARE kernel K6, gated per draw by
+        configured filter.  With ``filter_type="sequential"`` that is the
+        exact filter with missing data (``settle`` changes nothing, as in
+        the reference).  With ``"stationary"`` and ``settle="pallas"`` the
+        DARE fixed point comes from the DARE kernel K6, gated per draw by
         ``dare_residual_settled`` (un-settled draws get -inf), and with
         ``settle="xla"`` (the default) from the adaptive Hewer settle.  The
-        backward pass is the implicit policy and DARE adjoints plus autograd
-        of the constant-gain scan.  The whole path runs in float64, the two
-        kernels' inputs and outputs included, and U's dtype sets only the
+        backward pass is the implicit policy (and DARE) adjoints plus
+        autograd of the filter's recursion.  The whole path runs in float64,
+        the kernels' inputs and outputs included, and U's dtype sets only the
         result's: rounding the kernels' float64 inputs to float32 moved the
         SW-2007 log-posterior by up to 1.2e-3 (K4's reduced pencil) and
         8.0e-4 (K6's system) relative to the float64 path, over the 5e-4
@@ -716,8 +1023,9 @@ class DSGEStateSpace:
         if settle not in ("pallas", "xla"):
             raise ValueError(f"settle must be 'pallas' or 'xla', got {settle!r}")
         y, _loglik = self._data_and_loglik(data)
-        pre_policy, post_policy = self._solution_pieces()
+        pre_policy, _, post_policy = self._solution_pieces()
         solve_batch = self._build_policy_batch_diff(cr_iters)
+        use_dare = settle == "pallas" and self.filter_type == "stationary"
 
         @highest_precision()
         def batched(U: torch.Tensor, record: dict | None = None
@@ -729,7 +1037,7 @@ class DSGEStateSpace:
             T, R, solver_ok = solve_batch(pre, record=record)
             sol = post_policy(pre, T, R, solver_ok)
             ok = sol["ss_success"] & sol["solver_success"] & sol["stable"]
-            if settle == "pallas":
+            if use_dare:
                 R_aug, T_aug = sol["R_aug"], sol["T_aug"]
                 RQR = R_aug @ sol["Q"] @ R_aug.mT
                 dare_in = tuple(X.detach().contiguous()
@@ -761,18 +1069,7 @@ class DSGEStateSpace:
         the batch and one backward pass.  Non-finite gradient rows (rejected
         draws) are zeroed, the NUTS kernel's convention.  ``kwargs`` go to
         :meth:`build_batched_logpost`."""
-        f = self.build_batched_logpost(data, **kwargs)
-
-        def value_and_grad(U: torch.Tensor, record: dict | None = None):
-            U = U.detach().requires_grad_(True)
-            with torch.enable_grad():
-                vals = f(U, record)
-                (grads,) = torch.autograd.grad(vals, U, torch.ones_like(vals))
-            grads = torch.where(torch.isfinite(grads), grads,
-                                torch.zeros_like(grads))
-            return vals.detach(), grads
-
-        return value_and_grad
+        return _value_and_grad(self.build_batched_logpost(data, **kwargs))
 
     # ------------------------------------------------------- prior utilities
     def data_from_prior(self, generator: torch.Generator, periods: int = 200,
@@ -826,12 +1123,24 @@ class DSGEStateSpace:
                  for kind, val in self._sigma_source],
                 dtype=T.dtype, device=device)
             eps = torch.randn((periods, mf.n_shocks), generator=generator,
-                              device=device, dtype=T.dtype) * sigmas
-            Z, d = self._build_design(ss.x_ss[0], np.arange(mf.n_variables))
-            x = T.new_zeros(mf.n_variables)
+                              device=device, dtype=T.dtype)
+            if self._n_corr:
+                z = [draw[p.name] for p in self.estimated
+                     if p.kind == "shock_corr"]
+                L = torch.as_tensor(_vine_cholesky_np(z, mf.n_shocks),
+                                    dtype=T.dtype, device=device)
+                eps = eps @ (sigmas[:, None] * L).T
+            else:
+                eps = eps * sigmas
+            T_aug, R_aug = self._augment_lags(T, R, self._obs_max_lag)
+            Z, d = self._build_design(ss.x_ss, ss.theta_full,
+                                      lin.loglin_scale,
+                                      np.arange(mf.n_variables))
+            Z, d = Z[0], d[0]
+            x = T_aug.new_zeros(T_aug.shape[-1])
             path = []
             for t in range(periods):
-                x = T @ x + R @ eps[t]
+                x = T_aug @ x + R_aug @ eps[t]
                 path.append(x)
             data = torch.stack(path) @ Z.T + d
             for j, v in self._me_fixed.items():
@@ -841,3 +1150,55 @@ class DSGEStateSpace:
                 data[:, j] += draw[p.name] * torch.randn(
                     periods, generator=generator, device=device, dtype=T.dtype)
         return data.cpu().numpy(), draw
+
+
+def _vine_cholesky(z, m: int) -> torch.Tensor:
+    """(..., m, m) correlation Cholesky factors from the canonical partial
+    correlations ``z`` (..., m (m - 1) / 2), row by row: L[i, j] = z w with
+    w = prod sqrt(1 - z²) of the row's earlier entries, L[i, i] = w
+    (``statespace.py:652-669``)."""
+    ones = z.new_ones(z.shape[:-1])
+    rows, slot = [], 0
+    for i in range(m):
+        row, w = [], ones
+        for _ in range(i):
+            zz = z[..., slot]
+            slot += 1
+            row.append(zz * w)
+            w = w * torch.sqrt(torch.clamp(1.0 - zz * zz, min=1e-12))
+        row += [w] + [torch.zeros_like(w)] * (m - i - 1)
+        rows.append(torch.stack(row, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def _vine_cholesky_np(z_flat, m: int) -> np.ndarray:
+    """Host twin of :func:`_vine_cholesky` for one draw (``:1318``)."""
+    L = np.zeros((m, m))
+    L[0, 0] = 1.0
+    slot = 0
+    for i in range(1, m):
+        w = 1.0
+        for j in range(i):
+            z = float(z_flat[slot])
+            slot += 1
+            L[i, j] = z * w
+            w *= np.sqrt(max(1.0 - z * z, 1e-12))
+        L[i, i] = w
+    return L
+
+
+def aggregated_obs_equation(var: str, method: str, period: int) -> str:
+    """GCN expression of a temporally aggregated observable (``:1335``):
+    ``"sum"`` and ``"mean"`` aggregate a flow over ``period`` sub-periods
+    by the lag polynomial, ``"last"`` observes the current value and
+    ``"first"`` the oldest lag."""
+    lags = [f"{var}[]" if j == 0 else f"{var}[-{j}]" for j in range(period)]
+    if method == "sum":
+        return " + ".join(lags)
+    if method == "mean":
+        return "(" + " + ".join(lags) + f") / {period}"
+    if method == "last":
+        return lags[0]
+    if method == "first":
+        return lags[-1]
+    raise ValueError(f"unknown aggregation method {method!r}")

@@ -57,8 +57,10 @@ def kernel_inputs(device):
     U = u0[None] + 0.05 * torch.as_tensor(rng.standard_normal((64, len(u0))),
                                           device=device)
     record: dict = {}
-    ss.build_batched_loglik(data, n_settle=32)(U, record=record)
-    ss.build_batched_loglik(data, n_settle=32, settle="fused")(
+    ss.build_batched_loglik(data, n_settle=32, policy="pallas",
+                            settle="pallas")(U, record=record)
+    ss.build_batched_loglik(data, n_settle=32, policy="pallas",
+                            settle="fused")(
         U, record=record)
     ss_vg = DSGEStateSpace(model, device=device).configure(
         **kw, filter_type="stationary")
@@ -483,3 +485,96 @@ def test_fit_runs_its_chains_on_the_card(device):
     assert seen and all(d.type == "cuda" for d in seen)
     assert cycle_reduction.launches == len(seen) + 1
     assert len(seen) == 1 + 1 + int(res.n_calls.sum())
+
+
+# ---- the sequential filter and the XLA policy on the card
+
+def _rbc_entry(device):
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"))
+    kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+              filter_type="sequential")
+    ss = DSGEStateSpace(model, device=device).configure(**kw)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(**kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device=device).manual_seed(0), periods=64)
+    return ss, ss_cpu, data, ss.unconstrain(draw)
+
+
+def test_build_logpost_on_the_card_equals_the_cpu(device):
+    """The ``entry()`` twin: value at rel 1e-8, gradient at 1e-6, and no
+    kernel launched (the XLA policy and the sequential filter are plain
+    PyTorch)."""
+    ss, ss_cpu, data, u0 = _rbc_entry(device)
+    counted = (cycle_reduction, cycle_reduction_policy, settle_parts,
+               filter_tail, settle_filter_loglik, dare_settle)
+    for fn in counted:
+        fn.launches = 0
+    out = []
+    for space, u in ((ss, u0), (ss_cpu, u0.cpu())):
+        u = u.detach().requires_grad_(True)
+        val = space.build_logpost(data)(u)
+        (grad,) = torch.autograd.grad(val, u)
+        out.append((float(val.detach()), grad.cpu()))
+    assert all(fn.launches == 0 for fn in counted)
+    (v, g), (v_cpu, g_cpu) = out
+    assert np.isfinite(v) and abs(v - v_cpu) <= 1e-8 * abs(v_cpu)
+    assert float((g - g_cpu).abs().max()) <= 1e-6 * float(g_cpu.abs().max())
+
+
+def test_sequential_value_and_grad_on_the_card_equals_the_cpu(device):
+    """SW-2007 (7 estimated parameters, 7 observables) on the sequential
+    filter, float32 draws: K4 once, values within rel 5e-4 and gradients
+    within 1e-3 of the float64 CPU path (phase 8b's bars)."""
+    model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
+    kw = dict(observed_states=["y", "c", "inve", "w", "pinf", "r", "lab"],
+              filter_type="sequential",
+              constant_params=[p for p in model.param_names if p not in SW_EST])
+    ss = DSGEStateSpace(model, device=device).configure(**kw)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(**kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device=device).manual_seed(0), periods=60)
+    u0 = ss.unconstrain(draw)
+    U = (u0[None] + 0.05 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((32, len(u0))),
+        device=device)).float()
+    cycle_reduction.launches = 0
+    vals, grads = ss.build_batched_logpost_and_grad(data)(U)
+    assert cycle_reduction.launches == 1
+    v_ref, g_ref = ss_cpu.build_batched_logpost_and_grad(data)(
+        U.double().cpu())
+    ok = torch.isfinite(v_ref)
+    assert ok.float().mean() >= 0.99 and torch.isfinite(grads).all()
+    rel_v = ((vals.double().cpu() - v_ref).abs() / (1 + v_ref.abs()))[ok]
+    rel_g = ((grads.double().cpu() - g_ref).abs().amax(-1)
+             / (1 + g_ref.abs().amax(-1)))[ok]
+    assert float(rel_v.max()) <= 5e-4 and float(rel_g.max()) <= 1e-3
+
+
+def test_xla_policy_sweep_launches_the_settle_kernels_only(device):
+    """``build_batched_loglik(policy="xla", settle="pallas")``: K2 and K3
+    launch, K1 does not, and the values agree with the
+    ``policy="pallas"`` sweep at rel 5e-4 (float32)."""
+    model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
+    ss = DSGEStateSpace(model, device=device).configure(
+        observed_states=["y", "c", "inve", "w", "pinf", "r", "lab"],
+        filter_type="steady_state", kalman_settle=32,
+        constant_params=[p for p in model.param_names if p not in SW_EST])
+    data, draw = ss.data_from_prior(
+        torch.Generator(device=device).manual_seed(0), periods=80)
+    u0 = ss.unconstrain(draw)
+    U = (u0[None] + 0.05 * torch.as_tensor(
+        np.random.default_rng(1).standard_normal((64, len(u0))),
+        device=device)).float()
+    for fn in (cycle_reduction_policy, settle_parts, filter_tail):
+        fn.launches = 0
+    out = ss.build_batched_loglik(data, n_settle=32, policy="xla",
+                                  settle="pallas")(U)
+    assert settle_parts.launches == 1 and filter_tail.launches == 1
+    assert cycle_reduction_policy.launches == 0
+    ref = ss.build_batched_loglik(data, n_settle=32, policy="pallas",
+                                  settle="pallas")(U)
+    both = torch.isfinite(out) & torch.isfinite(ref)
+    assert both.float().mean() >= 0.99
+    rel = ((out.double() - ref.double()).abs() / (1 + ref.double().abs()))[both]
+    assert float(rel.max()) <= 5e-4

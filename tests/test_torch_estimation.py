@@ -134,7 +134,7 @@ def test_init_map_reads_the_mode_memo(setup, monkeypatch):
     _ref_ss, port_ss, data = setup
     u_mode, _ = port_estimation.posterior_mode(port_ss, data,
                                                dtype=torch.float64,
-                                               adam_steps=20)
+                                               policy="pallas", adam_steps=20)
     monkeypatch.setattr(port_estimation, "find_map", None)   # not called
     res = geconpy_torch.fit(port_ss, data, seed=0, init="map",
                             **dict(TINY, num_warmup=0, num_samples=1,
@@ -144,8 +144,21 @@ def test_init_map_reads_the_mode_memo(setup, monkeypatch):
     assert (np.abs(res.unconstrained[:, 0] - u_mode.numpy()) < 0.5).all()
 
 
+def test_fit_with_the_xla_policy(setup):
+    """``policy="xla"``, the reference's default: the chains' value+grad is
+    the batched single-draw log posterior, which agrees with the
+    ``"pallas"`` path's (``tests/test_torch_logpost.py``), so a fit from the
+    same seed makes the same first transition's calls."""
+    _ref_ss, port_ss, data = setup
+    xla = geconpy_torch.fit(port_ss, data, seed=3, **dict(TINY, policy="xla"))
+    pallas = geconpy_torch.fit(port_ss, data, seed=3, **TINY)
+    assert xla.samples.shape == pallas.samples.shape == (3, 3, 2)
+    assert np.isfinite(xla.logp).all()
+    np.testing.assert_allclose(xla.unconstrained[:, 0], pallas.unconstrained[:, 0],
+                               rtol=1e-6)
+
+
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(policy="xla"), NotImplementedError, "item 6"),
     (dict(order=2), NotImplementedError, "item 8"),
     (dict(mesh=object()), NotImplementedError, "item 8"),
     (dict(cache_dir="cache"), NotImplementedError, "item 8"),

@@ -207,9 +207,11 @@ REFERENCE_CONFIGURE = dict(
 
 
 def test_configure_takes_the_reference_keywords(rbc_port):
-    """Every keyword of the reference's ``configure`` at its default runs
-    through both packages (the filter the port has), with the same
-    estimated parameters; values the port cannot honour yet raise
+    """Every keyword of the reference's ``configure``, with the reference's
+    default, runs through both packages with the same estimated
+    parameters; the sequential filter (with and without the diffuse
+    initialisation), observation equations, ``aggregate`` and the full
+    shock covariance are accepted; values the port cannot honour yet raise
     ``NotImplementedError`` naming their ROADMAP item, not ``TypeError``."""
     import inspect
 
@@ -218,7 +220,7 @@ def test_configure_takes_the_reference_keywords(rbc_port):
     port_params = inspect.signature(PortStateSpace.configure).parameters
     assert list(port_params) == list(ref_params)
     for name, p in ref_params.items():
-        if name not in ("self", "filter_type"):
+        if name != "self":
             assert port_params[name].default == p.default, name
     call = dict(REFERENCE_CONFIGURE, observed_states=["Y"],
                 constant_params=["alpha", "sigma_C"], filter_type="stationary")
@@ -230,16 +232,26 @@ def test_configure_takes_the_reference_keywords(rbc_port):
     assert (port_ss.solver, port_ss.p0_init) == ("cycle_reduction", "stationary")
     for extra, item in ((dict(solver="gensys"), "item 6"),
                         (dict(solver="backward"), "item 6"),
-                        (dict(aggregate={"Y_q": ("Y", "sum", 3)}), "item 3"),
-                        (dict(observation_equations={"dY": "Y[] - Y[-1]"}),
-                         "item 3"),
-                        (dict(full_shock_covariance=True), "item 3"),
-                        (dict(filter_type="sequential"), "item 3"),
-                        (dict(filter_type="sequential", p0_init="diffuse"),
-                         "item 3"),
                         (dict(filter_type="chandrasekhar"), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             PortStateSpace(model, device="cpu").configure(**{**call, **extra})
+    for extra in (dict(filter_type="sequential"),
+                  dict(filter_type="sequential", p0_init="diffuse",
+                       diffuse_kappa=1e4, diffuse_presample=2)):
+        ss = PortStateSpace(model, device="cpu").configure(**{**call, **extra})
+        assert (ss.filter_type, ss.p0_init) == ("sequential",
+                                                extra.get("p0_init",
+                                                          "stationary"))
+        assert ss.param_labels == ref_ss.param_labels
+    for extra, obs, lags in (
+            (dict(aggregate={"Y_q": ("Y", "sum", 3)}), ["Y_q"], 2),
+            (dict(observation_equations={"dY": "Y[] - Y[-1]"}), ["dY"], 1),
+            (dict(full_shock_covariance=True), ["Y"], 0)):
+        kw = {**call, **extra, "observed_states": obs}
+        ss = PortStateSpace(model, device="cpu").configure(**kw)
+        ref_kw = RefStateSpace(ref_ss.model).configure(**kw)
+        assert ss._obs_max_lag == lags
+        assert ss.param_labels == ref_kw.param_labels
     for extra in (dict(p0_init="diffuse"), dict(p0_init="exact"),
                   dict(solver="qz"), dict(filter_type="kalman")):
         with pytest.raises(ValueError):

@@ -7,9 +7,11 @@ uniform per level, one uniform per leaf) and hands them to the port;
 ``q'``, ``logp'``, ``grad'`` and ``accept_prob`` agree at 1e-10, and
 ``n_leapfrog`` and ``diverging`` exactly.  Cases: a 5-dimensional
 correlated Gaussian with a diagonal and with a dense metric, a target with
--inf regions, and ``rbc_estimation``'s batched value+grad (the reference
+-inf regions, ``rbc_estimation``'s batched value+grad (the reference
 through its Pallas kernel in interpret mode, its adaptation state and
-chains carried across by ``interop.adaptation_from_reference``).
+chains carried across by ``interop.adaptation_from_reference``), and
+``rbc_estimation``'s single-draw log posterior on the sequential filter
+(``fit(policy="xla")``'s target).
 
 The adaptation pieces equal the reference's at 1e-12 (the curvature seed
 at 1e-8), and ``_window_schedule`` exactly (and by AST).  The statistical
@@ -220,6 +222,45 @@ def test_rbc_transition_matches_reference(rbc):
         carried["adapt"].inv_mass, max_depth,
         draws=reference_draws(keys, dim, max_depth))
     _compare_transition(ref_out, port_out)
+
+
+def test_rbc_transition_xla_policy_matches_reference():
+    """``fit(policy="xla")``'s target: the single-draw log posterior on the
+    reference's default configuration (sequential filter, XLA policy),
+    the reference's chains differentiating it per chain under ``vmap``,
+    the port's one batched value+grad for all chains
+    (``build_logpost_and_grad``)."""
+    kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"])
+    ref_ss = RefStateSpace(geconpy_tpu.model_from_gcn(
+        geconpy_tpu.get_example_gcn("rbc_estimation"), verbose=False)
+    ).configure(**kw)
+    data, _ = ref_ss.data_from_prior(jax.random.PRNGKey(0), periods=32,
+                                     params={"rho_A": 0.9, "sigma_A": 0.012})
+    data = np.asarray(data)
+    port_ss = PortStateSpace(geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation")), device="cpu"
+    ).configure(**kw)
+    chains, dim, max_depth, eps = 4, 2, 4, 0.05
+    q = np.asarray(ref_ss.initial_position())[None] \
+        + 0.05 * np.random.default_rng(3).standard_normal((chains, dim))
+    inv_mass = np.array([0.05, 1.0])
+    ref_logp = ref_ss.build_logpost(data)
+    lp, g = (np.asarray(x) for x in jax.jit(jax.vmap(
+        jax.value_and_grad(ref_logp)))(jnp.asarray(q)))
+    keys = jax.random.split(jax.random.PRNGKey(6), chains)
+    ref_out = jax.jit(jax.vmap(lambda qq, ll, gg, k: ref.nuts_kernel(
+        ref_logp, qq, ll, gg, k, eps, jnp.asarray(inv_mass), max_depth)))(
+        jnp.asarray(q), jnp.asarray(lp), jnp.asarray(g), keys)
+    vag = port_ss.build_logpost_and_grad(data)
+    lp_p, g_p = vag(torch.tensor(q))
+    np.testing.assert_allclose(lp_p.numpy(), lp, rtol=1e-10)
+    np.testing.assert_allclose(g_p.numpy(), g, rtol=1e-8, atol=1e-8)
+    im = torch.tensor(inv_mass)
+    port_out = port.nuts_kernel(
+        vag, torch.tensor(q), lp_p, g_p, eps, im.expand(chains, dim),
+        max_depth, draws=reference_draws(keys, dim, max_depth))
+    info = _compare_transition(ref_out, port_out)
+    assert info["n_leapfrog"].min() > 1
 
 
 def test_adaptation_from_reference_refuses_mismatches(rbc):

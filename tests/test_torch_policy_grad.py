@@ -61,7 +61,7 @@ def _system(name, configure, batch, scale, seed):
     """Full and reduced pencils of ``batch`` perturbed draws."""
     model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name))
     ss = DSGEStateSpace(model, device="cpu").configure(**configure(model))
-    pre_policy, _ = ss._solution_pieces()
+    pre_policy, _, _ = ss._solution_pieces()
     u0 = ss.initial_position().numpy()
     rng = np.random.default_rng(seed)
     U = u0[None] + scale * rng.standard_normal((batch, u0.shape[0]))

@@ -51,8 +51,8 @@ def _settle_inputs(name, configure, batch, seed, n_settle=16):
     rng = np.random.default_rng(seed)
     U = u0[None] + 0.05 * rng.standard_normal((batch, u0.shape[0]))
     record: dict = {}
-    ss.build_batched_loglik(data, n_settle=n_settle)(torch.as_tensor(U),
-                                                      record=record)
+    ss.build_batched_loglik(data, n_settle=n_settle, policy="pallas",
+                            settle="pallas")(torch.as_tensor(U), record=record)
     return tuple(x.numpy() for x in record["settle_parts"])
 
 

@@ -96,8 +96,8 @@ def test_batched_loglik_matches_reference(case):
         interpret=True))
     ll_ref = np.asarray(f_ref(U))
     state = state_from_reference(_reference_arrays(ref_ss, U), port_ss)
-    ll_port = port_ss.build_batched_loglik(data, n_settle=16)(
-        state["U"]).numpy()
+    ll_port = port_ss.build_batched_loglik(
+        data, n_settle=16, policy="pallas", settle="pallas")(state["U"]).numpy()
     np.testing.assert_array_equal(np.isfinite(ll_port), np.isfinite(ll_ref))
     assert np.isfinite(ll_ref).sum() >= 6
     ok = np.isfinite(ll_ref)
@@ -114,8 +114,8 @@ def test_batched_loglik_settles_match_reference(case, settle):
         interpret=True))
     ll_ref = np.asarray(f_ref(U))
     state = state_from_reference(_reference_arrays(ref_ss, U), port_ss)
-    ll_port = port_ss.build_batched_loglik(data, n_settle=16, settle=settle)(
-        state["U"]).numpy()
+    ll_port = port_ss.build_batched_loglik(
+        data, n_settle=16, policy="pallas", settle=settle)(state["U"]).numpy()
     np.testing.assert_array_equal(np.isfinite(ll_port), np.isfinite(ll_ref))
     ok = np.isfinite(ll_ref)
     assert ok.sum() >= 6

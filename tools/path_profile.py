@@ -94,7 +94,8 @@ def main() -> int:
             generator=torch.Generator(device="cuda").manual_seed(1))
         if label == "sweep":
             fn = ss.build_batched_loglik(data.astype("float32"),
-                                         n_settle=N_SETTLE, settle="pallas")
+                                         n_settle=N_SETTLE, policy="pallas",
+                                         settle="pallas")
         else:
             fn = ss.build_batched_logpost_and_grad(data, settle="pallas")
         runs[label] = (fn, U)
