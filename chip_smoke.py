@@ -96,7 +96,40 @@ Phases, one line each (plus one line per kernel in phase 3):
    on 8a's configuration: 16 chains, ``init="prior"``, ``max_depth=4``,
    seed 0, 5 warmup and 5 sampling transitions (``SEQ_FIT``, cut from 10 +
    10; printed on the line); every chain finite, no kernel launched;
-   seconds and value+grad calls.  Each line ends with its seconds.
+   seconds and value+grad calls.  Each line ends with its seconds;
+9. ``open_rbc``, whose steady state is numeric (10 unknowns), through the
+   estimation entry points with Y observed (its six GCN priors estimated),
+   200 periods of ``data_from_prior`` (CUDA generator, seed 0), draws =
+   that draw + 0.05 N(0,1) unconstrained (seed 1), one line a step
+   (``open_rbc_phase``; ``tools/open_rbc_probe.py`` runs it alone).
+   9a the steady state at batch 4096, float64, through ``ss_solver``
+   (``"hybrid"``): ms a call (CUDA events, 5 calls after a warm-up),
+   Newton iterations (max, mean), the draws sent to LM, the success share
+   (>= 99%), launches and host reads of one profiled call, and the time
+   and launches of one Newton iteration's parts (the Jacobian, the 12
+   trial points, the solve) each alone; the first 64
+   draws within rel 1e-10 (|a - b| / (1 + |b|)) of the CPU on x_ss with equal success and
+   iterations, and ``rbc_skilled_unskilled`` (23 unknowns) at its
+   defaults held to the CPU the same way; no kernel launched.  9b the sweep,
+   ``policy="pallas"`` with ``settle="pallas"`` (K1, K2, K3 once each)
+   and ``"fused"`` (K1, K5 once each), batch 4096, float32: >= 99% finite,
+   the first 512 draws within rel 5e-4 of the float64 CPU path; evals/s
+   (10 calls), launches, busy share; K1, K2, K3 and K5 held to their plain
+   versions on this configuration's float64 intermediates (rel 1e-9, equal
+   flags).  9c value+grad on ``filter_type="stationary"``,
+   ``settle="pallas"``, batch 512, float32 draws: K4 and K6 once each,
+   every gradient finite, the first 64 draws within rel 5e-4 (value) and
+   1e-3 (gradient) of the float64 CPU path; K4 and K6 held to their plain
+   versions; us/draw and the backward's share of the call (5 calls each),
+   launches and host reads split between forward and backward.  9d the
+   ``entry()`` twin on ``open_rbc``: ``build_logpost`` at batch 1, 64
+   periods, float64, value within rel 1e-8 and gradient within 1e-6 of the
+   CPU, no kernel launched; ms a value+grad call (10 calls).  9e
+   ``fit_smc`` on 9b's sweep with ``SMC_KW`` (4096 particles, ``n_mh=2``,
+   ``settle="fused"``, ``resample_ess=0.6``, seed 0): phi reaches 1, K1
+   and K5 once a sweep, finite evidence and samples; stages, sweeps,
+   seconds, the evidence and how many of the six generating values lie
+   inside the particles' 0.5%-99.5% range.  The phase prints its seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -202,6 +235,62 @@ KERNELS = {
         "K6", "geconpy_torch/csrc/dare.cu",
         "geconpy_tpu/ops/pallas_dare.py:37"),
 }
+
+
+def kernel_checks():
+    """(kernel, plain, outputs): each kernel's raw call (which does not
+    count a launch) and its plain PyTorch version by name, at the paths'
+    schedules, and the names of their outputs."""
+    from geconpy_torch.ops.batched_cycle_reduction import (
+        _cr_plain, _cr_policy_plain, cr_policy_raw, cr_raw)
+    from geconpy_torch.ops.batched_dare import _dare_plain, dare_settle
+    from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
+    from geconpy_torch.ops.batched_settle import (
+        LYAP_ITERS, _settle_filter_plain, _settle_plain, settle_filter_loglik,
+        settle_parts)
+    from geconpy_torch.stats.statespace import CR_ITERS
+
+    plain = {
+        "cycle_reduction_policy": lambda *a: _cr_policy_plain(*a, CR_ITERS),
+        "settle_parts": lambda *a: _settle_plain(*a, LYAP_ITERS),
+        "filter_tail": _filter_tail_plain,
+        "cycle_reduction": lambda *a: _cr_plain(*a, CR_ITERS),
+        "dare_settle": _dare_plain,
+        "settle_filter_loglik": lambda *a: _settle_filter_plain(
+            *a, N_SETTLE, LYAP_ITERS),
+    }
+    kernel = {
+        "cycle_reduction_policy": lambda *a: cr_policy_raw(*a, CR_ITERS),
+        "settle_parts": settle_parts,
+        "filter_tail": filter_tail,
+        "cycle_reduction": lambda *a: cr_raw(*a, CR_ITERS),
+        "dare_settle": dare_settle,
+        "settle_filter_loglik": lambda *a: settle_filter_loglik(
+            *a, n_settle=N_SETTLE),
+    }
+    outputs = {"cycle_reduction_policy": ("T", "R", "flags"),
+               "settle_parts": ("ll_head", "x_pred0", "M", "TK", "Finv",
+                                "const"),
+               "filter_tail": ("ll_tail",),
+               "cycle_reduction": ("T", "flags"),
+               "dare_settle": ("P",),
+               "settle_filter_loglik": ("ll",)}
+    return kernel, plain, outputs
+
+
+def cr_success(flags, dtype):
+    """The cycle-reduction kernels' success rule on their flags."""
+    import torch
+
+    from geconpy_torch.ops.tolerances import success_tol
+
+    tol = 200 * float(torch.finfo(dtype).eps)
+    ok = (torch.isfinite(flags[:, 1]) & (flags[:, 1] < tol)
+          & (flags[:, 0] > 1e-7))
+    if flags.shape[1] == 3:
+        ok = ok & torch.isfinite(flags[:, 2]) \
+            & (flags[:, 2] < success_tol(dtype, 1e-6))
+    return ok
 
 
 def card_line() -> str:
@@ -537,6 +626,334 @@ def sequential_phase(card, reset_counts, read_counts, sw_model, constant,
     print(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+def hold_to_plain(name: str, args, accepted=None) -> str:
+    """One kernel against its plain version on the same float64 inputs
+    (phase 9): every output within rel 1e-9 on the draws both keep, and
+    equal flags (K1 and K4 success, K6 settled, the others' finiteness on
+    the ``accepted`` draws); raises otherwise.  Returns the line's part."""
+    import torch
+
+    from geconpy_torch.ops.kalman import dare_residual_settled
+
+    kernel, plain, outputs = kernel_checks()
+    got, ref = kernel[name](*args), plain[name](*args)
+    torch.cuda.synchronize()
+    got = dict(zip(outputs[name], got if isinstance(got, tuple) else (got,)))
+    ref = dict(zip(outputs[name], ref if isinstance(ref, tuple) else (ref,)))
+    n = args[1].shape[0]
+    if "flags" in got:
+        ok_k = cr_success(got.pop("flags"), torch.float64)
+        ok_p = cr_success(ref.pop("flags"), torch.float64)
+        agree, keep = bool(torch.equal(ok_k, ok_p)), ok_k & ok_p
+        what = f"success {int(ok_k.sum())}/{n}"
+    elif name == "dare_settle":
+        set_k = dare_residual_settled(*args, got["P"])
+        set_p = dare_residual_settled(*args, ref["P"])
+        agree, keep = bool(torch.equal(set_k, set_p)), set_k & set_p
+        what = f"settled {int(set_k.sum())}/{n}"
+    else:
+        keep = accepted
+        agree = all(compare(got[k_][keep], ref[k_][keep])[1] == 1.0
+                    for k_ in got)
+        what = f"{int(keep.sum())}/{n} accepted"
+    rel = max(compare(got[k_][keep], ref[k_][keep])[0] for k_ in got)
+    label = KERNELS[name][0]
+    if not agree or rel > 1e-9:
+        raise AssertionError(f"phase 9 {label} {name} against its plain "
+                             f"version: flags agree {agree}, rel {rel:.3e}")
+    return f"{label} rel {rel:.2e} ({what}, flags equal)"
+
+
+def open_rbc_phase(card, reset_counts, read_counts) -> None:
+    """Phase 9: ``open_rbc``, whose steady state is numeric, through the
+    estimation entry points (9a-9e, see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.stats.smc import fit_smc
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("open_rbc"))
+    obs = dict(observed_states=["Y"])
+    ss = DSGEStateSpace(model, device="cuda").configure(**obs)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(**obs)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+    u0 = ss.unconstrain(draw)
+    U64 = u0[None, :] + 0.05 * torch.randn(
+        (BATCH, u0.shape[0]), generator=torch.Generator(
+            device="cuda").manual_seed(1), device=dev, dtype=torch.float64)
+    U32 = U64.float()
+    data32 = data.astype("float32")
+
+    def launched() -> dict:
+        return {k_: n_ for k_, n_ in read_counts().items() if n_}
+
+    def expect(step, want):
+        got = launched()
+        if got != want:
+            raise AssertionError(f"{step}: launches {got}, expected {want}")
+        return got
+
+    # ---- 9a: the steady state alone, through ss_solver, float64
+    solve = model.ss_solver
+    theta = torch.as_tensor(ss._theta_default, device=dev).expand(
+        BATCH, -1).clone()
+    theta[:, torch.as_tensor(ss._est_idx, device=dev)] = ss.constrain(U64)
+    reset_counts()
+    sol = solve(theta)
+    torch.cuda.synchronize()
+    expect("9a", {})
+    lm_draws = int(solve.lm_draws)
+    ms = cuda_time_ms(lambda: solve(theta), 5)
+    wall, dev_ms, n_k, reads = profile_call(lambda: solve(theta))
+    share = float(sol.success.double().mean())
+    it = sol.n_iter.double()
+    cpu = solve(theta[:VG_CHECK].cpu())
+
+    def rel_x(got, want):
+        # |a - b| / (1 + |b|), as ``compare``: some steady states are zero
+        # in exact arithmetic and rounding noise in either
+        return float(((got.cpu() - want).abs() / (1.0 + want.abs())).max())
+
+    rel = rel_x(sol.x_ss[:VG_CHECK], cpu.x_ss)
+    if share < 0.99 or rel > 1e-10 \
+            or not torch.equal(sol.success[:VG_CHECK].cpu(), cpu.success) \
+            or not torch.equal(sol.n_iter[:VG_CHECK].cpu(), cpu.n_iter):
+        raise AssertionError(f"9a: success share {share:.4f}, vs CPU x_ss "
+                             f"rel {rel:.3e}, flags and iterations equal "
+                             f"{torch.equal(sol.success[:VG_CHECK].cpu(), cpu.success)}"
+                             f" {torch.equal(sol.n_iter[:VG_CHECK].cpu(), cpu.n_iter)}")
+    su = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_skilled_unskilled"))
+    th_su = su.default_theta()
+    su_card, su_cpu = su.ss_solver(th_su.to(dev)), su.ss_solver(th_su)
+    rel_su = rel_x(su_card.x_ss, su_cpu.x_ss)
+    if not bool(su_card.success) or rel_su > 1e-10 \
+            or int(su_card.n_iter) != int(su_cpu.n_iter):
+        raise AssertionError(f"9a rbc_skilled_unskilled: success "
+                             f"{bool(su_card.success)}, rel {rel_su:.3e}, "
+                             f"iterations {int(su_card.n_iter)} vs "
+                             f"{int(su_cpu.n_iter)}")
+    # where a call's time goes: one Newton iteration's parts, each alone
+    from geconpy_torch.ops.newton import _solve_nan, batched_jacobian
+
+    mf = model.functions
+    theta_fd = mf.f_params(theta)
+    u = mf.bijector.inverse(theta_fd.new_full((BATCH, mf.n_unknowns), 0.8))
+    J = batched_jacobian(solve.residual, u, (theta_fd,))
+    r = solve.residual(u, theta_fd)
+    parts = {
+        "the Jacobian (vmap of jacfwd)":
+            lambda: batched_jacobian(solve.residual, u, (theta_fd,)),
+        "the 12 trial points (one call)":
+            lambda: solve.residual(u.repeat_interleave(12, 0),
+                                   theta_fd.repeat_interleave(12, 0)),
+        "the Newton direction (solve_ex)": lambda: _solve_nan(J, -r)}
+    split = []
+    for label, fn in parts.items():
+        part_ms = cuda_time_ms(fn, 5)
+        _w, _d, part_k, _r = profile_call(fn)
+        split.append(f"{label} {part_ms:.3f} ms, {part_k} launches")
+    print(f"phase 9a parts of one Newton iteration at batch {BATCH} (CUDA "
+          f"events, 5 calls each; a call makes {int(it.max())} iterations "
+          f"and one more residual for the start): {'; '.join(split)} "
+          f"[{card}]", flush=True)
+    print(f"phase 9a open_rbc steady state (10 numeric unknowns, batch "
+          f"{BATCH}, float64, ss_solver 'hybrid'): {ms:.3f} ms a call (5 "
+          f"calls); Newton iterations max {int(it.max())} mean "
+          f"{float(it.mean()):.3f}; {lm_draws} draws sent to LM; success "
+          f"{share:.4f}; one call profiled: wall {wall:.3f} ms, device "
+          f"{dev_ms:.3f} ms, busy share {dev_ms / wall:.3f}, {n_k} kernel "
+          f"launches, {reads} host reads; first {VG_CHECK} vs CPU: x_ss rel "
+          f"{rel:.3e}, success and iterations equal; rbc_skilled_unskilled "
+          f"(23 unknowns) at its defaults: {int(su_card.n_iter)} iterations, "
+          f"vs CPU rel {rel_su:.3e}; step {time.perf_counter() - t_phase:.1f}"
+          f" s [{card}]", flush=True)
+
+    # ---- 9b: the sweep, policy="pallas", float32
+    t_step = time.perf_counter()
+    sw_kw = dict(obs, filter_type="steady_state", kalman_settle=N_SETTLE)
+    ss_sw = DSGEStateSpace(model, device="cuda").configure(**sw_kw)
+    ss_sw_cpu = DSGEStateSpace(model, device="cpu").configure(**sw_kw)
+    sweeps = {s_: ss_sw.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                             policy="pallas", settle=s_)
+              for s_ in ("pallas", "fused")}
+    ref = ss_sw_cpu.build_batched_loglik(
+        data32, n_settle=N_SETTLE, policy="pallas", settle="pallas")(
+        U32[:N_CHECK].double().cpu())
+    paths = {"pallas": {"cycle_reduction_policy": 1, "settle_parts": 1,
+                        "filter_tail": 1},
+             "fused": {"cycle_reduction_policy": 1,
+                       "settle_filter_loglik": 1}}
+    lines = []
+    for settle, fn in sweeps.items():
+        reset_counts()
+        out = fn(U32)
+        torch.cuda.synchronize()
+        counts = expect(f"9b settle={settle}", paths[settle])
+        frac = float(torch.isfinite(out).float().mean())
+        got = out[:N_CHECK].double().cpu()
+        both = torch.isfinite(got) & torch.isfinite(ref)
+        rel = float(((got - ref).abs() / (1.0 + ref.abs()))[both].max())
+        if out.dtype != torch.float32 or frac < 0.99 \
+                or float(both.double().mean()) < 0.99 or rel > 5e-4:
+            raise AssertionError(f"9b settle={settle}: {out.dtype}, finite "
+                                 f"{frac:.4f}, rel {rel:.3e} to the float64 "
+                                 f"CPU path on {int(both.sum())}/{N_CHECK}")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(U32)
+        torch.cuda.synchronize()
+        evals = 10 * BATCH / (time.perf_counter() - t0)
+        wall, dev_ms, n_k, reads = profile_call(lambda: fn(U32))
+        lines.append(f"settle={settle}: launches {counts}; finite "
+                     f"{frac:.4f}; vs float64 CPU path rel {rel:.3e} on "
+                     f"{int(both.sum())}/{N_CHECK}; {evals:.1f} evals/s (10 "
+                     f"calls); one call profiled: wall {wall:.3f} ms, device "
+                     f"{dev_ms:.3f} ms, busy share {dev_ms / wall:.3f}, {n_k} "
+                     f"kernel launches, {reads} host reads")
+    rec: dict = {}
+    for fn in sweeps.values():
+        fn(U64, record=rec)
+    held = [hold_to_plain(name, rec[name], rec["accepted"])
+            for name in ("cycle_reduction_policy", "settle_parts",
+                         "filter_tail", "settle_filter_loglik")]
+    print(f"phase 9b open_rbc sweep (policy='pallas', batch {BATCH}, "
+          f"{PERIODS} periods, float32): " + "; ".join(lines)
+          + f"; kernels vs plain on float64 draws: {', '.join(held)}; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 9c: value+grad, stationary filter, K4 and K6
+    t_step = time.perf_counter()
+    vg_kw = dict(obs, filter_type="stationary", kalman_settle=N_SETTLE)
+    ss_vg = DSGEStateSpace(model, device="cuda").configure(**vg_kw)
+    ss_vg_cpu = DSGEStateSpace(model, device="cpu").configure(**vg_kw)
+    Ub = U32[:VG_BATCH]
+    vag = ss_vg.build_batched_logpost_and_grad(data, settle="pallas")
+    reset_counts()
+    vals, grads = vag(Ub)
+    torch.cuda.synchronize()
+    counts = expect("9c", {"cycle_reduction": 1, "dare_settle": 1})
+    frac = float(torch.isfinite(vals).float().mean())
+    v_ref, g_ref = ss_vg_cpu.build_batched_logpost_and_grad(
+        data, settle="pallas")(Ub[:VG_CHECK].double().cpu())
+    v_got, g_got = vals[:VG_CHECK].double().cpu(), grads[:VG_CHECK].double().cpu()
+    both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+    rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
+    rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                   / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+    if frac < 0.99 or not bool(torch.isfinite(grads).all()) \
+            or float(both.double().mean()) < 0.99 or rel_v > 5e-4 \
+            or rel_g > 1e-3:
+        raise AssertionError(f"9c: finite {frac:.4f}, gradients finite "
+                             f"{bool(torch.isfinite(grads).all())}, vs CPU "
+                             f"value rel {rel_v:.3e}, gradient rel "
+                             f"{rel_g:.3e}")
+    rec = {}
+    vag(Ub.double(), record=rec)
+    held = [hold_to_plain(name, rec[name])
+            for name in ("cycle_reduction", "dare_settle")]
+    fwd = ss_vg.build_batched_logpost(data, settle="pallas")
+    times = {}
+    for label, fn in (("fwd", lambda: fwd(Ub)), ("vg", lambda: vag(Ub))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) / 5
+    (wall, dev_ms, n_k, reads), split = profile_parts(
+        ("forward (steady state, K4, K6)", lambda: fwd(Ub)),
+        ("+ backward (the steady state's implicit adjoint, the policy and "
+         "DARE adjoints)", lambda: vag(Ub)))
+    print(f"phase 9c open_rbc value+grad (stationary filter, "
+          f"settle='pallas', batch {VG_BATCH}, float32 draws): launches "
+          f"{counts}; finite {frac:.4f}, every gradient finite; vs float64 "
+          f"CPU path on {int(both.sum())}/{VG_CHECK}: value rel {rel_v:.3e}, "
+          f"gradient rel {rel_g:.3e}; kernels vs plain: {', '.join(held)}; "
+          f"{times['vg'] / VG_BATCH * 1e6:.2f} us/draw (5 calls of "
+          f"{times['vg'] * 1e3:.1f} ms; the backward's share "
+          f"{1 - times['fwd'] / times['vg']:.3f}); one call profiled: wall "
+          f"{wall:.3f} ms, device {dev_ms:.3f} ms, busy share "
+          f"{dev_ms / wall:.3f}, {n_k} kernel launches, {reads} host reads; "
+          f"by part: {split}; step {time.perf_counter() - t_step:.1f} s "
+          f"[{card}]", flush=True)
+
+    # ---- 9d: the entry() twin on open_rbc, batch 1, float64
+    t_step = time.perf_counter()
+    data64, draw64 = ss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=64)
+    u64 = ss.unconstrain(draw64)
+
+    def value_grad(lp, u):
+        u = u.detach().requires_grad_(True)
+        val = lp(u)
+        (grad,) = torch.autograd.grad(val, u)
+        return val.detach(), grad
+
+    lp = ss.build_logpost(data64)
+    reset_counts()
+    v, g = value_grad(lp, u64)
+    torch.cuda.synchronize()
+    expect("9d", {})
+    v_cpu, g_cpu = value_grad(ss_cpu.build_logpost(data64), u64.cpu())
+    rel_v = abs(float(v) - float(v_cpu)) / abs(float(v_cpu))
+    rel_g = float((g.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    if not math.isfinite(float(v)) or rel_v > 1e-8 or rel_g > 1e-6:
+        raise AssertionError(f"9d: value {float(v)} vs CPU {float(v_cpu)} "
+                             f"(rel {rel_v:.3e}), gradient rel {rel_g:.3e}")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        value_grad(lp, u64)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e2
+    wall, dev_ms, n_k, reads = profile_call(lambda: value_grad(lp, u64))
+    print(f"phase 9d entry() twin on open_rbc (Y, sequential filter, XLA "
+          f"policy, 64 periods, float64, batch 1): logpost {float(v):.10f}; "
+          f"vs CPU value rel {rel_v:.3e}, gradient rel {rel_g:.3e}; "
+          f"{ms:.3f} ms a value+grad call (10 calls); one call profiled: "
+          f"wall {wall:.3f} ms, device {dev_ms:.3f} ms, {n_k} kernel "
+          f"launches, {reads} host reads; no kernel launched; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 9e: SMC on the sweep
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_smc(ss_sw, data32, **SMC_KW)
+    torch.cuda.synchronize()
+    smc_s = time.perf_counter() - t0
+    stages = len(res.phi_schedule)
+    n_sweeps = 1 + stages * SMC_KW["n_mh"]
+    expect("9e", {"cycle_reduction_policy": n_sweeps,
+                  "settle_filter_loglik": n_sweeps})
+    phis = res.phi_schedule
+    samples = torch.as_tensor(res.samples)
+    if abs(phis[-1] - 1.0) > 1e-12 or not math.isfinite(res.log_evidence) \
+            or not bool(torch.isfinite(samples).all()) \
+            or not bool((res.accept_rates > 0.02).all()):
+        raise AssertionError(f"9e: schedule {phis}, evidence "
+                             f"{res.log_evidence}, acceptance "
+                             f"{res.accept_rates}")
+    lo, hi = (samples.quantile(q, dim=0) for q in (0.005, 0.995))
+    truth = torch.tensor([draw[name] for name in res.param_names],
+                         dtype=lo.dtype)
+    inside = int(((lo <= truth) & (truth <= hi)).sum())
+    print(f"phase 9e open_rbc SMC {SMC_KW}: {stages} stages, {n_sweeps} "
+          f"sweeps (K1 and K5 once a sweep), {smc_s:.3f} s; log evidence "
+          f"{res.log_evidence:.3f}; acceptance min "
+          f"{float(np.min(res.accept_rates)):.3f}; {inside}/"
+          f"{len(res.param_names)} generating values inside the particles' "
+          f"0.5%-99.5% range [{card}]", flush=True)
+    print(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -648,9 +1065,8 @@ def main() -> int:
     import geconpy_torch
     from geconpy_torch.ops import _cuda
     from geconpy_torch.ops.batched_cycle_reduction import (
-        _cr_plain, _cr_policy_plain, cr_policy_raw, cr_raw, cycle_reduction,
-        cycle_reduction_policy)
-    from geconpy_torch.ops.batched_dare import _dare_plain, dare_settle
+        cycle_reduction, cycle_reduction_policy)
+    from geconpy_torch.ops.batched_dare import dare_settle
     from geconpy_torch.ops.batched_filter import _filter_tail_plain, filter_tail
     from geconpy_torch.ops.batched_settle import (LYAP_ITERS,
                                                   _settle_filter_plain,
@@ -660,7 +1076,6 @@ def main() -> int:
     from geconpy_torch.ops.kalman import (_hewer_settle,
                                           dare_residual_settled,
                                           stationary_loglik_from_P)
-    from geconpy_torch.ops.tolerances import success_tol
     from geconpy_torch.stats.smc import _prior_cloud, fit_smc
     from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
@@ -735,40 +1150,7 @@ def main() -> int:
 
     # ---- phase 3: each kernel against its plain version, same inputs
     report = {}
-    plain = {
-        "cycle_reduction_policy": lambda *a: _cr_policy_plain(*a, CR_ITERS),
-        "settle_parts": lambda *a: _settle_plain(*a, LYAP_ITERS),
-        "filter_tail": _filter_tail_plain,
-        "cycle_reduction": lambda *a: _cr_plain(*a, CR_ITERS),
-        "dare_settle": _dare_plain,
-        "settle_filter_loglik": lambda *a: _settle_filter_plain(
-            *a, N_SETTLE, LYAP_ITERS),
-    }
-    kernel = {
-        "cycle_reduction_policy": lambda *a: cr_policy_raw(*a, CR_ITERS),
-        "settle_parts": settle_parts,
-        "filter_tail": filter_tail,
-        "cycle_reduction": lambda *a: cr_raw(*a, CR_ITERS),
-        "dare_settle": dare_settle,
-        "settle_filter_loglik": lambda *a: settle_filter_loglik(
-            *a, n_settle=N_SETTLE),
-    }
-    outputs = {"cycle_reduction_policy": ("T", "R", "flags"),
-               "settle_parts": ("ll_head", "x_pred0", "M", "TK", "Finv",
-                                "const"),
-               "filter_tail": ("ll_tail",),
-               "cycle_reduction": ("T", "flags"),
-               "dare_settle": ("P",),
-               "settle_filter_loglik": ("ll",)}
-
-    def cr_success(flags, dtype):
-        tol = 200 * float(torch.finfo(dtype).eps)
-        ok = (torch.isfinite(flags[:, 1]) & (flags[:, 1] < tol)
-              & (flags[:, 0] > 1e-7))
-        if flags.shape[1] == 3:
-            ok = ok & torch.isfinite(flags[:, 2]) \
-                & (flags[:, 2] < success_tol(dtype, 1e-6))
-        return ok
+    kernel, plain, outputs = kernel_checks()
 
     # the value+grad path runs K4 and K6 in float64 whatever U's dtype (see
     # build_batched_logpost); their float32 I/O is checked on its inputs
@@ -1219,6 +1601,9 @@ def main() -> int:
     # ---- phase 8: the sequential path, through the user's entry points
     sequential_phase(card, reset_counts, read_counts, model, constant,
                      vg_data, vg_batch, data32, batch[:XLA_BATCH], sweep)
+
+    # ---- phase 9: open_rbc, the numeric steady state, end to end
+    open_rbc_phase(card, reset_counts, read_counts)
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():

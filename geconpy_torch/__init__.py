@@ -7,9 +7,12 @@ copy of the sympy front-end (``lang/``, ``symbolic/``, the model primitives
 and ``dists/from_ast.py``) and of the bundled example models (``data/``),
 and imports ``torch``, never ``jax`` nor anything of ``geconpy_tpu``.
 
-Ported so far: the single-draw log posterior on the sequential Kalman
-filter with the XLA policy (``DSGEStateSpace.build_logpost``, the twin of
-the reference's ``entry()``), the batched forward likelihood sweep
+Ported so far: the steady state of every bundled model, analytic or
+numeric (``Model.steady_state``; the batched root finders of
+``ops/newton.py`` with the implicit-function gradient of
+``ops/implicit.py``), the single-draw log posterior on the sequential
+Kalman filter with the XLA policy (``DSGEStateSpace.build_logpost``, the
+twin of the reference's ``entry()``), the batched forward likelihood sweep
 (``build_batched_loglik`` with its ``"xla"`` and ``"pallas"`` policies and
 ``"xla"``, ``"pallas"`` and ``"fused"`` settles), the batched
 value+gradient (``build_batched_logpost_and_grad``), SMC estimation on the
@@ -19,6 +22,7 @@ step), with hand-written CUDA kernels for cycle reduction, the
 Riccati settle, the filter tail, the fused settle + tail and the DARE
 settle: every TPU kernel of the reference has its counterpart.
 A ``DSGEStateSpace`` runs on the GPU unless it is built with
+``device="cpu"``, and ``Model.steady_state`` unless it is given
 ``device="cpu"``.
 """
 

@@ -68,6 +68,12 @@ class ModelFunctions:
         return len(self.shocks)
 
     @property
+    def n_params(self) -> int:
+        """Length of theta_full = free + deterministic + calibrated."""
+        return (len(self.free_params) + len(self.deterministic_params)
+                + len(self.calibrated_params))
+
+    @property
     def param_names(self) -> list[str]:
         """theta_full order: free, deterministic, calibrated."""
         return [p.name for p in (*self.free_params, *self.deterministic_params,

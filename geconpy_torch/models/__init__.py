@@ -1,9 +1,11 @@
 """Model layer (mirrors ``geconpy_tpu/models``): the compiled model, the
-analytic steady state and the symbolic linearization."""
+analytic and numeric steady state and the linearization."""
 
 from .model import Model, model_from_gcn
 from .perturbation import make_linearizer, spectral_radius
-from .steady_state import SteadyStateSolution, make_steady_state_solver
+from .steady_state import (SteadyStateSolution, make_fixed_value_solver,
+                           make_steady_state_solver)
 
 __all__ = ["Model", "model_from_gcn", "make_linearizer", "spectral_radius",
-           "SteadyStateSolution", "make_steady_state_solver"]
+           "SteadyStateSolution", "make_steady_state_solver",
+           "make_fixed_value_solver"]

@@ -1,7 +1,8 @@
 """First-order (log-)linearization around the steady state, batched.
 
 Mirrors ``geconpy_tpu/models/perturbation.py``: ``make_loglin_mask`` (:44),
-``make_linearizer`` (:65, the symbolic ``f_lin_nz`` scatter path) and
+``make_linearizer`` (:65: the symbolic ``f_lin_nz`` scatter path, and the
+runtime Jacobian of ``f_resid`` when there is no symbolic one, :84-91) and
 ``spectral_radius`` (:143).
 
 Convention:  A ŷ_{t-1} + B ŷ_t + C ŷ_{t+1} + D ε_t = 0, where ŷ is the log
@@ -56,31 +57,42 @@ def make_linearizer(
     """Build ``linearize(x_ss (..., n), theta_full (..., P))``.
 
     The nonzero [A|B|C|D] entries come from the symbolic ``f_lin_nz`` and
-    are scattered at static indices.  Variables whose steady state is near
-    zero or negative fall back to level deviations (scale 1), per draw.
+    are scattered at static indices.  Without it (``f_lin_nz`` None or
+    empty) A, B, C and D are ``torch.func.jacfwd`` of ``f_resid`` in its
+    first four arguments, vmapped over the draws; the steady-state
+    references (argument 4) are constants of the linearization.  Variables
+    whose steady state is near zero or negative fall back to level
+    deviations (scale 1), per draw.
     """
-    if mf.f_lin_nz is None or not len(mf.lin_rows):
-        raise NotImplementedError(
-            "runtime-Jacobian linearization is not ported: the port uses the "
-            "symbolic f_lin_nz path only (ROADMAP Queue 1 item 4)")
     loglin_mask = torch.as_tensor(make_loglin_mask(mf, loglin_variables))
     n = mf.n_variables
     k = mf.n_shocks
-    flat = torch.as_tensor(mf.lin_rows.astype(np.int64) * (3 * n + k)
-                           + mf.lin_cols.astype(np.int64))
+    use_symbolic = mf.f_lin_nz is not None and len(mf.lin_rows)
+    if use_symbolic:
+        flat = torch.as_tensor(mf.lin_rows.astype(np.int64) * (3 * n + k)
+                               + mf.lin_cols.astype(np.int64))
+    else:
+        jac = torch.func.vmap(torch.func.jacfwd(mf.f_resid,
+                                                argnums=(0, 1, 2, 3)))
 
     def linearize(x_ss: torch.Tensor, theta_full: torch.Tensor
                   ) -> LinearizationResult:
         batch = x_ss.shape[:-1]
         eps0 = x_ss.new_zeros(batch + (k,))
-        vals = mf.f_lin_nz(x_ss, x_ss, x_ss, eps0, x_ss, theta_full)
-        big = x_ss.new_zeros(batch + (n * (3 * n + k),))
-        big[..., flat.to(x_ss.device)] = vals
-        big = big.reshape(batch + (n, 3 * n + k))
-        A = big[..., :n]
-        B = big[..., n:2 * n]
-        C = big[..., 2 * n:3 * n]
-        D = big[..., 3 * n:]
+        if use_symbolic:
+            vals = mf.f_lin_nz(x_ss, x_ss, x_ss, eps0, x_ss, theta_full)
+            big = x_ss.new_zeros(batch + (n * (3 * n + k),))
+            big[..., flat.to(x_ss.device)] = vals
+            big = big.reshape(batch + (n, 3 * n + k))
+            A = big[..., :n]
+            B = big[..., n:2 * n]
+            C = big[..., 2 * n:3 * n]
+            D = big[..., 3 * n:]
+        else:
+            xs = x_ss.reshape(-1, n)
+            A, B, C, D = (J.reshape(batch + J.shape[1:]) for J in jac(
+                xs, xs, xs, eps0.reshape(-1, k), xs,
+                theta_full.reshape(-1, theta_full.shape[-1])))
         mask = loglin_mask.to(x_ss.device)
         scale = torch.where(mask & (x_ss > _ZERO_TOL), x_ss,
                             torch.ones_like(x_ss))

@@ -15,6 +15,8 @@ import torch
 
 __all__ = ["VectorBijector", "make_bijector", "IDENTITY", "LOG", "NEG_LOG"]
 
+_CODES: dict = {}
+
 IDENTITY = 0   # x = u
 LOG = 1        # x = exp(u)      (positive variables)
 NEG_LOG = 2    # x = -exp(u)     (negative variables)
@@ -26,8 +28,13 @@ class VectorBijector(NamedTuple):
     kinds: tuple[int, ...]  # one code per element
 
     def _codes(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(self.kinds, dtype=torch.int64,
-                               device=like.device)
+        # one host-to-device copy per (codes, device): a copy inside a
+        # root finder's iterations would wait for the launch queue
+        key = (self.kinds, like.device)
+        if key not in _CODES:
+            _CODES[key] = torch.as_tensor(self.kinds, dtype=torch.int64,
+                                          device=like.device)
+        return _CODES[key]
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         """Unconstrained R^n -> constrained values (elementwise)."""

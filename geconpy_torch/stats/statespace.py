@@ -28,13 +28,14 @@ code that ``fit(policy="xla")`` and ``build_batched_loglik(policy="xla")``
 call.  Where the reference's ``vmap`` maps data-dependent loops (the
 adaptive cycle reduction, the Lyapunov doubling, the Sylvester adjoint),
 the port runs them over the batch with a per-draw freeze mask, so that
-every draw takes the iterations it takes alone.
+every draw takes the iterations it takes alone; so does the numeric
+steady state's root finder (:mod:`~geconpy_torch.models.steady_state`).
 
 A state space lives on one device, the GPU unless it is built with
 ``device="cpu"``: its results are put there, and an input on another device
 raises.  The sweep ``f(U) -> (B,)`` runs batched torch code for the priors,
-the analytic steady state, the symbolic linearization and the static
-reduction, then the CUDA kernels: cycle reduction
+the steady state (analytic, or numeric with its implicit adjoint), the
+linearization and the static reduction, then the CUDA kernels: cycle reduction
 (:mod:`~geconpy_torch.ops.batched_cycle_reduction`), then either the
 Riccati settle (:mod:`~geconpy_torch.ops.batched_settle`) and the
 constant-gain tail (:mod:`~geconpy_torch.ops.batched_filter`), or the one

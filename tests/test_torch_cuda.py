@@ -11,7 +11,10 @@ synthetic inputs whose sizes are not multiples of its tiles, at batches
 that do not fill the last block: K2 and K5, K1 and K4, and K3 (float64
 within 1e-12 of the plain version, float32 within the sweep's 5e-4) and K6
 (float64 within 1e-11), with a NaN draw that must stay isolated and a
-shape the kernel does not take, which must raise.
+shape the kernel does not take, which must raise.  The numeric steady
+state of ``open_rbc`` runs on the card as on the CPU (the same iterations
+and flags, x_ss at rel 1e-10), and its implicit gradient is finite inside
+the value+grad path at batch 512.
 """
 
 import numpy as np
@@ -578,3 +581,46 @@ def test_xla_policy_sweep_launches_the_settle_kernels_only(device):
     assert both.float().mean() >= 0.99
     rel = ((out.double() - ref.double()).abs() / (1 + ref.double().abs()))[both]
     assert float(rel.max()) <= 5e-4
+
+
+def test_batched_newton_on_the_card_equals_the_cpu(device):
+    """The numeric steady state of ``open_rbc`` (10 unknowns) at 64 draws
+    around its calibration: the same iterations, flags and draws sent to
+    LM as on the CPU, x_ss at rel 1e-10 (each parameter moved by 0.5%
+    a draw, from a seed)."""
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("open_rbc"))
+    theta = model.default_theta()[None] * (1 + 0.005 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((64, len(model.param_names))),
+        dtype=torch.float64))
+    solve = model.ss_solver
+    got = solve(theta.to(device))
+    lm_card = int(solve.lm_draws)
+    want = solve(theta)
+    assert lm_card == int(solve.lm_draws)
+    assert torch.equal(got.success.cpu(), want.success)
+    assert torch.equal(got.n_iter.cpu(), want.n_iter)
+    assert bool(want.success.all())
+    rel = (got.x_ss.cpu() - want.x_ss).abs() / want.x_ss.abs().clamp(min=1e-12)
+    assert float(rel.max()) <= 1e-10
+
+
+def test_implicit_gradient_is_finite_at_batch_512(device):
+    """The steady state's implicit adjoint inside the value+grad path:
+    ``open_rbc`` on the stationary filter with K4 and K6, batch 512, every
+    gradient finite."""
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("open_rbc"))
+    ss = DSGEStateSpace(model, device=device).configure(
+        observed_states=["Y"], filter_type="stationary")
+    data, draw = ss.data_from_prior(
+        torch.Generator(device=device).manual_seed(0), periods=64)
+    u0 = ss.unconstrain(draw)
+    U = u0[None] + 0.05 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((512, len(u0))),
+        device=device)
+    cycle_reduction.launches = dare_settle.launches = 0
+    vals, grads = ss.build_batched_logpost_and_grad(data, settle="pallas")(U)
+    assert cycle_reduction.launches == 1 and dare_settle.launches == 1
+    assert torch.isfinite(vals).float().mean() >= 0.99
+    assert bool(torch.isfinite(grads).all())
