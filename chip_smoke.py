@@ -48,7 +48,7 @@ Phases, one line each (plus one line per kernel in phase 3):
    memory, a stage breakdown and, per settle, the device's busy share;
 6. SMC estimation at full width: the sweep's configuration through
    ``fit_smc`` with 4096 particles, 2 Metropolis sweeps per stage, seed 0,
-   ``settle="fused"``, float32.  It must reach phi = 1 with a strictly
+   ``policy="pallas"``, ``settle="fused"``, float32.  It must reach phi = 1 with a strictly
    increasing schedule, every stage's acceptance > 0.02, a finite log
    evidence and finite samples of shape (4096, 22); K1 and K5 each launch
    once per sweep (1 + stages x 2), K2 and K3 never.  Prints stages,
@@ -129,7 +129,36 @@ Phases, one line each (plus one line per kernel in phase 3):
    ``settle="fused"``, ``resample_ess=0.6``, seed 0): phi reaches 1, K1
    and K5 once a sweep, finite evidence and samples; stages, sweeps,
    seconds, the evidence and how many of the six generating values lie
-   inside the particles' 0.5%-99.5% range.  The phase prints its seconds.
+   inside the particles' 0.5%-99.5% range.  The phase prints its seconds;
+10. the solved model (``solved_model_phase``;
+   ``tools/solved_model_probe.py`` runs it alone), one line a step.  10a
+   the 21 bundled models, each built once (``model_from_gcn(verbose=
+   False)``) and solved on the card and on the CPU with ``solve_model()``
+   (auto), ``solver="cycle_reduction", tol=1e-14`` and ``"gensys"``: all
+   succeed, gensys with eu (1, 1), cycle reduction within atol 1e-8 of
+   gensys (the reference library test's bar), each solver's T and R on
+   the card within rel 1e-10 of the CPU's; ``rbc_skilled_unskilled``'s
+   cycle reduction is held at rel 1e-6 in both checks (a rounding-level
+   change of its pencil moves its T by 8.2e-7 relative; the reference's
+   test allows it atol 2e-6 on the CPU, and the card read 2.7e-6); the
+   largest gaps, the slowest model and the ms of the three
+   solves on SW-2007.  10b SW-2007 in float64 on the card: IRFs over its
+   7 shocks (40 periods), ``simulate`` of 4096 paths of 200 periods, the
+   stationary covariance, autocorrelations to 10 lags and the FEVD to 40,
+   each within rel 1e-10 of the CPU on the same T, R and shocks, FEVD rows
+   summing to 1 within 1e-12; ms of each (CUDA events) and the peak
+   memory.  10c phase 8c's sweep with ``solver="gensys"`` (``policy=
+   "xla", settle="pallas"``, batch 512, float32): K2 and K3 launch and K1
+   does not, >= 99% finite, within rel 5e-4 of the cycle-reduction
+   sweep on the same draws; evals/s at batch 512, launches and host reads
+   of a call profiled at batches 8 and 16 (a call at 512 makes ~643,000
+   launches, too many to trace in the time).  10d the
+   ``entry()`` twin of 8a with ``solver="gensys"``: value within rel 1e-8
+   and gradient within 1e-6 of the CPU, no kernel launched, the gradient
+   printed beside central differences (the reference's ``jax.grad`` has no
+   rule for the disk split's complete QR; the port re-attaches T and R by
+   the implicit policy adjoint); ms a value+grad call.  The phase prints
+   its seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -178,8 +207,8 @@ SECOND_TOL = {"filter_tail": {"f64": 1e-12, "f32": 5e-4},
 # tempering stage; with the two equal, a stage that lands on the threshold
 # is followed by stages whose step is ~1e-15 until rounding noise tips the
 # ESS under it (the reference's sampler does the same)
-SMC_KW = dict(n_particles=4096, n_mh=2, seed=0, settle="fused",
-              resample_ess=0.6)
+SMC_KW = dict(n_particles=4096, n_mh=2, seed=0, policy="pallas",
+              settle="fused", resample_ess=0.6)
 # phase 7: NUTS with bench.py::_ess_fit_kwargs (128 chains, pooled dense
 # adaptation from the mode), on 200 periods made at the bench's _SW_TRUTH
 # point (a copy: bench.py imports JAX).  Only the numbers of transitions
@@ -954,6 +983,275 @@ def open_rbc_phase(card, reset_counts, read_counts) -> None:
     print(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+def _rel_gap(a, b) -> float:
+    """max |a - b| / max |b|, on the CPU in float64."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def solved_model_phase(card, reset_counts, read_counts, sw_model, constant,
+                       sweep_data32, sweep_batch) -> None:
+    """Phase 10: the solved model (10a-10d, see the module docstring).
+    ``sweep_data32``/``sweep_batch`` are phase 4's data and float32 draws
+    at batch 512, the inputs of phase 8c."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.analysis.simulate import (impulse_response,
+                                                 simulate_linear)
+    from geconpy_torch.stats.covariance import (autocorrelation,
+                                                build_shock_cov, fevd,
+                                                stationary_covariance)
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    def launched() -> dict:
+        return {k_: n_ for k_, n_ in read_counts().items() if n_}
+
+    # ---- 10a: the bundled models through solve_model on the card
+    reset_counts()
+    names = sorted(p.stem for p in (ROOT / "geconpy_torch" / "data").glob(
+        "*.gcn"))
+    worst = {"card_vs_cpu": (0.0, ""), "cr_vs_gensys": (0.0, "")}
+    slowest, sw_ms, autos = (0.0, ""), {}, {}
+    solves = (("auto", {}),
+              ("cycle_reduction", dict(solver="cycle_reduction", tol=1e-14)),
+              ("gensys", dict(solver="gensys")))
+    for name in names:
+        t_model = time.perf_counter()
+        model = geconpy_torch.model_from_gcn(
+            geconpy_torch.get_example_gcn(name), verbose=False)
+        got = {}
+        for label, kw in solves:
+            cpu = model.solve_model(verbose=False, device="cpu", **kw)
+            for _ in range(2 if name == "sw2007" else 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gpu = model.solve_model(verbose=False, device="cuda", **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            if name == "sw2007":
+                sw_ms[label] = ms
+            gap = max(_rel_gap(gpu.T, cpu.T), _rel_gap(gpu.R, cpu.R))
+            # rbc_skilled_unskilled's cycle reduction is fixed by its pencil
+            # only to ~1e-6: a rounding-level change of the pencil moves T
+            # by 8.2e-7 relative (ROADMAP Queue 3), so the card's and the
+            # CPU's summation orders give different T; held at rel 1e-6
+            ill = name == "rbc_skilled_unskilled" and gpu.solver != "gensys"
+            if ill:
+                worst["ill"] = max(worst.get("ill", (0.0, "")),
+                                   (gap, f"{name} {label}"))
+            if gpu.T.device.type != "cuda" or not gpu.success \
+                    or (gpu.solver, gpu.eu) != (cpu.solver, cpu.eu) \
+                    or gap > (1e-6 if ill else 1e-10):
+                raise AssertionError(f"10a {name} {label}: card {gpu} vs CPU "
+                                     f"{cpu}, T/R gap {gap:.3e}")
+            if not ill:
+                worst["card_vs_cpu"] = max(worst["card_vs_cpu"],
+                                           (gap, f"{name} {label}"))
+            got[label] = gpu
+        autos[name] = got["auto"].solver
+        cr, gs = got["cycle_reduction"], got["gensys"]
+        # the reference library test's bar, atol 1e-8; rbc_skilled_unskilled
+        # (2e-6 there, on the CPU) read 2.7e-6 on the card: its pencil fixes
+        # T only to ~1e-6 relative, as above, so it is held at rel 1e-6
+        gap = max(float((cr.T - gs.T).abs().max()),
+                  float((cr.R - gs.R).abs().max()))
+        if name == "rbc_skilled_unskilled":
+            rel_ill = max(_rel_gap(cr.T, gs.T), _rel_gap(cr.R, gs.R))
+            worst["ill_cr_vs_gensys"] = (rel_ill, gap)
+            bad = rel_ill > 1e-6
+        else:
+            worst["cr_vs_gensys"] = max(worst["cr_vs_gensys"], (gap, name))
+            bad = gap > 1e-8
+        if gs.eu != (1, 1) or bad or cr.spectral_radius >= 1.0:
+            raise AssertionError(f"10a {name}: gensys eu {gs.eu}, cycle "
+                                 f"reduction vs gensys {gap:.3e} abs, rho "
+                                 f"{cr.spectral_radius}")
+        slowest = max(slowest, (time.perf_counter() - t_model, name))
+    if launched():
+        raise AssertionError(f"10a: kernels launched {launched()}")
+    print(f"phase 10a the {len(names)} bundled models, solve_model on the "
+          f"card (auto, cycle_reduction tol 1e-14, gensys; float64): all "
+          f"succeed, gensys eu (1, 1) everywhere, auto took "
+          f"{sorted(set(autos.values()))}; largest card vs CPU T/R rel gap "
+          f"{worst['card_vs_cpu'][0]:.3e} ({worst['card_vs_cpu'][1]}; bar "
+          f"1e-10), cycle reduction vs gensys {worst['cr_vs_gensys'][0]:.3e} "
+          f"abs ({worst['cr_vs_gensys'][1]}; bar 1e-8); rbc_skilled_unskilled "
+          f"at rel 1e-6: cycle reduction card vs CPU {worst['ill'][0]:.3e}, "
+          f"vs gensys {worst['ill_cr_vs_gensys'][0]:.3e} "
+          f"({worst['ill_cr_vs_gensys'][1]:.3e} abs); slowest model {slowest[1]} {slowest[0]:.1f} s "
+          f"(build and six solves); sw2007 on the card: "
+          + ", ".join(f"{k_} {v_:.1f} ms" for k_, v_ in sw_ms.items())
+          + f"; step {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+    # ---- 10b: IRFs, simulation and moments of SW-2007 at full size
+    t_step = time.perf_counter()
+    sol = sw_model.solve_model(verbose=False, device="cuda")
+    T_c, R_c = sol.T.cpu(), sol.R.cpu()
+    k = sol.R.shape[-1]
+    Q = build_shock_cov(k, device=dev)
+    n_sims, sim_periods = 4096, 200
+    torch.cuda.reset_peak_memory_stats(dev)
+    irf = geconpy_torch.impulse_response_function(sol, periods=40)
+    sims = geconpy_torch.simulate(sol, periods=sim_periods,
+                                  n_simulations=n_sims,
+                                  generator=torch.Generator(
+                                      device=dev).manual_seed(0))
+    # the same draws, on both devices, through the deterministic core
+    eps = 0.01 * torch.randn((n_sims, sim_periods, k), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, dtype=torch.float64)
+    Sigma = stationary_covariance(sol.T, sol.R, Q)
+    acf = autocorrelation(sol.T, sol.R, Q, n_lags=10)
+    shares = fevd(sol.T, sol.R, Q, horizon=40)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    gaps = {
+        "irf": _rel_gap(irf.values, impulse_response(T_c, R_c, 40)),
+        "simulate": _rel_gap(sims.values, simulate_linear(T_c, R_c,
+                                                          eps.cpu())),
+        "stationary_covariance": _rel_gap(
+            Sigma, stationary_covariance(T_c, R_c, Q.cpu())),
+        "autocorrelation": _rel_gap(acf, autocorrelation(T_c, R_c, Q.cpu(),
+                                                         n_lags=10)),
+        "fevd": _rel_gap(shares, fevd(T_c, R_c, Q.cpu(), horizon=40))}
+    row_err = float((shares.sum(-1) - 1.0).abs().max())
+    shapes = (tuple(irf.values.shape), tuple(sims.values.shape),
+              tuple(acf.shape), tuple(shares.shape))
+    if max(gaps.values()) > 1e-10 or row_err > 1e-12 \
+            or not bool(torch.isfinite(sims.values).all()) \
+            or shapes != ((k, 40, sol.T.shape[0]),
+                          (n_sims, sim_periods, sol.T.shape[0]),
+                          (10,) + tuple(sol.T.shape),
+                          (40, sol.T.shape[0], k)) or launched():
+        raise AssertionError(f"10b: rel to the CPU {gaps}, FEVD rows "
+                             f"{row_err:.3e}, shapes {shapes}, kernels "
+                             f"{launched()}")
+    ms = {"irf": cuda_time_ms(lambda: geconpy_torch.impulse_response_function(
+              sol, periods=40), 5),
+          "simulate": cuda_time_ms(lambda: geconpy_torch.simulate(
+              sol, periods=sim_periods, n_simulations=n_sims), 3),
+          "stationary_covariance": cuda_time_ms(
+              lambda: stationary_covariance(sol.T, sol.R, Q), 5),
+          "autocorrelation": cuda_time_ms(
+              lambda: autocorrelation(sol.T, sol.R, Q, n_lags=10), 5),
+          "fevd": cuda_time_ms(lambda: fevd(sol.T, sol.R, Q, horizon=40), 5)}
+    print(f"phase 10b SW-2007 analysis on the card (float64; n "
+          f"{sol.T.shape[0]}, {k} shocks): IRFs 40 periods, simulate "
+          f"{n_sims} x {sim_periods} ({sims.values.numel() * 8} B of paths), "
+          f"stationary covariance, autocorrelation 10 lags, FEVD 40; rel to "
+          f"the CPU on the same T, R and shocks "
+          + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in gaps.items())
+          + f" (bar 1e-10); FEVD rows sum to 1 within {row_err:.1e}; ms "
+          + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in ms.items())
+          + f" (CUDA events); peak device memory {peak} B; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 10c: the policy="xla" sweep with the device gensys
+    t_step = time.perf_counter()
+    sweep_kw = dict(observed_states=SW_OBS, constant_params=constant,
+                    filter_type="steady_state", kalman_settle=N_SETTLE)
+    sweeps = {solver: DSGEStateSpace(sw_model, device="cuda").configure(
+        **sweep_kw, solver=solver).build_batched_loglik(
+        sweep_data32, n_settle=N_SETTLE, policy="xla", settle="pallas")
+        for solver in ("gensys", "cycle_reduction")}
+    reset_counts()
+    out = sweeps["gensys"](sweep_batch)
+    torch.cuda.synchronize()
+    launches = launched()
+    if launches.get("settle_parts", 0) < 1 \
+            or launches.get("filter_tail", 0) < 1 \
+            or set(launches) != {"settle_parts", "filter_tail"}:
+        raise AssertionError(f"10c: K2 and K3 only, got {launches}")
+    frac = float(torch.isfinite(out).float().mean())
+    ref = sweeps["cycle_reduction"](sweep_batch)
+    both = torch.isfinite(out) & torch.isfinite(ref)
+    rel = float(((out.double() - ref.double()).abs()
+                 / (1.0 + ref.double().abs()))[both].max())
+    if frac < 0.99 or rel > 5e-4:
+        raise AssertionError(f"10c: {frac:.4f} finite, rel {rel:.3e} to the "
+                             f"cycle-reduction sweep")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweeps["gensys"](sweep_batch)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    # the batched float64 QRs and SVDs loop over the batch inside cuSOLVER:
+    # a call at batch 512 is ~643,000 launches, whose trace alone took the
+    # profiler minutes, so the call is profiled at two small batches
+    profiles = {b: profile_call(lambda b=b: sweeps["gensys"](sweep_batch[:b]))
+                for b in (8, 16)}
+    (w8, d8, n8, r8), (w16, d16, n16, r16) = profiles[8], profiles[16]
+    print(f"phase 10c sweep solver=gensys policy=xla settle=pallas (SW-2007, "
+          f"batch {sweep_batch.shape[0]}, float32, filter over all "
+          f"{sw_model.n_variables} variables): launches {launches}; finite "
+          f"{frac:.4f}; vs the cycle-reduction policy=xla sweep rel "
+          f"{rel:.3e} on {int(both.sum())}/{sweep_batch.shape[0]}; one call "
+          f"{call_s * 1e3:.1f} ms, {sweep_batch.shape[0] / call_s:.1f} "
+          f"evals/s; one call profiled at batch 8 / 16: wall {w8:.1f} / "
+          f"{w16:.1f} ms, device {d8:.1f} / {d16:.1f} ms, {n8} / {n16} "
+          f"kernel launches ({(n16 - n8) / 8:.1f} a draw), {r8} / {r16} host "
+          f"reads; step {time.perf_counter() - t_step:.1f} s [{card}]",
+          flush=True)
+
+    # ---- 10d: the entry() twin with the device gensys
+    t_step = time.perf_counter()
+    rbc = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"), verbose=False)
+    kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+              filter_type="sequential", solver="gensys")
+    ss = DSGEStateSpace(rbc, device="cuda").configure(**kw)
+    ss_cpu = DSGEStateSpace(rbc, device="cpu").configure(**kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=64)
+    u0 = ss.unconstrain(draw)
+
+    def value_grad(lp, u):
+        u = u.detach().requires_grad_(True)
+        val = lp(u)
+        (grad,) = torch.autograd.grad(val, u)
+        return val.detach(), grad
+
+    lp = ss.build_logpost(data)
+    reset_counts()
+    v, g = value_grad(lp, u0)
+    torch.cuda.synchronize()
+    v_cpu, g_cpu = value_grad(ss_cpu.build_logpost(data), u0.cpu())
+    rel_v = abs(float(v) - float(v_cpu)) / abs(float(v_cpu))
+    rel_g = float((g.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    h = 1e-5
+    eye = torch.eye(u0.shape[0], dtype=u0.dtype, device=dev)
+    fd = torch.stack([(lp(u0 + h * e) - lp(u0 - h * e)) / (2 * h)
+                      for e in eye])
+    rel_fd = float((g - fd).abs().max() / fd.abs().max())
+    if launched() or not math.isfinite(float(v)) \
+            or not bool(torch.isfinite(g).all()) or rel_v > 1e-8 \
+            or rel_g > 1e-6:
+        raise AssertionError(f"10d: value {float(v)} vs CPU {float(v_cpu)} "
+                             f"(rel {rel_v:.3e}), gradient rel {rel_g:.3e}, "
+                             f"kernels launched {launched()}")
+    value_grad(lp, u0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        value_grad(lp, u0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    print(f"phase 10d entry() twin with solver=gensys (rbc_estimation, Y, "
+          f"sequential filter, 64 periods, float64): logpost "
+          f"{float(v):.10f}; vs CPU value rel {rel_v:.3e}, gradient rel "
+          f"{rel_g:.3e}; gradient {np.round(g.cpu().numpy(), 6).tolist()} "
+          f"beside central differences (h 1e-5) "
+          f"{np.round(fd.cpu().numpy(), 6).tolist()}, rel {rel_fd:.3e}; "
+          f"{ms:.3f} ms a value+grad call (5 calls); step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    print(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -1604,6 +1902,10 @@ def main() -> int:
 
     # ---- phase 9: open_rbc, the numeric steady state, end to end
     open_rbc_phase(card, reset_counts, read_counts)
+
+    # ---- phase 10: the solved model, IRFs, moments, the device gensys
+    solved_model_phase(card, reset_counts, read_counts, model, constant,
+                       data32, batch[:XLA_BATCH])
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():

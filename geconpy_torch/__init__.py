@@ -10,7 +10,12 @@ and imports ``torch``, never ``jax`` nor anything of ``geconpy_tpu``.
 Ported so far: the steady state of every bundled model, analytic or
 numeric (``Model.steady_state``; the batched root finders of
 ``ops/newton.py`` with the implicit-function gradient of
-``ops/implicit.py``), the single-draw log posterior on the sequential
+``ops/implicit.py``), the solved model (``Model.solve_model`` with cycle
+reduction, the device gensys of ``ops/gensys_jax.py``, the host gensys and
+the backward solver, returning a ``PolicySolution``; ``linearize_model``
+and ``check_bk_condition``), its impulse responses, simulations and
+moments (``analysis/simulate.py``, ``stats/covariance.py``), the
+``statespace_from_gcn`` front door, the single-draw log posterior on the sequential
 Kalman filter with the XLA policy (``DSGEStateSpace.build_logpost``, the
 twin of the reference's ``entry()``), the batched forward likelihood sweep
 (``build_batched_loglik`` with its ``"xla"`` and ``"pallas"`` policies and
@@ -22,21 +27,29 @@ step), with hand-written CUDA kernels for cycle reduction, the
 Riccati settle, the filter tail, the fused settle + tail and the DARE
 settle: every TPU kernel of the reference has its counterpart.
 A ``DSGEStateSpace`` runs on the GPU unless it is built with
-``device="cpu"``, and ``Model.steady_state`` unless it is given
-``device="cpu"``.
+``device="cpu"``, and ``Model.steady_state``, ``Model.solve_model`` and
+``statespace_from_gcn`` unless they are given ``device="cpu"``; results
+with labels are tensors with name lists (no pandas).
 """
 
 __version__ = "0.1.0"
 
 import pathlib as _pathlib
 
-from .models.model import Model, model_from_gcn
+from .analysis.simulate import impulse_response_function, simulate
+from .models.model import Model, PolicySolution, model_from_gcn
+from .stats.covariance import (autocorrelation_matrix, autocovariance_matrix,
+                               build_Q_matrix, stationary_covariance_matrix)
 from .stats.estimation import PosteriorResult, fit
 from .stats.smc import SMCResult, fit_smc
-from .stats.statespace import DSGEStateSpace
+from .stats.statespace import (DSGEStateSpace, data_from_prior,
+                               statespace_from_gcn)
 
-__all__ = ["DSGEStateSpace", "Model", "PosteriorResult", "SMCResult", "fit",
-           "fit_smc", "get_example_gcn", "model_from_gcn"]
+__all__ = ["DSGEStateSpace", "Model", "PolicySolution", "PosteriorResult",
+           "SMCResult", "autocorrelation_matrix", "autocovariance_matrix",
+           "build_Q_matrix", "data_from_prior", "fit", "fit_smc",
+           "get_example_gcn", "impulse_response_function", "model_from_gcn",
+           "simulate", "stationary_covariance_matrix", "statespace_from_gcn"]
 
 
 def get_example_gcn(name: str = "rbc") -> str:

@@ -2,8 +2,9 @@
 
 Mirrors ``geconpy_tpu/models/perturbation.py``: ``make_loglin_mask`` (:44),
 ``make_linearizer`` (:65: the symbolic ``f_lin_nz`` scatter path, and the
-runtime Jacobian of ``f_resid`` when there is no symbolic one, :84-91) and
-``spectral_radius`` (:143).
+runtime Jacobian of ``f_resid`` when there is no symbolic one, :84-91),
+``solve_policy_backward`` (:129), ``spectral_radius`` (:143) and
+``gecon_matrices`` (:166, on the host in numpy).
 
 Convention:  A ŷ_{t-1} + B ŷ_t + C ŷ_{t+1} + D ε_t = 0, where ŷ is the log
 deviation for log-linearized variables (positive steady state) and the level
@@ -21,7 +22,7 @@ from ..codegen.model_functions import ModelFunctions
 from ..ops.precision import highest_precision
 
 __all__ = ["make_linearizer", "make_loglin_mask", "LinearizationResult",
-           "spectral_radius"]
+           "solve_policy_backward", "spectral_radius", "gecon_matrices"]
 
 _ZERO_TOL = 1e-8
 
@@ -103,6 +104,24 @@ def make_linearizer(
 
 
 @highest_precision()
+def solve_policy_backward(A: torch.Tensor, B: torch.Tensor, D: torch.Tensor):
+    """Policy of a purely backward-looking model (no t+1 terms), batched
+    over leading dimensions: T = -B⁻¹A, R = -B⁻¹D, and ``success`` when both
+    are finite.  One pivoted LU of B for both right-hand sides
+    (``torch.linalg.solve_ex``): a singular B gives NaN and
+    ``success=False`` in its own draw, never an exception, as
+    ``jnp.linalg.solve`` does."""
+    from ..ops.cycle_reduction import _solve_nan
+
+    n = A.shape[-1]
+    X = -_solve_nan(B, torch.cat([A, D], dim=-1))
+    T, R = X[..., :n], X[..., n:]
+    success = torch.isfinite(T).all(dim=(-2, -1)) \
+        & torch.isfinite(R).all(dim=(-2, -1))
+    return T, R, success
+
+
+@highest_precision()
 def spectral_radius(T: torch.Tensor, n_squarings: int = 10) -> torch.Tensor:
     """Largest |eigenvalue| of each ``T[..., :, :]`` via the Gelfand formula
     ρ(T) = lim_k ||T^k||^{1/k}, by repeated squaring with log-rescaling
@@ -116,3 +135,25 @@ def spectral_radius(T: torch.Tensor, n_squarings: int = 10) -> torch.Tensor:
         logc = 2.0 * logc + torch.log(torch.clamp(nrm, min=1e-300))
         M = M2 / torch.clamp(nrm, min=1e-300)[..., None, None]
     return torch.exp(logc / (2.0 ** n_squarings))
+
+
+def gecon_matrices(T, R, variables, equations_incidence=None):
+    """Split the solution into gEcon's P/Q/R/S blocks, on the host.
+
+    gEcon reports the policy partitioned by state (appears with a lag) vs
+    jump variables:  states_t = P states_{t-1} + Q eps_t;
+    jumps_t = R' states_{t-1} + S eps_t.  Returns (P, Q, R_out, S,
+    state_idx, jump_idx) as numpy arrays; ``T`` and ``R`` may be tensors on
+    any device."""
+    Tn = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) \
+        else np.asarray(T)
+    Rn = R.detach().cpu().numpy() if isinstance(R, torch.Tensor) \
+        else np.asarray(R)
+    n = Tn.shape[0]
+    state_idx = np.flatnonzero(np.abs(Tn).max(axis=0) > 1e-10)
+    jump_idx = np.setdiff1d(np.arange(n), state_idx)
+    P = Tn[np.ix_(state_idx, state_idx)]
+    Q = Rn[state_idx, :]
+    R_out = Tn[np.ix_(jump_idx, state_idx)]
+    S = Rn[jump_idx, :]
+    return P, Q, R_out, S, state_idx, jump_idx

@@ -13,6 +13,7 @@ dtype and on its device.  Failures are flags, never exceptions.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -79,7 +80,9 @@ def _flat(theta_free: torch.Tensor):
     def restore(t: torch.Tensor) -> torch.Tensor:
         return t.reshape(batch + t.shape[1:])
 
-    return theta_free.reshape(-1, theta_free.shape[-1]), restore
+    # an explicit draw count: a model with no free parameter has p = 0
+    n_draws = math.prod(batch)
+    return theta_free.reshape(n_draws, theta_free.shape[-1]), restore
 
 
 def _hybrid(f, u0, args, tol: float, maxiter: int):

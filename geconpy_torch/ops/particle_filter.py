@@ -5,7 +5,7 @@ Mirrors ``geconpy_tpu/ops/particle_filter.py:53-66``
 log-weights and one uniform offset (:func:`systematic_resample_indices`);
 :func:`systematic_resample` draws the offset from an explicit
 ``torch.Generator`` and gathers the particles.  The bootstrap particle
-filter of that file is not ported yet (ROADMAP Queue 1 item 11).
+filter of that file is not ported yet (ROADMAP Queue 1 item 8.6).
 """
 
 from __future__ import annotations

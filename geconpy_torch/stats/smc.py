@@ -21,9 +21,11 @@ there; the tempering bisection, the evidence increment, the weighted
 covariance and its Cholesky factor stay on the host in numpy float64, as in
 the reference, at one transfer of the log-likelihoods per stage.  The
 reference's ``interpret``, ``mesh`` and ``mesh_axis`` (TPU and multi-device
-only) are gone, ``settle`` goes to the sweep where the reference hands
-``policy`` (the port's policy solve is always the cycle-reduction kernel),
-and ``dtype`` is explicit where JAX reads its global x64 flag.
+only) are gone; ``policy`` goes to the sweep as in the reference (default
+``"xla"``, the adaptive float64 solve; ``"pallas"`` the cycle-reduction
+kernel K1), the keyword-only ``settle`` picks the sweep's settle (default
+``"xla"``, the reference's), and ``dtype`` is explicit where JAX reads its
+global x64 flag.
 """
 
 from __future__ import annotations
@@ -109,17 +111,19 @@ def fit_smc(
     resample_ess: float = 0.5,
     n_mh: int = 2,
     seed: int = 0,
-    settle: str = "pallas",
+    policy: str = "xla",
     max_stages: int = 200,
     kalman_settle: int = 32,
+    *,
+    settle: str = "xla",
     dtype: torch.dtype = torch.float32,
 ) -> SMCResult:
     """Sample the posterior by adaptive likelihood-tempered SMC.
 
     Every likelihood evaluation is one batched sweep over the whole cloud,
     ``ss_mod.build_batched_loglik(data, n_settle=kalman_settle,
-    policy="pallas", settle=settle)`` (the cycle-reduction kernel K1), on
-    ``ss_mod``'s device in ``dtype``: 1 for the prior cloud, then ``n_mh``
+    policy=policy, settle=settle)`` (``policy="pallas"``: the
+    cycle-reduction kernel K1), on ``ss_mod``'s device in ``dtype``: 1 for the prior cloud, then ``n_mh``
     per stage.  ``target_ess`` and ``resample_ess``
     are fractions of ``n_particles``.  The same ``seed`` gives the same
     result on the same device.
@@ -135,7 +139,7 @@ def fit_smc(
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
     loglik = _build_loglik(ss_mod, ss_mod.build_batched_loglik(
-        data, n_settle=kalman_settle, policy="pallas", settle=settle))
+        data, n_settle=kalman_settle, policy=policy, settle=settle))
 
     def mh_sweep(U, ll, lp, phi, L_prop, scale):
         """One RW-Metropolis sweep over all particles."""

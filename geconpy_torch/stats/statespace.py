@@ -19,7 +19,11 @@ fully observed one), ``build_logpost_extras`` (:800),
 :meth:`_build_policy_batch`), ``_build_pallas_policy_batch_diff`` (:1109,
 here :meth:`_build_policy_batch_diff`), ``build_batched_loglik`` (:860),
 ``build_batched_logpost`` (:965), ``build_batched_logpost_and_grad``
-(:1076) and ``data_from_prior`` (:1252).
+(:1076), ``sample_prior`` (:1244) and ``data_from_prior`` (:1252, with
+``pct_missing``), and the module-level ``statespace_from_gcn`` (:1355) and
+``data_from_prior`` (:1372).  The policy step routes ``solver`` as the
+reference's does (``"cycle_reduction"``, ``"gensys"`` on the device disk
+split of :mod:`~geconpy_torch.ops.gensys_jax`, ``"backward"``).
 
 The single-draw functions (``build_logpost``, ``build_logpost_extras``,
 ``build_solution_fn``) take ``u`` of shape (dim,), as the reference's do,
@@ -66,13 +70,15 @@ import torch
 from ..dists import from_ast
 from ..dists.core import Distribution, HalfNormal, PartialCorrelation
 from ..models.model import Model
-from ..models.perturbation import _ZERO_TOL, make_loglin_mask, spectral_radius
+from ..models.perturbation import (_ZERO_TOL, make_loglin_mask,
+                                   solve_policy_backward, spectral_radius)
 from ..ops.batched_cycle_reduction import (cycle_reduction,
                                            cycle_reduction_policy,
                                            static_pivot_order)
 from ..ops.batched_dare import dare_settle
 from ..ops.batched_filter import filter_tail
 from ..ops.batched_settle import settle_filter_loglik, settle_parts
+from ..ops.gensys_jax import attach_policy_gradient
 from ..ops.kalman import (dare_residual_settled, kalman_loglik_t,
                           stationary_kalman_loglik, stationary_loglik_from_P,
                           steady_state_filter_parts)
@@ -88,7 +94,8 @@ from ..symbolic import TimeAwareSymbol
 _log = logging.getLogger(__name__)
 
 __all__ = ["DSGEStateSpace", "EstimatedParameter", "LogPostExtras",
-           "CR_ITERS", "aggregated_obs_equation"]
+           "CR_ITERS", "aggregated_obs_equation", "statespace_from_gcn",
+           "data_from_prior"]
 
 _ROADMAP = "ROADMAP Queue 1"
 
@@ -260,11 +267,17 @@ class DSGEStateSpace:
         ``full_shock_covariance`` (Q = S L Lᵀ S, L from estimated partial
         correlations with an LKJ(``lkj_eta``) prior).  What the port cannot
         honour yet raises ``NotImplementedError`` naming its ROADMAP item:
-        ``solver="backward"``/``"gensys"``, and the other filters and
-        settle methods.  ``cycle_reduction_tol`` and
-        ``cycle_reduction_maxiter`` drive the XLA policy solve of
-        ``build_logpost`` and of ``policy="xla"``; the kernel paths run a
-        fixed number of cycle-reduction doublings, as the reference's do.
+        the other filters and settle methods.  ``solver`` picks the policy
+        solve of ``build_logpost``, ``build_solution_fn`` and
+        ``build_batched_loglik(policy="xla")``, as the reference's
+        ``policy`` step does (``statespace.py:597-613``):
+        ``"cycle_reduction"`` (the adaptive solve, with
+        ``cycle_reduction_tol`` and ``cycle_reduction_maxiter``),
+        ``"gensys"`` (the device disk split) or ``"backward"`` (T = -B⁻¹A);
+        the kernel paths (``policy="pallas"``, ``build_batched_logpost``)
+        need ``"cycle_reduction"`` and run a fixed number of doublings, as
+        the reference's do.  With any other solver the filter runs over
+        every variable, not the dynamic core.
         """
         if p0_init not in ("stationary", "diffuse"):
             raise ValueError(f"p0_init must be 'stationary' or 'diffuse', "
@@ -283,11 +296,7 @@ class DSGEStateSpace:
                 f"filter_type={filter_type!r} is not ported yet: only "
                 "'sequential', 'steady_state' and 'stationary' are "
                 f"({_ROADMAP} item 8)")
-        if solver in ("backward", "gensys"):
-            raise NotImplementedError(
-                f"solver={solver!r} is not ported yet: only 'cycle_reduction' "
-                f"is ({_ROADMAP} item 6)")
-        if solver != "cycle_reduction":
+        if solver not in ("cycle_reduction", "backward", "gensys"):
             raise ValueError("solver must be 'cycle_reduction', 'backward' "
                              f"or 'gensys', got {solver!r}")
         if kalman_settle_method in ("sda", "auto"):
@@ -409,7 +418,8 @@ class DSGEStateSpace:
                     if name not in self._obs_fns}
         for expr in self._obs_exprs.values():
             obs_refs |= {a.base_name for a in expr.atoms(TimeAwareSymbol)}
-        if obs_refs <= dynamic_names and len(plan.static_idx):
+        if solver == "cycle_reduction" and obs_refs <= dynamic_names \
+                and len(plan.static_idx):
             self._filter_core = np.asarray(plan.dynamic_idx)
         else:
             self._filter_core = np.arange(mf.n_variables)
@@ -670,6 +680,9 @@ class DSGEStateSpace:
         core = torch.as_tensor(filter_core, dtype=torch.int64)
         plan = model.static_reduction
         cr_tol, cr_maxiter = self._cr_tol, self._cr_maxiter
+        use_backward = self.solver == "backward"
+        gensys_solver = model.gensys_solver if self.solver == "gensys" \
+            else None
         diffuse = self.p0_init == "diffuse"
         n_corr, n_shocks = self._n_corr, model.functions.n_shocks
 
@@ -698,9 +711,20 @@ class DSGEStateSpace:
 
         @highest_precision()
         def policy(pre: dict):
-            T, R, solver_ok, _n_iter, _resid = solve_policy_reduced(
-                pre["A"], pre["B"], pre["C"], pre["D"], plan, tol=cr_tol,
-                maxiter=cr_maxiter)
+            A, B, C, D = (pre[m] for m in "ABCD")
+            if use_backward:
+                T, R, solver_ok = solve_policy_backward(A, B, D)
+            elif gensys_solver is not None:
+                # the disk split is primal only; T and R re-attach to the
+                # pencil through the implicit policy adjoint
+                with torch.no_grad():
+                    gres = gensys_solver(A.detach(), B.detach(), C.detach(),
+                                         D.detach())
+                T, R = attach_policy_gradient(A, B, C, D, gres.T, gres.R)
+                solver_ok = gres.success
+            else:
+                T, R, solver_ok, _n_iter, _resid = solve_policy_reduced(
+                    A, B, C, D, plan, tol=cr_tol, maxiter=cr_maxiter)
             return T, R, solver_ok
 
         @highest_precision()
@@ -859,6 +883,8 @@ class DSGEStateSpace:
         if settle not in ("xla", "pallas", "fused"):
             raise ValueError(
                 f"settle must be 'xla', 'pallas' or 'fused', got {settle!r}")
+        if policy == "pallas" and self.solver != "cycle_reduction":
+            raise ValueError("policy='pallas' requires solver='cycle_reduction'")
         pre_policy, policy_fn, post_policy = self._solution_pieces()
         if policy == "pallas":
             solve_batch = self._build_policy_batch()
@@ -1021,6 +1047,9 @@ class DSGEStateSpace:
         8.0e-4 (K6's system) relative to the float64 path, over the 5e-4
         bar, while their recursions are float64 anyway (see PERF.md).
         """
+        if self.solver != "cycle_reduction":
+            raise ValueError("build_batched_logpost requires "
+                             "solver='cycle_reduction'")
         if settle not in ("pallas", "xla"):
             raise ValueError(f"settle must be 'pallas' or 'xla', got {settle!r}")
         y, _loglik = self._data_and_loglik(data)
@@ -1073,8 +1102,17 @@ class DSGEStateSpace:
         return _value_and_grad(self.build_batched_logpost(data, **kwargs))
 
     # ------------------------------------------------------- prior utilities
+    def sample_prior(self, generator: torch.Generator, n_draws: int = 1000
+                     ) -> dict[str, np.ndarray]:
+        """``n_draws`` prior draws of each estimated parameter (constrained
+        space), parameter by parameter from ``generator`` (on the state
+        space's device), as host numpy arrays by name."""
+        self._check_generator(generator)
+        return {p.name: p.prior.sample(generator, (n_draws,)).cpu().numpy()
+                for p in self.estimated}
+
     def data_from_prior(self, generator: torch.Generator, periods: int = 200,
-                        params: dict | None = None):
+                        params: dict | None = None, pct_missing: float = 0.0):
         """Simulate an artificial dataset from one prior draw.
 
         Draws every estimated parameter from its prior with ``generator``
@@ -1082,9 +1120,14 @@ class DSGEStateSpace:
         space's device), solves the model at that point in float64 through
         the port's own policy solve, and simulates ``periods`` observations.  A prior draw without
         a stable first-order solution is replaced by the generator's next
-        draw (at most 100 draws; then it raises).  Returns
+        draw (at most 100 draws; then it raises).  ``pct_missing`` of the
+        cells become NaN, uniformly at random, from a mask that the
+        generator draws after everything else: the cells it leaves are the
+        ``pct_missing=0`` run's at the same generator state.  Returns
         (data (periods, k_obs) numpy float64, draw dict).
         """
+        if not 0.0 <= pct_missing < 1.0:
+            raise ValueError(f"pct_missing must be in [0, 1), got {pct_missing}")
         device = self._device()
         self._check_generator(generator)
         mf = self.model.functions
@@ -1150,6 +1193,11 @@ class DSGEStateSpace:
             for j, p in self._me_estimated:
                 data[:, j] += draw[p.name] * torch.randn(
                     periods, generator=generator, device=device, dtype=T.dtype)
+            if pct_missing > 0.0:
+                mask = torch.rand(data.shape, generator=generator,
+                                  device=device, dtype=T.dtype) < pct_missing
+                data = torch.where(mask, torch.full_like(data, torch.nan),
+                                   data)
         return data.cpu().numpy(), draw
 
 
@@ -1203,3 +1251,33 @@ def aggregated_obs_equation(var: str, method: str, period: int) -> str:
     if method == "first":
         return lags[-1]
     raise ValueError(f"unknown aggregation method {method!r}")
+
+
+def statespace_from_gcn(source_or_path, verbose: bool = True, *,
+                        device: str | torch.device = "cuda",
+                        **configure_kwargs) -> DSGEStateSpace:
+    """Build a Model from GCN and wrap it for estimation in one call
+    (``statespace.py:1355``), on ``device``.  With ``configure_kwargs``
+    (at least ``observed_states``) ``configure`` runs at once; otherwise
+    call it yourself."""
+    from ..models.model import model_from_gcn
+
+    model = model_from_gcn(source_or_path, verbose=verbose)
+    ss = DSGEStateSpace(model, device=device)
+    if configure_kwargs:
+        ss.configure(**configure_kwargs)
+    return ss
+
+
+def data_from_prior(statespace: DSGEStateSpace,
+                    generator: torch.Generator | None = None,
+                    periods: int = 200, params: dict | None = None):
+    """Module-level form of :meth:`DSGEStateSpace.data_from_prior`
+    (``statespace.py:1372``); without a ``generator``, one on the state
+    space's device seeded with 0 (the reference's default key is
+    ``PRNGKey(0)``)."""
+    if generator is None:
+        generator = torch.Generator(
+            device=statespace._device()).manual_seed(0)
+    return statespace.data_from_prior(generator, periods=periods,
+                                      params=params)

@@ -14,7 +14,9 @@ within 1e-12 of the plain version, float32 within the sweep's 5e-4) and K6
 shape the kernel does not take, which must raise.  The numeric steady
 state of ``open_rbc`` runs on the card as on the CPU (the same iterations
 and flags, x_ss at rel 1e-10), and its implicit gradient is finite inside
-the value+grad path at batch 512.
+the value+grad path at batch 512.  ``Model.solve_model`` runs on the card
+by default and gives the CPU's T and R (rel 1e-10) under each solver, and
+the device gensys over a batch on the card gives each draw's solo CPU run.
 """
 
 import numpy as np
@@ -624,3 +626,57 @@ def test_implicit_gradient_is_finite_at_batch_512(device):
     assert cycle_reduction.launches == 1 and dare_settle.launches == 1
     assert torch.isfinite(vals).float().mean() >= 0.99
     assert bool(torch.isfinite(grads).all())
+
+
+@pytest.mark.parametrize("name", ["rbc", "sw2007"])
+@pytest.mark.parametrize("solver", ["cycle_reduction", "gensys",
+                                    "gensys_host"])
+def test_solve_model_on_the_card_equals_the_cpu(device, name, solver):
+    """``solve_model`` runs on the card by default; T and R there are the
+    CPU's within rel 1e-10, with the same flags."""
+    model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name),
+                                         verbose=False)
+    gpu = model.solve_model(solver=solver, verbose=False)
+    cpu = model.solve_model(solver=solver, verbose=False, device="cpu")
+    assert gpu.T.device.type == "cuda" and gpu.success and cpu.success
+    assert (gpu.solver, gpu.eu) == (cpu.solver, cpu.eu)
+    for a, b in ((gpu.T, cpu.T), (gpu.R, cpu.R)):
+        gap = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert gap < 1e-10, (name, solver, gap)
+
+
+def test_backward_solve_model_on_the_card_equals_the_cpu(device):
+    import pathlib
+
+    path = pathlib.Path(__file__).parent / "_gcn_fixtures" / "backward_var.gcn"
+    model = geconpy_torch.model_from_gcn(path, verbose=False)
+    gpu = model.solve_model(verbose=False)
+    cpu = model.solve_model(verbose=False, device="cpu")
+    assert gpu.solver == "backward" and gpu.T.device.type == "cuda"
+    torch.testing.assert_close(gpu.T.cpu(), cpu.T, rtol=1e-12, atol=1e-14)
+
+
+def test_batched_gensys_on_the_card_equals_solo_cpu_runs(device):
+    """The device gensys over a batch of ``nk_3eq`` pencils (determinate,
+    indeterminate and singular draws) on the card: each draw's T, R and
+    flags as its solo run on the CPU (rel 1e-10)."""
+    from geconpy_torch.ops.gensys_jax import make_gensys_solver
+
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("nk_3eq"), verbose=False)
+    lins = [model.linearize_model(device="cpu", **kw) for kw in
+            (dict(), dict(phi_pi=2.0), dict(phi_pi=0.5, phi_x=0.0))]
+    pencils = [tuple(lin[k] for k in "ABCD") for lin in lins]
+    pencils.append(tuple(torch.zeros_like(X) for X in pencils[0]))
+    solve = make_gensys_solver(model.n_variables, model.lead_var_idx,
+                               model.n_shocks)
+    batch = solve(*(torch.stack([p[i] for p in pencils]).to(device)
+                    for i in range(4)))
+    assert batch.success.tolist() == [True, True, False, False]
+    for b, p in enumerate(pencils):
+        solo = solve(*p)
+        for key in ("existence", "uniqueness", "success", "split_dim"):
+            assert getattr(batch, key)[b].item() == getattr(solo, key).item()
+        if bool(solo.success):
+            for X, Y in ((batch.T[b], solo.T), (batch.R[b], solo.R)):
+                assert float((X.cpu() - Y).abs().max() / Y.abs().max()) < 1e-10

@@ -49,7 +49,7 @@ COPIED = ([f"lang/{p.name}" for p in sorted((REFERENCE / "lang").glob("*.py"))]
              for p in sorted((REFERENCE / "symbolic").glob("*.py"))]
           + [f"models/{m}.py" for m in ("primitives", "block", "special_blocks",
                                          "registry", "simplify", "timing")]
-          + ["dists/from_ast.py"])
+          + ["dists/from_ast.py", "ops/gensys_np.py"])
 
 _CHILD = f"""
 import json, sys

@@ -211,8 +211,10 @@ def test_configure_takes_the_reference_keywords(rbc_port):
     default, runs through both packages with the same estimated
     parameters; the sequential filter (with and without the diffuse
     initialisation), observation equations, ``aggregate`` and the full
-    shock covariance are accepted; values the port cannot honour yet raise
-    ``NotImplementedError`` naming their ROADMAP item, not ``TypeError``."""
+    shock covariance are accepted, and so are ``solver="gensys"`` and
+    ``"backward"``, whose log posterior is the reference's; values the port
+    cannot honour yet raise ``NotImplementedError`` naming their ROADMAP
+    item, not ``TypeError``."""
     import inspect
 
     model, kw = rbc_port
@@ -230,11 +232,23 @@ def test_configure_takes_the_reference_keywords(rbc_port):
     port_ss = PortStateSpace(model, device="cpu").configure(**call)
     assert port_ss.param_labels == ref_ss.param_labels
     assert (port_ss.solver, port_ss.p0_init) == ("cycle_reduction", "stationary")
-    for extra, item in ((dict(solver="gensys"), "item 6"),
-                        (dict(solver="backward"), "item 6"),
-                        (dict(filter_type="chandrasekhar"), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            PortStateSpace(model, device="cpu").configure(**{**call, **extra})
+    # the other solvers run, and give the reference's log posterior (-inf
+    # included: the backward solve of this forward-looking model is not a
+    # stable solution on either side)
+    data, _draw = ref_ss.data_from_prior(jax.random.PRNGKey(2), periods=24)
+    data = np.asarray(data)
+    for solver in ("gensys", "backward"):
+        kw = {**call, "solver": solver}
+        ss = PortStateSpace(model, device="cpu").configure(**kw)
+        ref_solver = RefStateSpace(ref_ss.model).configure(**kw)
+        assert ss.solver == solver
+        u = ref_solver.initial_position()
+        want = float(jax.jit(ref_solver.build_logpost(data))(u))
+        got = float(ss.build_logpost(data)(torch.as_tensor(np.asarray(u))))
+        np.testing.assert_allclose(got, want, rtol=1e-8)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        PortStateSpace(model, device="cpu").configure(
+            **{**call, "filter_type": "chandrasekhar"})
     for extra in (dict(filter_type="sequential"),
                   dict(filter_type="sequential", p0_init="diffuse",
                        diffuse_kappa=1e4, diffuse_presample=2)):

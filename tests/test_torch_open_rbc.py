@@ -143,7 +143,7 @@ def test_data_from_prior_and_smc_run_on_the_port(models):
     assert data.shape == (64, 1) and np.isfinite(data).all()
     assert set(draw) == set(ESTIMATED)
     res = geconpy_torch.fit_smc(ss, data, n_particles=128, n_mh=2, seed=0,
-                                settle="fused", resample_ess=0.6,
+                                policy="pallas", settle="fused", resample_ess=0.6,
                                 dtype=torch.float64)
     assert res.phi_schedule[-1] == 1.0
     assert np.isfinite(res.log_evidence)

@@ -72,7 +72,8 @@ def setup():
 def port_run(setup):
     _ref_ss, port_ss, data = setup
     return geconpy_torch.fit_smc(port_ss, data, n_particles=256, n_mh=2,
-                                 seed=0, dtype=torch.float64)
+                                 seed=0, policy="pallas", settle="pallas",
+                                 dtype=torch.float64)
 
 
 def test_resample_indices_equal_reference():
@@ -184,7 +185,8 @@ def test_smc_summary_is_a_plain_dict(port_run):
 
 def test_smc_same_seed_same_result(setup):
     _ref_ss, port_ss, data = setup
-    kw = dict(n_particles=128, n_mh=1, seed=7, dtype=torch.float64)
+    kw = dict(n_particles=128, n_mh=1, seed=7, policy="pallas",
+              settle="pallas", dtype=torch.float64)
     a = geconpy_torch.fit_smc(port_ss, data, **kw)
     b = geconpy_torch.fit_smc(port_ss, data, **kw)
     np.testing.assert_array_equal(a.samples, b.samples)
@@ -195,7 +197,8 @@ def test_smc_same_seed_same_result(setup):
 
 def test_smc_fused_and_pallas_settles_agree(setup):
     _ref_ss, port_ss, data = setup
-    kw = dict(n_particles=128, n_mh=1, seed=7, dtype=torch.float64)
+    kw = dict(n_particles=128, n_mh=1, seed=7, policy="pallas",
+              dtype=torch.float64)
     pallas = geconpy_torch.fit_smc(port_ss, data, settle="pallas", **kw)
     fused = geconpy_torch.fit_smc(port_ss, data, settle="fused", **kw)
     assert fused.log_evidence == pytest.approx(pallas.log_evidence, abs=1e-6)
@@ -213,8 +216,8 @@ def test_smc_resampling_at_every_stage_takes_real_steps(setup, seed):
     same posterior.)"""
     _ref_ss, port_ss, data = setup
     res = geconpy_torch.fit_smc(port_ss, data, n_particles=256, n_mh=2,
-                                seed=seed, resample_ess=0.6,
-                                dtype=torch.float64)
+                                seed=seed, policy="pallas", settle="pallas",
+                                resample_ess=0.6, dtype=torch.float64)
     steps = np.diff(np.concatenate([[0.0], res.phi_schedule]))
     assert res.phi_schedule[-1] == pytest.approx(1.0)
     assert (steps > 1e-6).all() and 3 <= len(steps) <= 10
@@ -236,9 +239,40 @@ def test_smc_agrees_with_reference_run(setup, port_run):
 def test_smc_refusals(setup):
     _ref_ss, port_ss, data = setup
     with pytest.raises(ValueError, match="target_ess"):
-        geconpy_torch.fit_smc(port_ss, data, target_ess=1.0)
+        geconpy_torch.fit_smc(port_ss, data, target_ess=1.0,
+                              policy="pallas")
     with pytest.raises(ValueError, match="'xla', 'pallas' or 'fused'"):
-        geconpy_torch.fit_smc(port_ss, data, settle="cuda")
+        geconpy_torch.fit_smc(port_ss, data, policy="pallas", settle="cuda")
+    with pytest.raises(ValueError, match="policy must be 'xla' or 'pallas'"):
+        geconpy_torch.fit_smc(port_ss, data, policy="cuda")
     with pytest.raises(RuntimeError, match="did not reach phi=1 in 1 stages"):
         geconpy_torch.fit_smc(port_ss, data, n_particles=64, max_stages=1,
+                              policy="pallas", settle="pallas",
                               dtype=torch.float64)
+
+
+def test_smc_default_policy_is_the_references(setup):
+    """``fit_smc``'s ``policy`` sits at the reference's position with the
+    reference's default, ``"xla"`` (the adaptive float64 policy solve, no
+    kernel), and ``settle`` defaults to the reference's ``"xla"``: the
+    default run of the port against the reference's default ``fit_smc``,
+    at the tolerances of ``test_smc_agrees_with_reference_run``."""
+    import inspect
+
+    ref_sig = inspect.signature(ref_smc.fit_smc).parameters
+    port_sig = inspect.signature(geconpy_torch.fit_smc).parameters
+    assert list(port_sig)[:10] == list(ref_sig)[:10]
+    assert port_sig["policy"].default == ref_sig["policy"].default == "xla"
+    assert port_sig["settle"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert port_sig["settle"].default == "xla"
+    ref_ss, port_ss, data = setup
+    port = geconpy_torch.fit_smc(port_ss, data, 256, 0.5, 0.5, 2, 0, "xla",
+                                 dtype=torch.float64)
+    ref = ref_smc.fit_smc(ref_ss, data, n_particles=256, n_mh=2, seed=0,
+                          interpret=True)
+    assert port.phi_schedule[-1] == pytest.approx(1.0)
+    assert abs(port.log_evidence - ref.log_evidence) < 2.0, \
+        (port.log_evidence, ref.log_evidence)
+    sd = ref.samples.std(axis=0)
+    gap = np.abs(port.samples.mean(axis=0) - ref.samples.mean(axis=0)) / sd
+    assert (gap < 0.5).all(), gap
