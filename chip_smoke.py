@@ -158,7 +158,42 @@ Phases, one line each (plus one line per kernel in phase 3):
    printed beside central differences (the reference's ``jax.grad`` has no
    rule for the disk split's complete QR; the port re-attaches T and R by
    the implicit policy adjoint); ms a value+grad call.  The phase prints
-   its seconds.
+   its seconds;
+11. every filter of the likelihood (``filters_phase``;
+   ``tools/filters_probe.py`` runs it alone), one line a step, each with
+   the counted kernel launches, the launches and host reads of one
+   profiled call (in 11b the SDA settle's, in 11c the parallel filter's,
+   in 11d ``filter_data``'s: a profile costs about 1 s a thousand
+   launches) and the peak device memory.  11a mixed-frequency SW-2007:
+   phase 5's configuration with y replaced by ``y_a``, its 4-quarter sum
+   (``aggregate``), kept every 4th quarter (``prepare_mixed_frequency_data``:
+   150 missing cells, mask period 4), the stationary filter, so the
+   cyclostationary one; ``build_batched_logpost_and_grad(settle="pallas")``
+   at batch 512 on phase 5's float32 draws: K4 once and K6 never, >= 99%
+   finite, every gradient finite, the first 64 draws within rel 5e-4 /
+   1e-3 of the float64 CPU path; us/draw (``FILTER_REPS`` calls) and the
+   filter state's size after lag augmentation.  11b phase 5's
+   configuration with ``kalman_settle_method`` ``"sda"`` and ``"auto"``
+   (``settle="xla"``): >= 99% finite, float64 values within rel 1e-6 of
+   the Hewer settle's on the same draws, the share of draws the SDA
+   certificate rejects, us/draw beside Hewer's in the same call.  11c
+   8b's configuration with ``filter_type`` ``"parallel"``,
+   ``"chandrasekhar"`` and ``"steady_state"``: value+grad us/draw at batch
+   512, K4 once; Chandrasekhar's float64 values within rel 1e-8 of the
+   sequential filter's, the parallel filter's within rel 1e-5 (its 1e-12
+   jitter of the process noise, the reference's, moves nearly exactly
+   observed draws by up to ~3e-6) and both within 1e-8 of the CPU on 16
+   draws (``EXACT_CHECK``),
+   the steady state's within 5e-4 / 1e-3 of its float64 CPU path on as
+   many draws; the
+   ``entry()`` twin of 8a with the parallel and Chandrasekhar filters (ms
+   a value+grad call, rel 1e-8 / 1e-6 to the CPU).  11d float64:
+   ``filter_data(smoother=True)`` on SW-2007 at the generating draw, card
+   vs CPU within rel 1e-10, ms a call; the disturbance smoother's
+   identities x_t = T x_{t-1} + R e_t and y_t = Z x_t + d + u_t within
+   1e-10 on the card; ``historical_shock_decomposition`` over 64 draws,
+   contributions plus initial within 1e-10 of the smoothed states, ms a
+   call; no kernel launched.  The phase prints its seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -235,6 +270,10 @@ SW_TRUTH = {
     "chabb": 0.7, "csigma": 1.4, "sigma_ea": 0.01, "sigma_eb": 0.01,
     "sigma_eg": 0.01, "sigma_eqs": 0.01, "sigma_em": 0.01,
     "sigma_epinf": 0.01, "sigma_ew": 0.01}
+
+# phase 11: timed repetitions of each value+grad path, and the draws of
+# the exact filters held to the float64 CPU path
+FILTER_REPS, EXACT_CHECK = 2, 16
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -1252,6 +1291,314 @@ def solved_model_phase(card, reset_counts, read_counts, sw_model, constant,
     print(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+def filters_phase(card, reset_counts, read_counts, sw_model, constant,
+                  vg_data, vg_draw, vg_batch) -> None:
+    """Phase 11: every filter of the likelihood, the smoothers and the
+    posterior tools (11a-11d, see the module docstring).  ``vg_data``,
+    ``vg_draw`` and ``vg_batch`` are phase 5's data, generating draw and
+    float32 draws (batch 512)."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.ops.kalman import _sda_settle, disturbance_smoother
+    from geconpy_torch.stats.estimation import PosteriorResult
+    from geconpy_torch.stats.posterior import (historical_shock_decomposition,
+                                               prepare_mixed_frequency_data)
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    batch = vg_batch.shape[0]
+    vg_kw = dict(observed_states=SW_OBS, constant_params=constant,
+                 filter_type="stationary", kalman_settle=N_SETTLE)
+
+    def timed_ms(fn, reps: int) -> float:
+        """ms a call over ``reps`` calls, after a call already made (the
+        counted one), so without a warm-up of its own."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def counted_call(tag, fn, want_k4=1):
+        """One call with the counts set to 0 just before and read just
+        after, and the peak memory of that call; K4 ``want_k4`` times and
+        no other kernel."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k_: n_ for k_, n_ in read_counts().items() if n_}
+        if counts != ({"cycle_reduction": want_k4} if want_k4 else {}):
+            raise AssertionError(f"{tag}: expected K4 x {want_k4} and no "
+                                 f"other kernel, got {counts}")
+        return out, counts, torch.cuda.max_memory_allocated(dev)
+
+    def check_vg(tag, vals, grads):
+        frac = float(torch.isfinite(vals).float().mean())
+        if vals.shape != (batch,) or vals.dtype != torch.float32 \
+                or frac < 0.99 or not bool(torch.isfinite(grads).all()):
+            raise AssertionError(f"{tag}: {tuple(vals.shape)} {vals.dtype}, "
+                                 f"{frac:.4f} finite, gradients finite "
+                                 f"{bool(torch.isfinite(grads).all())}")
+        return frac
+
+    def rel_to_cpu(tag, vals, grads, vag_cpu, n_check=VG_CHECK):
+        """Value and gradient rel of the first ``n_check`` draws to the
+        float64 CPU path (phase 5's bars)."""
+        v_ref, g_ref = vag_cpu(vg_batch[:n_check].double().cpu())
+        v_got = vals[:n_check].double().cpu()
+        g_got = grads[:n_check].double().cpu()
+        both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+        if float(both.double().mean()) < 0.99:
+            raise AssertionError(f"{tag}: finiteness mismatch with the CPU")
+        rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both]
+                      .max())
+        rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                       / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+        if rel_v > 5e-4 or rel_g > 1e-3:
+            raise AssertionError(f"{tag} off the float64 CPU path: value rel "
+                                 f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+        return rel_v, rel_g
+
+    def rel64(a, b):
+        both = torch.isfinite(a) & torch.isfinite(b)
+        return float(((a - b).abs() / b.abs())[both].max()), int(both.sum())
+
+    def profiled(fn) -> str:
+        t0 = time.perf_counter()
+        wall, dev_ms, n_k, reads = profile_call(fn)
+        return (f"one call profiled: wall {wall:.1f} ms, device {dev_ms:.1f} "
+                f"ms, {n_k} kernel launches, {reads} host reads (the "
+                f"profile took {time.perf_counter() - t0:.1f} s)")
+
+    # ---- 11a: mixed-frequency SW-2007 on the cyclostationary filter
+    t_step = time.perf_counter()
+    mf_kw = dict(vg_kw, observed_states=["y_a"] + SW_OBS[1:],
+                 aggregate={"y_a": ("y", "sum", 4)})
+    ss_mf = DSGEStateSpace(sw_model, device="cuda").configure(**mf_kw)
+    ss_mf_cpu = DSGEStateSpace(sw_model, device="cpu").configure(**mf_kw)
+    full, _draw = ss_mf.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+    full = np.array(full, dtype=np.float64)
+    full[:, :1] = prepare_mixed_frequency_data(full[3::4, :1], period=4,
+                                               n_high_freq=PERIODS)
+    n_nan = int(np.isnan(full).sum())
+    n_state = len(ss_mf._filter_core) * (ss_mf._obs_max_lag + 1)
+    if n_nan != 150:
+        raise AssertionError(f"11a: {n_nan} missing cells, 150 expected")
+    vag = ss_mf.build_batched_logpost_and_grad(full, settle="pallas")
+    (vals, grads), counts, peak = counted_call(
+        "11a", lambda: vag(vg_batch))
+    frac = check_vg("11a", vals, grads)
+    rel_v, rel_g = rel_to_cpu("11a", vals, grads,
+                              ss_mf_cpu.build_batched_logpost_and_grad(
+                                  full, settle="pallas"))
+    us = timed_ms(lambda: vag(vg_batch), FILTER_REPS) / batch * 1e3
+    print(f"phase 11a mixed-frequency SW-2007 (y_a = 4-quarter sum of y, "
+          f"every 4th quarter: {n_nan} missing cells, mask period 4; filter "
+          f"state {n_state} after lag augmentation), stationary filter, "
+          f"build_batched_logpost_and_grad(settle='pallas') at batch {batch}: "
+          f"launches {counts} (K6 none: the cyclostationary filter); finite "
+          f"{frac:.4f}; vs float64 CPU on {VG_CHECK}: value rel {rel_v:.3e}, "
+          f"gradient rel {rel_g:.3e}; {us:.2f} us/draw ({FILTER_REPS} reps); "
+          f"{profiled(lambda: vag(vg_batch))}; peak {peak} B; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 11b: the SDA and auto settles on phase 5's configuration
+    t_step = time.perf_counter()
+    ss_h = DSGEStateSpace(sw_model, device="cuda").configure(**vg_kw)
+    rec: dict = {}
+    ss_h.build_batched_logpost(vg_data, settle="pallas")(vg_batch.double(),
+                                                         record=rec)
+    _P, cert = _sda_settle(*rec["dare_settle"])
+    rejected = 1.0 - float(cert.double().mean())
+    v_hewer = ss_h.build_batched_logpost(vg_data)(vg_batch.double())
+    vag_h = ss_h.build_batched_logpost_and_grad(vg_data)
+    vag_h(vg_batch)
+    us_hewer = timed_ms(lambda: vag_h(vg_batch), FILTER_REPS) / batch * 1e3
+    parts = []
+    for method in ("sda", "auto"):
+        ss_m = DSGEStateSpace(sw_model, device="cuda").configure(
+            **vg_kw, kalman_settle_method=method)
+        vag = ss_m.build_batched_logpost_and_grad(vg_data)
+        (vals, grads), counts, peak = counted_call(
+            f"11b {method}", lambda: vag(vg_batch))
+        frac = check_vg(f"11b {method}", vals, grads)
+        rel, n_both = rel64(ss_m.build_batched_logpost(vg_data)(
+            vg_batch.double()), v_hewer)
+        if rel > 1e-6:
+            raise AssertionError(f"11b {method}: rel {rel:.3e} to the Hewer "
+                                 "settle")
+        us = timed_ms(lambda: vag(vg_batch), FILTER_REPS) / batch * 1e3
+        prof = profiled(lambda: vag(vg_batch)) if method == "sda" \
+            else "as sda's"
+        parts.append(f"{method}: launches {counts}, finite {frac:.4f}, rel "
+                     f"to Hewer {rel:.3e} on {n_both}/{batch} (float64 "
+                     f"draws), {us:.2f} us/draw, {prof}, peak {peak} B")
+    print(f"phase 11b settles on phase 5's configuration (stationary filter, "
+          f"settle='xla', batch {batch}): Hewer {us_hewer:.2f} us/draw; "
+          + "; ".join(parts) + f"; the SDA certificate rejects "
+          f"{rejected:.4f} of the draws; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 11c: the parallel, Chandrasekhar and steady-state filters
+    t_step = time.perf_counter()
+    seq_kw = dict(vg_kw, filter_type="sequential")
+    v_seq = DSGEStateSpace(sw_model, device="cuda").configure(
+        **seq_kw).build_batched_logpost(vg_data)(vg_batch.double())
+    parts = []
+    for ft in ("parallel", "chandrasekhar", "steady_state"):
+        t_ft = time.perf_counter()
+        ss_f = DSGEStateSpace(sw_model, device="cuda").configure(
+            **dict(seq_kw, filter_type=ft))
+        vag = ss_f.build_batched_logpost_and_grad(vg_data)
+        (vals, grads), counts, peak = counted_call(
+            f"11c {ft}", lambda: vag(vg_batch))
+        frac = check_vg(f"11c {ft}", vals, grads)
+        if ft == "steady_state":
+            rel_v, rel_g = rel_to_cpu(
+                "11c steady_state", vals, grads,
+                DSGEStateSpace(sw_model, device="cpu").configure(
+                    **dict(seq_kw, filter_type=ft))
+                .build_batched_logpost_and_grad(vg_data), EXACT_CHECK)
+            check = (f"vs float64 CPU on {EXACT_CHECK}: value rel "
+                     f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+        else:
+            v64 = ss_f.build_batched_logpost(vg_data)(vg_batch.double())
+            rel, n_both = rel64(v64, v_seq)
+            # the parallel filter adds 1e-12 (tr(RQR)/n + 1) I to the
+            # process noise, as the reference's does: on SW-2007's nearly
+            # exactly observed draws that moves the log-likelihood by up to
+            # ~3e-6 relative, the reference's own gap on these draws
+            bar = 1e-5 if ft == "parallel" else 1e-8
+            rel_cpu, _n = rel64(v64[:EXACT_CHECK].cpu(), DSGEStateSpace(
+                sw_model, device="cpu").configure(
+                **dict(seq_kw, filter_type=ft)).build_batched_logpost(
+                vg_data)(vg_batch[:EXACT_CHECK].double().cpu()))
+            if rel > bar or rel_cpu > 1e-8:
+                raise AssertionError(f"11c {ft}: rel {rel:.3e} to the "
+                                     f"sequential filter (bar {bar:g}), "
+                                     f"{rel_cpu:.3e} to the CPU")
+            check = (f"rel to the sequential filter {rel:.3e} on "
+                     f"{n_both}/{batch}, {int((((v64 - v_seq).abs() / v_seq.abs()) > 1e-8).sum())} "
+                     f"draws over 1e-8 (float64 draws; bar {bar:g}); rel to "
+                     f"the float64 CPU on {EXACT_CHECK}: {rel_cpu:.3e}")
+        us = timed_ms(lambda: vag(vg_batch), FILTER_REPS) / batch * 1e3
+        # a profile costs about 1 s a thousand launches (41.5 s for
+        # Chandrasekhar's 38,000): the sub-phase profiles one filter
+        prof = profiled(lambda: vag(vg_batch)) if ft == "parallel" \
+            else "not profiled"
+        parts.append(f"{ft}: launches {counts}, finite {frac:.4f}, {check}, "
+                     f"{us:.2f} us/draw, {prof}, peak {peak} B, "
+                     f"{time.perf_counter() - t_ft:.1f} s")
+    rbc = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"), verbose=False)
+    for ft in ("parallel", "chandrasekhar"):
+        kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+                  filter_type=ft)
+        ss_e = DSGEStateSpace(rbc, device="cuda").configure(**kw)
+        data_e, draw_e = ss_e.data_from_prior(
+            torch.Generator(device="cuda").manual_seed(0), periods=64)
+        u0 = ss_e.unconstrain(draw_e)
+
+        def value_grad(lp, u):
+            u = u.detach().requires_grad_(True)
+            val = lp(u)
+            (grad,) = torch.autograd.grad(val, u)
+            return val.detach(), grad
+
+        lp = ss_e.build_logpost(data_e)
+        (v, g), counts, peak = counted_call(
+            f"11c entry() {ft}", lambda: value_grad(lp, u0), want_k4=0)
+        v_c, g_c = value_grad(DSGEStateSpace(rbc, device="cpu").configure(
+            **kw).build_logpost(data_e), u0.cpu())
+        rel_v = abs(float(v) - float(v_c)) / abs(float(v_c))
+        rel_g = float((g.cpu() - g_c).abs().max() / g_c.abs().max())
+        if not math.isfinite(float(v)) or rel_v > 1e-8 or rel_g > 1e-6:
+            raise AssertionError(f"11c entry() {ft}: value rel {rel_v:.3e}, "
+                                 f"gradient rel {rel_g:.3e}")
+        ms = timed_ms(lambda: value_grad(lp, u0), 3)
+        parts.append(f"entry() twin {ft} (rbc_estimation, 64 periods, batch "
+                     f"1, float64): vs CPU value rel {rel_v:.3e}, gradient "
+                     f"rel {rel_g:.3e}, {ms:.3f} ms a value+grad call (3 "
+                     f"calls), peak {peak} B")
+    print(f"phase 11c filters on 8b's configuration (SW-2007, 22 parameters, "
+          f"7 observables, {PERIODS} periods, value+grad at batch {batch}): "
+          + "; ".join(parts) + f"; step {time.perf_counter() - t_step:.1f} s "
+          f"[{card}]", flush=True)
+
+    # ---- 11d: filter_data, the disturbance smoother, the decomposition
+    t_step = time.perf_counter()
+    ss_s = DSGEStateSpace(sw_model, device="cuda").configure(**seq_kw)
+    ss_s_cpu = DSGEStateSpace(sw_model, device="cpu").configure(**seq_kw)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fd = ss_s.filter_data(vg_data, params=vg_draw, smoother=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fd_cpu = ss_s_cpu.filter_data(vg_data, params=vg_draw, smoother=True)
+    rel_paths = _rel_gap(fd.paths, fd_cpu.paths)
+    rel_ll = abs(float(fd.loglik) - float(fd_cpu.loglik)) \
+        / abs(float(fd_cpu.loglik))
+    if fd.paths.device != vg_batch.device or rel_paths > 1e-10 \
+            or rel_ll > 1e-10 \
+            or fd.paths.shape != (PERIODS, sw_model.functions.n_variables):
+        raise AssertionError(f"11d filter_data: paths {tuple(fd.paths.shape)} "
+                             f"rel {rel_paths:.3e}, loglik rel {rel_ll:.3e}")
+    ms_fd = timed_ms(lambda: ss_s.filter_data(vg_data, params=vg_draw,
+                                              smoother=True), 2)
+    prof_fd = profiled(lambda: ss_s.filter_data(vg_data, params=vg_draw,
+                                                smoother=True))
+    u_gen = ss_s.unconstrain(vg_draw)
+    sol = ss_s.build_solution_fn(full_state=True)(u_gen)
+    y = torch.as_tensor(np.asarray(vg_data, dtype=np.float64),
+                        device=u_gen.device)
+    T, R, Z, d = sol["T_aug"], sol["R_aug"], sol["Z"], sol["d"]
+    dsm = disturbance_smoother(y, T, R, sol["Q"], Z, sol["H"], d=d)
+    xs, es, us_ = dsm.smoothed_mean, dsm.shocks, dsm.obs_noise
+    gap_x = float((xs[1:] - xs[:-1] @ T.mT - es[1:] @ R.mT).abs().max()
+                  / xs.abs().max())
+    gap_y = float((y - xs @ Z.mT - d - us_).abs().max() / y.abs().max())
+    if gap_x > 1e-10 or gap_y > 1e-10:
+        raise AssertionError(f"11d smoother identities: state {gap_x:.3e}, "
+                             f"observation {gap_y:.3e}")
+    U64 = vg_batch[:VG_CHECK].double()
+    result = PosteriorResult(
+        samples=ss_s.constrain(U64).cpu().numpy()[None],
+        unconstrained=U64.cpu().numpy()[None],
+        logp=np.zeros((1, VG_CHECK)), param_names=ss_s.param_labels,
+        diverging=np.zeros((1, VG_CHECK), dtype=bool),
+        accept_prob=np.ones((1, VG_CHECK)), step_size=np.full(1, 0.1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    dec = historical_shock_decomposition(ss_s, result, vg_data,
+                                         max_draws=VG_CHECK)
+    torch.cuda.synchronize()
+    peak_dec = torch.cuda.max_memory_allocated(dev)
+    gap_dec = float((dec.contributions.sum(dim=0) + dec.initial
+                     - dec.smoothed).abs().max() / dec.smoothed.abs().max())
+    if gap_dec > 1e-10 or any(read_counts().values()):
+        raise AssertionError(f"11d decomposition: parts vs smoothed "
+                             f"{gap_dec:.3e}, counts {read_counts()}")
+    ms_dec = timed_ms(lambda: historical_shock_decomposition(
+        ss_s, result, vg_data, max_draws=VG_CHECK), 1)
+    print(f"phase 11d SW-2007 float64: filter_data(smoother=True) at the "
+          f"generating draw ({PERIODS} x {fd.paths.shape[1]} paths): card vs "
+          f"CPU paths rel {rel_paths:.3e}, loglik rel {rel_ll:.3e}, "
+          f"{ms_fd:.1f} ms a call, {prof_fd}, peak {peak} B; disturbance "
+          f"smoother identities x_t = T x_(t-1) + R e_t {gap_x:.3e}, y_t = "
+          f"Z x_t + d + u_t {gap_y:.3e}; historical_shock_decomposition over "
+          f"{VG_CHECK} draws: contributions + initial vs smoothed "
+          f"{gap_dec:.3e}, {ms_dec:.1f} ms a call, peak "
+          f"{peak_dec} B; no kernel launched; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    print(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -1906,6 +2253,10 @@ def main() -> int:
     # ---- phase 10: the solved model, IRFs, moments, the device gensys
     solved_model_phase(card, reset_counts, read_counts, model, constant,
                        data32, batch[:XLA_BATCH])
+
+    # ---- phase 11: every filter of the likelihood, the smoothers
+    filters_phase(card, reset_counts, read_counts, model, constant, vg_data,
+                  vg_draw, vg_batch)
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():

@@ -23,7 +23,11 @@ twin of the reference's ``entry()``), the batched forward likelihood sweep
 value+gradient (``build_batched_logpost_and_grad``), SMC estimation on the
 sweep (``fit_smc``) and NUTS estimation (``fit``, ``policy="xla"`` or
 ``"pallas"``: one batched value+gradient call for all chains per leapfrog
-step), with hand-written CUDA kernels for cycle reduction, the
+step), every filter of the likelihood (sequential, parallel,
+Chandrasekhar, steady state, and stationary with the Hewer, SDA and auto
+settles, which routes mixed-frequency data to the cyclostationary filter),
+the smoothers behind ``DSGEStateSpace.filter_data``, the posterior's
+smoothed states and historical shock decomposition, with hand-written CUDA kernels for cycle reduction, the
 Riccati settle, the filter tail, the fused settle + tail and the DARE
 settle: every TPU kernel of the reference has its counterpart.
 A ``DSGEStateSpace`` runs on the GPU unless it is built with
@@ -41,6 +45,7 @@ from .models.model import Model, PolicySolution, model_from_gcn
 from .stats.covariance import (autocorrelation_matrix, autocovariance_matrix,
                                build_Q_matrix, stationary_covariance_matrix)
 from .stats.estimation import PosteriorResult, fit
+from .stats.posterior import prepare_mixed_frequency_data
 from .stats.smc import SMCResult, fit_smc
 from .stats.statespace import (DSGEStateSpace, data_from_prior,
                                statespace_from_gcn)
@@ -49,7 +54,7 @@ __all__ = ["DSGEStateSpace", "Model", "PolicySolution", "PosteriorResult",
            "SMCResult", "autocorrelation_matrix", "autocovariance_matrix",
            "build_Q_matrix", "data_from_prior", "fit", "fit_smc",
            "get_example_gcn", "impulse_response_function", "model_from_gcn",
-           "simulate", "stationary_covariance_matrix", "statespace_from_gcn"]
+           "prepare_mixed_frequency_data", "simulate", "stationary_covariance_matrix", "statespace_from_gcn"]
 
 
 def get_example_gcn(name: str = "rbc") -> str:

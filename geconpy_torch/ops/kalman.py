@@ -1,30 +1,36 @@
-"""The sequential Kalman filter of the single-draw log posterior, the
-stationary filter of the value+grad path and the steady-state (settle,
-then constant gain) filter of the sweep, batched.
+"""The Kalman filters, settles and smoothers of the likelihood, batched.
 
-Mirrors ``geconpy_tpu/ops/kalman.py`` as a subset: ``KalmanFilterResult``
-(:55), the masked filter step (:69-108, here :func:`_masked_filter_step`),
-``kalman_filter`` (:111) and ``kalman_loglik`` (:154), ``_spd_inverse`` and
-``_spd_inverse_logdet`` (:161-184), ``_dare_step`` (:220),
-``dare_residual_settled`` (:232), ``_stein_adjoint`` (:369), the implicit
-DARE adjoint ``_implicit_dare_P`` (:393-425), the Hewer settle
-``_make_hewer_stage`` (:428) and ``_hewer_settle`` (:452),
-``stationary_kalman_loglik`` (:565, ``settle_method="hewer"``),
-``stationary_loglik_from_P`` (:643), the exact filter step ``_filter_step``
-(:71, fully observed), ``steady_state_kalman_loglik`` (:679) and
-``steady_state_filter_parts`` (:752).  The last two are the sweep's
-``settle="xla"`` and the independent oracle of the settle kernels: they
-factor F by Cholesky where the kernels eliminate by Gauss-Jordan.  Every
-function takes leading batch
-dimensions (the reference's ``vmap``); the observations ``y`` (periods, k)
-are shared by the batch.
+Mirrors ``geconpy_tpu/ops/kalman.py``: ``KalmanFilterResult`` (:55),
+``KalmanSmootherResult`` (:65), the masked filter step (:69-108, here
+:func:`_masked_filter_step`), ``kalman_filter`` (:111) and
+``kalman_loglik`` (:154), ``_spd_inverse`` and ``_spd_inverse_logdet``
+(:161-184), the pivoted Gauss-Jordan inverse ``_gj_inverse`` (:187),
+``_dare_step`` (:220), ``dare_residual_settled`` (:232), the SDA settle
+``_sda_settle`` (:252-366), ``_stein_adjoint`` (:369), the implicit DARE
+adjoint ``_implicit_dare_P`` (:393-425), the Hewer settle
+``_make_hewer_stage`` (:428) and ``_hewer_settle`` (:452), the SDA + Hewer
+settle ``_auto_settle`` (:513-562), ``stationary_kalman_loglik`` (:565,
+every ``settle_method``), ``stationary_loglik_from_P`` (:643), the exact
+filter step ``_filter_step`` (:71, fully observed),
+``steady_state_kalman_loglik`` (:679) and ``steady_state_filter_parts``
+(:752), whose head runs the masked step where the data miss values, and
+the smoothers ``disturbance_smoother`` (:807-873, with
+``DisturbanceSmootherResult``, :800) and ``kalman_smoother`` (:876-910).
+The steady-state functions are the sweep's ``settle="xla"``, the
+independent oracle of the settle kernels (they factor F by Cholesky where
+the kernels eliminate by Gauss-Jordan) and the differentiable
+``filter_type="steady_state"`` likelihood.  Every function takes leading
+batch dimensions (the reference's ``vmap``); the observations ``y``
+(periods, k) are shared by the batch.
 
 The reference's ``while_loop``s stop each draw on its own criterion under
 ``vmap``.  Here a finished draw is frozen by a per-draw mask and the loop
 runs while any draw is unfinished, so the ``settled`` flags equal the
 reference's and a NaN in one rejected draw stops or poisons no other.
 The settles are primal only (the callers detach T, RQR, Z, H); gradients
-re-attach at the fixed point through :class:`_ImplicitDareP`.
+re-attach at the fixed point through :class:`_ImplicitDareP`.  The
+reference's reversed ``lax.scan``s of the smoothers are loops over the
+periods from the last.
 """
 
 from __future__ import annotations
@@ -33,15 +39,17 @@ from typing import NamedTuple
 
 import torch
 
+from .cycle_reduction import _solve_nan
 from .lyapunov import _doubling, amax_abs, solve_discrete_lyapunov
 from .precision import highest_precision
+from .tolerances import success_tol
 
-__all__ = ["KalmanFilterResult", "kalman_filter", "kalman_loglik",
-           "dare_residual_settled", "stationary_kalman_loglik",
+__all__ = ["DisturbanceSmootherResult", "KalmanFilterResult",
+           "KalmanSmootherResult", "dare_residual_settled",
+           "disturbance_smoother", "kalman_filter", "kalman_loglik",
+           "kalman_smoother", "stationary_kalman_loglik",
            "stationary_loglik_from_P", "steady_state_filter_parts",
            "steady_state_kalman_loglik"]
-
-_ROADMAP = "ROADMAP Queue 1"
 
 # Hewer stage schedule (``kalman.py:32-45``): _N_HEWER unconditional
 # stages, then adaptive stages (capped by ``n_settle`` in total) until
@@ -78,6 +86,43 @@ def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
     return _spd_inverse_logdet(S)[0]
 
 
+def _first_argmax(score: torch.Tensor) -> torch.Tensor:
+    """Index of the largest entry along the last dim, the first of equal
+    ones, and the first NaN where the row holds one: ``jnp.argmax``'s rule,
+    which ``torch.argmax`` does not promise on every device."""
+    n = score.shape[-1]
+    nan = torch.isnan(score)
+    top = torch.where(nan, torch.full_like(score, -torch.inf), score) \
+        .amax(dim=-1, keepdim=True)
+    hit = torch.where(nan.any(dim=-1, keepdim=True), nan, score == top)
+    idx = torch.arange(n, device=score.device)
+    return torch.where(hit, idx, n).amin(dim=-1)
+
+
+def _gj_inverse(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of a small general matrix by Gauss-Jordan elimination with
+    partial pivoting, without row swaps (``kalman.py:187``): the pivot row
+    is picked by a one-hot mask among the rows not used yet (ties to the
+    first row), each step is one outer-product update, and the rows end in
+    pivot order, so the inverse is Lᵀ R of the final [L | R].  A singular
+    input gives inf or NaN, which the callers' flags reject."""
+    n = W.shape[-1]
+    eye = torch.eye(n, dtype=W.dtype, device=W.device)
+    A = torch.cat([W, eye.expand(W.shape)], dim=-1)
+    used = torch.zeros(W.shape[:-1], dtype=torch.bool, device=W.device)
+    rows = torch.arange(n, device=W.device)
+    for i in range(n):
+        col = A[..., :, i]
+        score = torch.where(used, -torch.ones_like(col), col.abs())
+        onehot = (rows == _first_argmax(score)[..., None]).to(W.dtype)
+        pivrow = (onehot[..., :, None] * A).sum(dim=-2)
+        pivrow = pivrow / pivrow[..., i:i + 1]
+        # rows r != p: A[r] -= A[r, i] * pivrow; row p becomes pivrow
+        A = A - (col - onehot)[..., :, None] * pivrow[..., None, :]
+        used = used | (onehot > 0.5)
+    return A[..., :n].mT @ A[..., n:]
+
+
 def _dare_step(P, T, RQR, Z, H):
     """One predictive Riccati step  P⁺ = T (P − P Zᵀ S⁻¹ Z P) Tᵀ + RQR,
     S = Z P Zᵀ + H, symmetrised."""
@@ -99,13 +144,74 @@ def dare_residual_settled(T, RQR, Z, H, P) -> torch.Tensor:
 
 
 @highest_precision()
-def _stein_adjoint(A_cl, G):
+def _sda_settle(T, RQR, Z, H, P_open=None, maxiter: int = 28):
+    """DARE settle by the structure-preserving doubling algorithm on the
+    shifted equation in Y = P − RQR (``kalman.py:252-366``), which stays
+    well posed at H = 0; primal only.  Returns (P, certified): P is the
+    doubling transform applied at Y₀ = P_open − RQR, the exact
+    2^k-step Riccati iterate from the open-loop unconditional covariance
+    ``P_open`` (computed when not given), and ``certified`` is
+    :func:`dare_residual_settled` of it.  A draw stops once its from-zero
+    iterate and the start-dependent correction are both at a few machine
+    epsilons of the scale, or go non-finite."""
+    dtype = T.dtype
+    eps = float(torch.finfo(dtype).eps)
+    n = T.shape[-1]
+    eye = torch.eye(n, dtype=dtype, device=T.device)
+    if P_open is None:
+        P_open = _doubling(T, RQR, 1e-14, 40)
+    Y0 = P_open - RQR
+    Y0 = 0.5 * (Y0 + Y0.mT)
+    y0n = amax_abs(Y0)
+
+    Ht = H + Z @ RQR @ Z.mT
+    Hti = _spd_inverse(Ht)
+    ZtHti = Z.mT @ Hti
+    Ahat = T @ (eye - RQR @ (ZtHti @ Z))
+    Qt = Ahat @ RQR @ T.mT
+    A, G, Hk = Ahat.mT, ZtHti @ Z, 0.5 * (Qt + Qt.mT)
+
+    rtol = _HEWER_RTOL_EPS * eps
+    floor_scale = amax_abs(RQR)
+    done = torch.zeros(T.shape[:-2], dtype=torch.bool, device=T.device)
+    for _ in range(maxiter):
+        if bool(done.all()):
+            break
+        Wi = _gj_inverse(eye + G @ Hk)
+        WA = Wi @ A
+        A1 = A @ WA
+        WiG = Wi @ G
+        G1 = G + A @ WiG @ A.mT
+        H1 = Hk + (A.mT @ Hk) @ WA
+        G1 = 0.5 * (G1 + G1.mT)
+        H1 = 0.5 * (H1 + H1.mT)
+        delta = amax_abs(H1 - Hk)
+        scale = torch.maximum(amax_abs(H1), floor_scale)
+        # stop when the from-zero trajectory has stabilised and the
+        # start-dependent correction is below the same floor
+        a1n = amax_abs(A1)
+        finite = torch.isfinite(delta) & torch.isfinite(a1n)
+        now_done = ((delta <= rtol * scale)
+                    & (a1n * a1n * (n * y0n) <= rtol * scale)) | ~finite
+        live = ~done[..., None, None]
+        A = torch.where(live, A1, A)
+        G = torch.where(live, G1, G)
+        Hk = torch.where(live, H1, Hk)
+        done = done | now_done
+    corr = (A.mT @ (Y0 @ _gj_inverse(eye + G @ Y0))) @ A
+    P = RQR + Hk + 0.5 * (corr + corr.mT)
+    P = 0.5 * (P + P.mT)
+    return P, dare_residual_settled(T, RQR, Z, H, P)
+
+
+@highest_precision()
+def _stein_adjoint(A_cl, G, iters: int = _STEIN_ITERS):
     """W = Σ_k (A_clᵀ)^k G A_cl^k by Smith doubling with a per-draw exit:
     the adjoint of the DARE's Fréchet derivative dP⁺ = A_cl dP A_clᵀ."""
     eps = float(torch.finfo(G.dtype).eps)
     W, A_k = G, A_cl
     done = torch.zeros(G.shape[:-2], dtype=torch.bool, device=G.device)
-    for _ in range(_STEIN_ITERS):
+    for _ in range(iters):
         if bool(done.all()):
             break
         delta = A_k.mT @ W @ A_k
@@ -166,6 +272,39 @@ def _make_hewer_stage(Ts, RQRs, Zs, Hs):
     return hewer_stage
 
 
+def _adaptive_stages(stage, P, cap: int, stop, min_stages: int = 0):
+    """Apply ``stage`` to each draw's P up to ``cap`` times; a draw stops
+    once it has settled or its update went non-finite (not settled).
+    Settled: the update is within _HEWER_RTOL_EPS machine epsilons of
+    max|P|, or has stopped contracting (at least half the previous one)
+    while within sqrt(eps) of it; the first ``min_stages`` stages settle
+    no draw.  ``stop`` (per draw) marks draws that need no stage and count
+    as settled.  A per-draw freeze mask and one host read a stage stand
+    for the reference's ``while_loop`` under ``vmap``.
+    Returns (P, settled)."""
+    eps = float(torch.finfo(P.dtype).eps)
+    rtol_hard, rtol_soft = _HEWER_RTOL_EPS * eps, eps ** 0.5
+    prev_delta = torch.full(stop.shape, float("inf"), dtype=P.dtype,
+                            device=P.device)
+    settled, stop = stop.clone(), stop.clone()
+    for it in range(cap):
+        if bool(stop.all()):
+            break
+        P_new = stage(P)
+        delta = amax_abs(P_new - P)
+        scale = amax_abs(P_new)
+        plateau = (delta >= 0.5 * prev_delta) & (delta <= rtol_soft * scale)
+        finite = torch.isfinite(delta)
+        now_settled = (it >= min_stages) & finite \
+            & ((delta <= rtol_hard * scale) | plateau)
+        live = ~stop
+        P = torch.where(live[..., None, None], P_new, P)
+        prev_delta = torch.where(live, delta, prev_delta)
+        settled = torch.where(live, now_settled, settled)
+        stop = stop | (live & (now_settled | ~finite))
+    return P, settled
+
+
 @highest_precision()
 def _hewer_settle(Ts, RQRs, Zs, Hs, n_settle: int):
     """Hewer settle to the DARE fixed point (primal only): the open-loop
@@ -177,32 +316,25 @@ def _hewer_settle(Ts, RQRs, Zs, Hs, n_settle: int):
     hewer_stage = _make_hewer_stage(Ts, RQRs, Zs, Hs)
     for _ in range(_N_HEWER):
         P = hewer_stage(P)
+    no_stop = torch.zeros(Ts.shape[:-2], dtype=torch.bool, device=Ts.device)
+    return _adaptive_stages(hewer_stage, P, max(1, int(n_settle) - _N_HEWER),
+                            no_stop)
 
-    eps = float(torch.finfo(Ts.dtype).eps)
-    rtol_hard = _HEWER_RTOL_EPS * eps
-    rtol_soft = eps ** 0.5
-    extra_cap = max(1, int(n_settle) - _N_HEWER)
-    batch = Ts.shape[:-2]
-    prev_delta = torch.full(batch, float("inf"), dtype=Ts.dtype,
-                            device=Ts.device)
-    settled = torch.zeros(batch, dtype=torch.bool, device=Ts.device)
-    stop = torch.zeros_like(settled)
-    for _ in range(extra_cap):
-        if bool(stop.all()):
-            break
-        P_new = hewer_stage(P)
-        delta = amax_abs(P_new - P)
-        scale = amax_abs(P_new)
-        plateau = (delta >= 0.5 * prev_delta) & (delta <= rtol_soft * scale)
-        finite = torch.isfinite(delta)
-        # a non-finite delta ends the draw's loop but is NOT settled
-        now_settled = finite & ((delta <= rtol_hard * scale) | plateau)
-        live = ~stop
-        P = torch.where(live[..., None, None], P_new, P)
-        prev_delta = torch.where(live, delta, prev_delta)
-        settled = torch.where(live, now_settled, settled)
-        stop = stop | (live & (now_settled | ~finite))
-    return P, settled
+
+@highest_precision()
+def _auto_settle(Ts, RQRs, Zs, Hs, n_settle: int):
+    """The SDA settle, then Hewer stages for the draws its certificate
+    rejects (``kalman.py:513-562``): one loop whose stop flags start at the
+    certificate, so a fully certified batch runs no stage.  An uncertified
+    draw restarts from the open-loop unconditional covariance, never from
+    the SDA iterate; its first _N_HEWER stages cannot stop it, and the cap
+    is ``max(_N_HEWER + 1, n_settle)`` stages.  Returns (P, settled)."""
+    P_open = _doubling(Ts, RQRs, 1e-14, 40)
+    P_sda, cert = _sda_settle(Ts, RQRs, Zs, Hs, P_open)
+    P = torch.where(cert[..., None, None], P_sda, P_open)
+    return _adaptive_stages(_make_hewer_stage(Ts, RQRs, Zs, Hs), P,
+                            max(_N_HEWER + 1, int(n_settle)), cert,
+                            min_stages=_N_HEWER)
 
 
 @highest_precision()
@@ -245,22 +377,25 @@ def stationary_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 32,
     """Stationary (constant gain from t = 0) Kalman log-likelihood.
 
     The predictive covariance is pinned at the DARE fixed point, reached by
-    the primal Hewer settle on detached (T, RQR, Z, H); draws whose settle
-    did not converge within ``n_settle`` stages get -inf.  Only
-    ``settle_method="hewer"`` is ported.
+    a primal settle on detached (T, RQR, Z, H): ``settle_method="hewer"``
+    (the default; ``n_settle`` caps its stages), ``"sda"`` (the doubling
+    alone, uncertified draws rejected) or ``"auto"`` (the doubling, then
+    Hewer stages for the draws it does not certify).  Draws whose settle
+    did not converge get -inf.
     """
-    if settle_method in ("sda", "auto"):
-        raise NotImplementedError(
-            f"settle_method={settle_method!r} is not ported yet: only 'hewer' "
-            f"is ({_ROADMAP} item 7)")
-    if settle_method != "hewer":
+    if settle_method not in ("auto", "sda", "hewer"):
         raise ValueError(f"settle_method must be 'auto', 'sda' or 'hewer', "
                          f"got {settle_method!r}")
     if d is None:
         d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
     RQR = R @ Q @ R.mT
-    P, settled = _hewer_settle(*(X.detach() for X in (T, RQR, Z, H)),
-                               n_settle)
+    primal = tuple(X.detach() for X in (T, RQR, Z, H))
+    if settle_method == "auto":
+        P, settled = _auto_settle(*primal, n_settle)
+    elif settle_method == "sda":
+        P, settled = _sda_settle(*primal)
+    else:
+        P, settled = _hewer_settle(*primal, n_settle)
     ll = stationary_loglik_from_P(y, T, RQR, Z, H, d, P)
     return torch.where(settled, ll, torch.full_like(ll, -torch.inf))
 
@@ -388,20 +523,24 @@ def kalman_loglik(y, T, R, Q, Z, H, d=None, x0=None, P0=None):
 
 def _settle_exact(y_head, T, R, Q, Z, H, d):
     """The exact filter over ``y_head`` from the zero state and the
-    unconditional covariance: (ll_head, x_filt, P_filt, RQR, d)."""
-    if bool(torch.isnan(y_head).any()):
-        raise NotImplementedError(
-            "the steady-state filter with missing data (its masked settle) "
-            "is not ported: use filter_type='sequential' "
-            f"({_ROADMAP} item 7)")
+    unconditional covariance (differentiable through its Lyapunov
+    adjoint): (ll_head, x_filt, P_filt, RQR, d).  Where ``y_head`` misses
+    values it runs the masked step, as the reference's head always does;
+    on fully observed data the plain step, which gives the same numbers
+    with fewer operations."""
+    masked = bool(torch.isnan(y_head).any())
     if d is None:
         d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
     RQR = R @ Q @ R.mT
-    P = _doubling(T, RQR, 1e-12, 60)
+    P = solve_discrete_lyapunov(T, RQR)
     x = T.new_zeros(T.shape[:-1])
     ll = T.new_zeros(T.shape[:-2])
     for t in range(y_head.shape[0]):
-        x, P, ll_t = _filter_step(T, RQR, Z, d, H, x, P, y_head[t].to(T.dtype))
+        y_t = y_head[t].to(T.dtype)
+        if masked:
+            x, P, ll_t = _masked_filter_step(T, RQR, Z, d, H, x, P, y_t)[:3]
+        else:
+            x, P, ll_t = _filter_step(T, RQR, Z, d, H, x, P, y_t)
         ll = ll + ll_t
     return ll, x, P, RQR, d
 
@@ -458,3 +597,94 @@ def steady_state_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 48):
             ll = ll + const - 0.5 * (v * (Finv @ v[..., None])[..., 0]).sum(-1)
             x = (M @ x[..., None])[..., 0] + (TK @ yd[..., None])[..., 0]
     return torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -torch.inf))
+
+
+class KalmanSmootherResult(NamedTuple):
+    smoothed_mean: torch.Tensor     # (..., periods, n) E[x_t | y_{1:T}]
+    smoothed_cov: torch.Tensor      # (..., periods, n, n)
+
+
+class DisturbanceSmootherResult(NamedTuple):
+    shocks: torch.Tensor            # (..., periods, n_shocks) smoothed e_t
+    obs_noise: torch.Tensor         # (..., periods, k) smoothed u_t
+    smoothed_mean: torch.Tensor     # (..., periods, n) E[x_t | y_{1:T}]
+
+
+@highest_precision()
+def disturbance_smoother(y, T, R, Q, Z, H, d=None, x0=None, P0=None
+                         ) -> DisturbanceSmootherResult:
+    """Durbin-Koopman disturbance smoother (``kalman.py:807-873``): the
+    filter forward, then the backward recursion r_{t-1} = Zᵀ F⁻¹ v_t +
+    Lᵀ r_t, with the smoothed shocks e_t = Q Rᵀ r_{t-1}, measurement
+    errors u_t = H (F⁻¹ v_t − K_predᵀ r_t) on the observed rows, and
+    states x_t = x_{t|t-1} + P_{t|t-1} r_{t-1}.  They satisfy
+    x_t = T x_{t-1} + R e_t and, where observed, y_t = Z x_t + d + u_t.
+    NaN = missing, masked as in :func:`kalman_filter`."""
+    res = kalman_filter(y, T, R, Q, Z, H, d, x0, P0)
+    y = y.to(T.dtype)
+    if d is None:
+        d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
+    QRt = Q @ R.mT
+    r = T.new_zeros(T.shape[:-1])
+    eps, noise, states = [], [], []
+    for t in reversed(range(y.shape[-2])):
+        y_t = y[..., t, :]
+        x_pred = res.predicted_mean[..., t, :]
+        P_pred = res.predicted_cov[..., t, :, :]
+        mask = torch.isfinite(y_t)
+        maskf = mask.to(T.dtype)
+        y_eff = torch.where(mask, y_t, torch.zeros_like(y_t))
+        Z_eff = Z * maskf[..., :, None]
+        d_eff = d * maskf
+        H_eff = H * (maskf[..., :, None] * maskf[..., None, :]) \
+            + torch.diag_embed(1.0 - maskf)
+        v = y_eff - (Z_eff @ x_pred[..., None])[..., 0] - d_eff
+        F = Z_eff @ P_pred @ Z_eff.mT + H_eff
+        Finv = _spd_inverse(F)
+        Fv = (Finv @ v[..., None])[..., 0]
+        K_pred = T @ P_pred @ Z_eff.mT @ Finv
+        L = T - K_pred @ Z_eff
+        # r_{t-1} = Zᵀ F⁻¹ v_t + Lᵀ r_t; e_t is DK's eta_{t-1}, so it reads
+        # r_{t-1}, while the measurement error reads the carry r_t
+        r_prev = (Z_eff.mT @ Fv[..., None])[..., 0] \
+            + (L.mT @ r[..., None])[..., 0]
+        eps.append((QRt @ r_prev[..., None])[..., 0])
+        noise.append((H_eff @ (Fv - (K_pred.mT @ r[..., None])[..., 0])
+                      [..., None])[..., 0] * maskf)
+        states.append(x_pred + (P_pred @ r_prev[..., None])[..., 0])
+        r = r_prev
+    return DisturbanceSmootherResult(*(torch.stack(xs[::-1], dim=-2)
+                                       for xs in (eps, noise, states)))
+
+
+@highest_precision()
+def kalman_smoother(y, T, R, Q, Z, H, d=None, x0=None, P0=None
+                    ) -> KalmanSmootherResult:
+    """Rauch-Tung-Striebel smoother over :func:`kalman_filter`'s output
+    (``kalman.py:876-910``): J = P_filt Tᵀ (P_pred + ridge)⁻¹, the ridge
+    ``success_tol(dtype, 1e-9, 100)`` x (tr P_pred / n), because P_pred
+    is rank-deficient with fewer shocks than states; a singular draw gives
+    NaN.  NaN = missing."""
+    res = kalman_filter(y, T, R, Q, Z, H, d, x0, P0)
+    n = T.shape[-1]
+    eye = torch.eye(n, dtype=T.dtype, device=T.device)
+    rel = success_tol(T.dtype, base=1e-9, eps_multiple=100.0)
+    x_s = res.filtered_mean[..., -1, :]
+    P_s = res.filtered_cov[..., -1, :, :]
+    means, covs = [x_s], [P_s]
+    for t in reversed(range(res.filtered_mean.shape[-2] - 1)):
+        x_f = res.filtered_mean[..., t, :]
+        P_f = res.filtered_cov[..., t, :, :]
+        x_pn = res.predicted_mean[..., t + 1, :]
+        P_pn = res.predicted_cov[..., t + 1, :, :]
+        ridge = rel * (torch.diagonal(P_pn, dim1=-2, dim2=-1).sum(-1) / n
+                       + 1e-30)
+        P_reg = P_pn + ridge[..., None, None] * eye
+        J = _solve_nan(P_reg.mT, (P_f @ T.mT).mT).mT
+        x_s = x_f + (J @ (x_s - x_pn)[..., None])[..., 0]
+        P_s = P_f + J @ (P_s - P_pn) @ J.mT
+        P_s = 0.5 * (P_s + P_s.mT)
+        means.append(x_s)
+        covs.append(P_s)
+    return KalmanSmootherResult(torch.stack(means[::-1], dim=-2),
+                                torch.stack(covs[::-1], dim=-3))

@@ -3,7 +3,7 @@ likelihood sweep and the batched value+gradient.
 
 Mirrors ``geconpy_tpu/stats/statespace.py`` (``DSGEStateSpace``) as a
 subset: ``configure`` (:102-336, the reference's keywords and defaults;
-the ``sequential``, ``steady_state`` and ``stationary`` filters), the
+every filter and settle method), the
 observation equations (``_setup_observation_equations``, :340, and
 ``aggregated_obs_equation``, :1335), the full shock covariance (:652-669,
 ``_vine_cholesky_np``, :1318), the cache of
@@ -11,9 +11,11 @@ built functions (:45, here ``_cached_build``), ``LogPostExtras`` (:74),
 ``unconstrain``/``constrain``/``initial_position`` (:501, a
 ``torch.Generator`` in place of a key)/``param_labels``, ``build_logpost``
 (:516), ``build_solution_fn`` (:525), ``_solution_pieces`` (:544, with the
-XLA policy step ``solve_policy_reduced``), ``_data_and_loglik`` (:717, the
-sequential branch with and without ``p0_init="diffuse"`` and the stationary
-fully observed one), ``build_logpost_extras`` (:800),
+XLA policy step ``solve_policy_reduced``), ``_data_and_loglik`` (:717-797,
+every filter: the sequential and parallel ones with and without
+``p0_init="diffuse"``, Chandrasekhar, steady state, and the stationary one,
+which routes data with periodic missingness to the cyclostationary
+filter), ``build_logpost_extras`` (:800), ``filter_data`` (:1202),
 ``_build_design`` (:394), ``_augment_lags`` (:457),
 ``_static_pivot_order`` (:1092), ``_build_pallas_policy_batch`` (:1154, here
 :meth:`_build_policy_batch`), ``_build_pallas_policy_batch_diff`` (:1109,
@@ -79,10 +81,16 @@ from ..ops.batched_dare import dare_settle
 from ..ops.batched_filter import filter_tail
 from ..ops.batched_settle import settle_filter_loglik, settle_parts
 from ..ops.gensys_jax import attach_policy_gradient
-from ..ops.kalman import (dare_residual_settled, kalman_loglik_t,
+from ..ops.chandrasekhar import chandrasekhar_loglik
+from ..ops.cyclo_kalman import (cyclostationary_kalman_loglik,
+                                detect_mask_period)
+from ..ops.kalman import (dare_residual_settled, kalman_filter,
+                          kalman_loglik_t, kalman_smoother,
                           stationary_kalman_loglik, stationary_loglik_from_P,
-                          steady_state_filter_parts)
+                          steady_state_filter_parts,
+                          steady_state_kalman_loglik)
 from ..ops.lyapunov import amax_abs
+from ..ops.parallel_kalman import parallel_kalman_filter
 from ..ops.precision import highest_precision
 from ..ops.static_reduction import (expand_reduced_policy,
                                     finalize_reduced_policy,
@@ -93,11 +101,10 @@ from ..symbolic import TimeAwareSymbol
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["DSGEStateSpace", "EstimatedParameter", "LogPostExtras",
+__all__ = ["DSGEStateSpace", "EstimatedParameter", "FilteredStates",
+           "LogPostExtras",
            "CR_ITERS", "aggregated_obs_equation", "statespace_from_gcn",
            "data_from_prior"]
-
-_ROADMAP = "ROADMAP Queue 1"
 
 #: cycle-reduction doublings of the sweep's policy solve (the reference's
 #: ``cr_iters`` default)
@@ -147,6 +154,14 @@ class LogPostExtras(NamedTuple):
     deterministic_norm: torch.Tensor
     stochastic_norm: torch.Tensor
     spectral_radius: torch.Tensor
+
+
+class FilteredStates(NamedTuple):
+    """What :meth:`DSGEStateSpace.filter_data` returns."""
+
+    paths: torch.Tensor             # (periods, n_variables)
+    variable_names: list[str]
+    loglik: torch.Tensor            # () the data's log-likelihood
 
 
 def _one_or_many(fn):
@@ -257,18 +272,22 @@ class DSGEStateSpace:
         ``filter_type`` is ``"sequential"`` (the default: the exact Kalman
         filter with missing data, from the unconditional covariance or,
         with ``p0_init="diffuse"``, from ``diffuse_kappa``·I, dropping the
-        first ``diffuse_presample`` periods), ``"steady_state"`` (the
-        forward sweep's settle then constant gain) or ``"stationary"`` (the
-        value+grad path's constant gain from the DARE, with the
-        ``"hewer"`` settle method).  The keywords and defaults are the
+        first ``diffuse_presample`` periods), ``"parallel"`` (the same
+        filter as an associative scan over the periods, ``p0_init``
+        honoured), ``"chandrasekhar"`` (the exact filter by the
+        Chandrasekhar recursions, fully observed data), ``"steady_state"``
+        (``kalman_settle`` exact steps, then constant gain; fully observed
+        data) or ``"stationary"`` (constant gain from the DARE fixed point,
+        reached by ``kalman_settle_method`` ``"hewer"``, ``"sda"`` or
+        ``"auto"``; data whose missingness repeats with a period, such as
+        mixed-frequency data from ``prepare_mixed_frequency_data``, take
+        the cyclostationary filter).  The keywords and defaults are the
         reference's, and so are ``observation_equations`` (GCN
         expressions in the model's variables, lags allowed: the filter
         state gets one block per lag), ``aggregate`` and
         ``full_shock_covariance`` (Q = S L Lᵀ S, L from estimated partial
-        correlations with an LKJ(``lkj_eta``) prior).  What the port cannot
-        honour yet raises ``NotImplementedError`` naming its ROADMAP item:
-        the other filters and settle methods.  ``solver`` picks the policy
-        solve of ``build_logpost``, ``build_solution_fn`` and
+        correlations with an LKJ(``lkj_eta``) prior).  ``solver`` picks the
+        policy solve of ``build_logpost``, ``build_solution_fn`` and
         ``build_batched_loglik(policy="xla")``, as the reference's
         ``policy`` step does (``statespace.py:597-613``):
         ``"cycle_reduction"`` (the adaptive solve, with
@@ -291,19 +310,10 @@ class DSGEStateSpace:
                                "stationary", "chandrasekhar"):
             raise ValueError("filter_type must be 'sequential', 'parallel', "
                              "'steady_state', 'stationary' or 'chandrasekhar'")
-        if filter_type in ("parallel", "chandrasekhar"):
-            raise NotImplementedError(
-                f"filter_type={filter_type!r} is not ported yet: only "
-                "'sequential', 'steady_state' and 'stationary' are "
-                f"({_ROADMAP} item 8)")
         if solver not in ("cycle_reduction", "backward", "gensys"):
             raise ValueError("solver must be 'cycle_reduction', 'backward' "
                              f"or 'gensys', got {solver!r}")
-        if kalman_settle_method in ("sda", "auto"):
-            raise NotImplementedError(
-                f"kalman_settle_method={kalman_settle_method!r} is not ported "
-                f"yet: only 'hewer' is ({_ROADMAP} item 7)")
-        if kalman_settle_method != "hewer":
+        if kalman_settle_method not in ("auto", "sda", "hewer"):
             raise ValueError("kalman_settle_method must be 'auto', 'sda' or "
                              f"'hewer', got {kalman_settle_method!r}")
         model = self.model
@@ -944,16 +954,59 @@ class DSGEStateSpace:
     def _data_and_loglik(self, data: np.ndarray):
         """Validate the dataset and pick the differentiable Kalman
         log-likelihood of the configured filter (``statespace.py:717-797``):
-        the sequential filter (NaN = missing), from the unconditional
-        covariance or, with ``p0_init="diffuse"``, from
+        the sequential or parallel filter (NaN = missing), from the
+        unconditional covariance or, with ``p0_init="diffuse"``, from
         ``diffuse_kappa``·I with the first ``diffuse_presample`` periods
-        dropped; or the stationary filter on fully observed data."""
+        dropped; the Chandrasekhar and steady-state filters on fully
+        observed data; the stationary filter, or on data whose missingness
+        repeats with a period the cyclostationary filter."""
         data = np.asarray(data, dtype=np.float64)
         if data.ndim != 2 or data.shape[1] != len(self.observed_states):
             raise ValueError(f"data must be (periods, "
                              f"{len(self.observed_states)}), got {data.shape}")
-        if self.filter_type == "sequential":
-            y = torch.as_tensor(data, device=self._device())
+        y = torch.as_tensor(data, device=self._device())
+        filter_type = self.filter_type
+        n_settle = self.kalman_settle
+        if filter_type in ("steady_state", "stationary", "chandrasekhar") \
+                and bool(np.isnan(data).any()):
+            if filter_type != "stationary":
+                raise ValueError(
+                    f"filter_type={filter_type!r} requires fully observed "
+                    "data (no NaN); use 'sequential' or 'stationary' "
+                    "(periodic patterns only)")
+            finite_mask = np.isfinite(data)
+            p = detect_mask_period(finite_mask)
+            if p is None:
+                raise ValueError(
+                    "filter_type='stationary' with missing data requires a "
+                    "periodic missingness pattern (mixed-frequency, see "
+                    "prepare_mixed_frequency_data); use 'sequential' for "
+                    "arbitrary missingness")
+            pattern = finite_mask[:p]
+
+            def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
+                return cyclostationary_kalman_loglik(
+                    y_, T_, R_, Q_, Z_, H_, d=d, mask_pattern=pattern,
+                    n_settle=n_settle)
+        elif filter_type == "stationary":
+            method = self.kalman_settle_method
+
+            def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
+                return stationary_kalman_loglik(y_, T_, R_, Q_, Z_, H_, d=d,
+                                                n_settle=n_settle,
+                                                settle_method=method)
+        elif filter_type == "chandrasekhar":
+            _loglik = chandrasekhar_loglik
+        elif filter_type == "steady_state":
+            def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
+                return steady_state_kalman_loglik(y_, T_, R_, Q_, Z_, H_,
+                                                  d=d, n_settle=n_settle)
+        else:
+            if filter_type == "parallel":
+                def loglik_t(*args, **kw):
+                    return parallel_kalman_filter(*args, **kw).loglik_t
+            else:
+                loglik_t = kalman_loglik_t
             if self.p0_init == "diffuse":
                 kappa, pre = self.diffuse_kappa, self.diffuse_presample
 
@@ -961,30 +1014,11 @@ class DSGEStateSpace:
                     eye = torch.eye(T_.shape[-1], dtype=T_.dtype,
                                     device=T_.device)
                     P0 = (kappa * eye).expand(T_.shape)
-                    return kalman_loglik_t(y_, T_, R_, Q_, Z_, H_, d=d,
-                                           P0=P0)[..., pre:].sum(-1)
+                    return loglik_t(y_, T_, R_, Q_, Z_, H_, d=d,
+                                    P0=P0)[..., pre:].sum(-1)
             else:
                 def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
-                    return kalman_loglik_t(y_, T_, R_, Q_, Z_, H_,
-                                           d=d).sum(-1)
-            return y, _loglik
-        if self.filter_type != "stationary":
-            raise NotImplementedError(
-                f"the differentiable likelihood of filter_type="
-                f"{self.filter_type!r} is not ported yet: only 'sequential' "
-                f"and 'stationary' are ({_ROADMAP} item 8)")
-        if bool(np.isnan(data).any()):
-            raise NotImplementedError(
-                "filter_type='stationary' with missing data needs the "
-                f"cyclostationary filter, not ported yet ({_ROADMAP} item 7)")
-        y = torch.as_tensor(data, device=self._device())
-        n_settle, method = self.kalman_settle, self.kalman_settle_method
-
-        def _loglik(y_, T_, R_, Q_, Z_, H_, d=None):
-            return stationary_kalman_loglik(y_, T_, R_, Q_, Z_, H_, d=d,
-                                            n_settle=n_settle,
-                                            settle_method=method)
-
+                    return loglik_t(y_, T_, R_, Q_, Z_, H_, d=d).sum(-1)
         return y, _loglik
 
     def _build_policy_batch_diff(self, cr_iters: int):
@@ -1055,7 +1089,11 @@ class DSGEStateSpace:
         y, _loglik = self._data_and_loglik(data)
         pre_policy, _, post_policy = self._solution_pieces()
         solve_batch = self._build_policy_batch_diff(cr_iters)
-        use_dare = settle == "pallas" and self.filter_type == "stationary"
+        # missing data take the cyclostationary filter, never the DARE
+        # kernel, whose fixed point assumes every series observed
+        use_dare = (settle == "pallas" and self.filter_type == "stationary"
+                    and not bool(np.isnan(np.asarray(data, dtype=np.float64))
+                                 .any()))
 
         @highest_precision()
         def batched(U: torch.Tensor, record: dict | None = None
@@ -1100,6 +1138,41 @@ class DSGEStateSpace:
         draws) are zeroed, the NUTS kernel's convention.  ``kwargs`` go to
         :meth:`build_batched_logpost`."""
         return _value_and_grad(self.build_batched_logpost(data, **kwargs))
+
+    # ------------------------------------------------------ filter/smoother
+    def filter_data(self, data: np.ndarray, params: dict | None = None,
+                    smoother: bool = False) -> "FilteredStates":
+        """Kalman-filter (or RTS-smooth) ``data`` at one parameter point
+        (``statespace.py:1202-1243``).  ``params`` maps estimated-parameter
+        names to constrained values; the others (all, by default) take
+        their GCN initial value or prior mean.  The filter runs over every
+        variable, from the XLA policy.  Returns :class:`FilteredStates`:
+        the filtered (or smoothed) paths (periods, n_variables) on the
+        state space's device, the variable names, and the log-likelihood
+        (the reference returns a DataFrame with it in ``attrs``)."""
+        if params is None:
+            u = self.initial_position()
+        else:
+            vals = []
+            for p_ in self.estimated:
+                if p_.name in params:
+                    vals.append(float(params[p_.name]))
+                else:
+                    v = p_.initial if p_.initial is not None \
+                        else p_.prior.mean()
+                    vals.append(float(v))
+            u = self.unconstrain(np.asarray(vals))
+        sol = self.build_solution_fn(full_state=True)(u)
+        y = torch.as_tensor(np.asarray(data, dtype=np.float64),
+                            device=self._device())
+        args = (y, sol["T_aug"], sol["R_aug"], sol["Q"], sol["Z"], sol["H"])
+        res = kalman_filter(*args, d=sol["d"])
+        n = self.model.functions.n_variables
+        means = kalman_smoother(*args, d=sol["d"]).smoothed_mean \
+            if smoother else res.filtered_mean
+        return FilteredStates(means[:, :n],
+                              list(self.model.functions.variable_names),
+                              res.loglik)
 
     # ------------------------------------------------------- prior utilities
     def sample_prior(self, generator: torch.Generator, n_draws: int = 1000

@@ -166,12 +166,29 @@ def test_stationary_loglik_value_and_gradient_match_reference():
 
 
 def test_sda_and_auto_settles_are_not_ported():
-    T, R, Q, Z, H, d = (torch.as_tensor(x) for x in _random_systems())
-    y = torch.zeros((4, Z.shape[1]))
+    """Both settles are ported (the name is the one this test had while
+    they raised): ``stationary_kalman_loglik`` with ``"sda"`` and
+    ``"auto"`` equals the reference's in value (1e-8) on the three random
+    systems, the tiny-innovation one included, and an unknown method
+    raises the reference's ``ValueError``."""
+    T, R, Q, Z, H, d = _random_systems(seed=1)
+    y = _simulate(np.random.default_rng(2), T, R, Q, Z)
     for method in ("sda", "auto"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            port.stationary_kalman_loglik(y, T, R, Q, Z, H, d=d,
-                                          settle_method=method)
+        got = port.stationary_kalman_loglik(
+            *(torch.as_tensor(x) for x in (y, T, R, Q, Z, H)),
+            d=torch.as_tensor(d), settle_method=method).numpy()
+        want = np.asarray(jax.vmap(
+            lambda *a: ref.stationary_kalman_loglik(
+                jnp.asarray(y), *a[:5], d=a[5], settle_method=method))(
+            *(jnp.asarray(x) for x in (T, R, Q, Z, H, d))))
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        assert np.isfinite(want[:2]).all()
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-8)
+    with pytest.raises(ValueError, match="settle_method"):
+        port.stationary_kalman_loglik(
+            *(torch.as_tensor(x) for x in (y, T, R, Q, Z, H)),
+            settle_method="newton")
 
 
 def _riccati_limit(T, RQR, Z, H, P, max_steps=20000):

@@ -177,23 +177,47 @@ def test_inputs_on_another_device_raise(rbc_port):
 
 
 def test_unported_options_raise(rbc_port):
+    """The options that raised while unported now give the reference's
+    values (the name is the one this test had then): data with periodic
+    missingness (the cyclostationary filter, never the DARE kernel's
+    route), ``kalman_settle_method="sda"`` and ``filter_type=
+    "steady_state"`` through ``build_batched_logpost`` equal the
+    reference's at rel 1e-8.  What the reference refuses raises its
+    ``ValueError``: aperiodic missingness with the stationary filter, and
+    a settle other than ``"xla"`` or ``"pallas"``."""
     model, kw = rbc_port
     ss = PortStateSpace(model, device="cpu").configure(**kw)
     data, _draw = ss.data_from_prior(torch.Generator().manual_seed(0),
                                      periods=20)
+    U = ss.initial_position()[None] + 0.05 * torch.as_tensor(
+        np.random.default_rng(3).standard_normal((2, len(ss.param_labels))))
+    ref_model = geconpy_tpu.model_from_gcn(
+        geconpy_tpu.get_example_gcn("rbc_estimation"), verbose=False)
+    periodic = data.copy()
+    periodic[1::2, 0] = np.nan
+    for extra, dat in ((dict(), periodic),
+                       (dict(kalman_settle_method="sda"), data),
+                       (dict(filter_type="steady_state"), data)):
+        port_ss = PortStateSpace(model, device="cpu").configure(
+            **{**kw, **extra})
+        ref_ss = RefStateSpace(ref_model).configure(**{**kw, **extra})
+        record: dict = {}
+        got = port_ss.build_batched_logpost(dat, settle="pallas")(
+            U, record=record).numpy()
+        want = np.asarray(jax.jit(ref_ss.build_batched_logpost(
+            dat, interpret=True, cr_tile=8, settle="pallas"))(
+            jnp.asarray(U.numpy())))
+        assert np.isfinite(want).all()
+        np.testing.assert_allclose(got, want, rtol=1e-8)
+        # the DARE kernel's route only with every series observed
+        assert ("dare_settle" in record) == (
+            port_ss.filter_type == "stationary" and dat is data)
     missing = data.copy()
     missing[3, 0] = np.nan
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="periodic missingness"):
         ss.build_batched_logpost(missing)
     with pytest.raises(ValueError, match="settle"):
         ss.build_batched_logpost(data, settle="fused")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PortStateSpace(model, device="cpu").configure(
-            **kw, kalman_settle_method="sda")
-    sweep_ss = PortStateSpace(model, device="cpu").configure(
-        **dict(kw, filter_type="steady_state"))
-    with pytest.raises(NotImplementedError, match="'stationary'"):
-        sweep_ss.build_batched_logpost(data)
 
 
 # the reference's configure keywords with its defaults (statespace.py:102-124)
@@ -212,9 +236,9 @@ def test_configure_takes_the_reference_keywords(rbc_port):
     parameters; the sequential filter (with and without the diffuse
     initialisation), observation equations, ``aggregate`` and the full
     shock covariance are accepted, and so are ``solver="gensys"`` and
-    ``"backward"``, whose log posterior is the reference's; values the port
-    cannot honour yet raise ``NotImplementedError`` naming their ROADMAP
-    item, not ``TypeError``."""
+    ``"backward"``, and ``filter_type="chandrasekhar"``, whose log
+    posterior is the reference's; invalid values raise ``ValueError``, not
+    ``TypeError``."""
     import inspect
 
     model, kw = rbc_port
@@ -246,9 +270,14 @@ def test_configure_takes_the_reference_keywords(rbc_port):
         want = float(jax.jit(ref_solver.build_logpost(data))(u))
         got = float(ss.build_logpost(data)(torch.as_tensor(np.asarray(u))))
         np.testing.assert_allclose(got, want, rtol=1e-8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PortStateSpace(model, device="cpu").configure(
-            **{**call, "filter_type": "chandrasekhar"})
+    # the Chandrasekhar filter gives the reference's log posterior
+    kw = {**call, "filter_type": "chandrasekhar"}
+    ss = PortStateSpace(model, device="cpu").configure(**kw)
+    ref_ch = RefStateSpace(ref_ss.model).configure(**kw)
+    u = ref_ch.initial_position()
+    want = float(jax.jit(ref_ch.build_logpost(data))(u))
+    got = float(ss.build_logpost(data)(torch.as_tensor(np.asarray(u))))
+    np.testing.assert_allclose(got, want, rtol=1e-8)
     for extra in (dict(filter_type="sequential"),
                   dict(filter_type="sequential", p0_init="diffuse",
                        diffuse_kappa=1e4, diffuse_presample=2)):

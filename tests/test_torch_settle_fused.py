@@ -186,7 +186,9 @@ def test_steady_state_loglik_matches_reference(solutions, n_settle):
 
 def test_steady_state_filter_failures_are_flags(solutions):
     """A draw whose F is not positive definite gets -inf and leaves its
-    neighbours' values unchanged; missing data raises."""
+    neighbours' values unchanged; missing data in the settle's head run
+    the masked step, whose log-likelihood is the sequential filter's over
+    the same periods."""
     y = torch.as_tensor(solutions["y"])
     args = list(_as_torch(_filter_args(solutions)))
     clean = port_kalman.steady_state_kalman_loglik(y, *args, n_settle=N_SETTLE)
@@ -199,8 +201,13 @@ def test_steady_state_filter_failures_are_flags(solutions):
                                   clean[[0, 1, 3]].numpy())
     y_missing = y.clone()
     y_missing[3, 0] = float("nan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_kalman.steady_state_filter_parts(y_missing[:N_SETTLE], *args)
+    ll_head = port_kalman.steady_state_filter_parts(y_missing[:N_SETTLE],
+                                                    *args)[0]
+    seq = port_kalman.kalman_filter(y_missing[:N_SETTLE], *args[:5],
+                                    d=args[5])
+    assert torch.isfinite(ll_head).all()
+    np.testing.assert_allclose(ll_head.numpy(), seq.loglik.numpy(),
+                               rtol=1e-12)
 
 
 # ---- ragged shapes: synthetic stable systems from a seed
