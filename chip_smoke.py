@@ -193,7 +193,45 @@ Phases, one line each (plus one line per kernel in phase 3):
    identities x_t = T x_{t-1} + R e_t and y_t = Z x_t + d + u_t within
    1e-10 on the card; ``historical_shock_decomposition`` over 64 draws,
    contributions plus initial within 1e-10 of the smoothed states, ms a
-   call; no kernel launched.  The phase prints its seconds.
+   call; no kernel launched.  The phase prints its seconds;
+12. what a user does after ``fit`` (``posterior_tools_phase``;
+   ``tools/posterior_probe.py`` runs it alone on jittered draws), on
+   phase 7's ``PosteriorResult`` (SW-2007, 22 parameters, 128 chains x 4
+   draws) and data, float64, one line a step, each part with its ms a
+   call (CUDA events) and peak memory, the counts set to 0 before each
+   part and no kernel launched (the reference runs these as XLA);
+   ``posterior_irfs`` and ``prior_predictive_sweep`` profiled once each.  12a ``posterior_irfs`` (40 periods, 500 draws),
+   ``posterior_autocorrelation`` (10 lags), ``posterior_fevd`` (40),
+   ``posterior_diagnostics`` (all draws) and ``posterior_predictive``
+   (200 draws x 100 periods, CUDA generator, bitwise reproducible), each
+   held to the CPU on 16 of the draws at rel 1e-10 (the predictive
+   through its core on the same normals; the diagnostics' norms, which
+   are rounding, as |a - b| / (1 + |b|)).  12b ``posterior_forecast``
+   (horizon 12, 500 draws x 4 paths) and ``conditional_forecast`` (r and
+   pinf held at their last values for 8 quarters, 200 draws): every
+   draw on its conditions within 1e-8, the terminal state, the paths on
+   injected draws and the conditional bands within rel 1e-8 of the CPU on
+   16 draws.  12c ``modified_harmonic_mean`` on phase 7's draws; on 8a's
+   ``rbc_estimation`` configuration with 64 periods made at rho_A = 0.85,
+   ``marginal_likelihood``, ``compare_models`` against the twin with
+   rho_A constant, and ``fit_ml``, ``find_map`` cut to ``EVIDENCE_CUT``
+   (printed): the Laplace evidence on the CPU at the card's mode within
+   0.5 d κ(H) 1e-6, the CPU's log-likelihood (rel 1e-8) and standard
+   errors (κ(H) 1e-6) at the card's maximum.  12d
+   ``prior_solvability_check`` on SW-2007's 34 priors at 4,096 draws
+   with the failures by stage, ``solvability_check`` on 64 of them
+   equal to the CPU, ``bk_condition_sweep`` at 256 draws (counts equal
+   to the CPU on 16 and to ``Model.check_bk_condition`` on 4),
+   ``PolicySolution.summary`` and ``spectral_radius_sensitivity`` at rel
+   1e-10 and ``eigenvalue_sensitivity`` against the CPU (each finite root
+   within 100 times what a change of the BK companion matrix as large as
+   its card-vs-CPU difference moves it on the CPU; the derivatives of the
+   roots that change moves by < 1e-9 within 1e-4 of each root's
+   largest, and how far it moves the other roots' derivatives printed),
+   ``check_steady_state`` on SW-2007 and ``open_rbc`` (and false on a
+   perturbed steady state), ``prior_predictive_sweep`` at 4,096 draws
+   (its core at rel 1e-10 to the CPU on 16).  The phase prints its
+   seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -274,6 +312,19 @@ SW_TRUTH = {
 # phase 11: timed repetitions of each value+grad path, and the draws of
 # the exact filters held to the float64 CPU path
 FILTER_REPS, EXACT_CHECK = 2, 16
+
+# phase 12: the draws of each posterior tool (the reference's defaults:
+# 500 for the bands and the fan, 200 for the predictive and conditional
+# paths), the draws held to the CPU, the prior sweeps' draws (the BK
+# sweep's 30 complete QRs a draw loop inside cuSOLVER, so it gets 256),
+# and the cut of find_map's 500 Adam steps in 12c (8a's value+grad takes
+# 209-316 ms a call on the card), with a learning rate of 0.1 (0.02 by
+# default) so that 10 steps reach the posterior mode's basin from the
+# prior's initial position; the same on both sides
+POST_DRAWS, PRED_DRAWS, FORECAST_DRAWS, COND_DRAWS = 500, 200, 500, 200
+POST_CHECK = 16
+SWEEP_DRAWS, SOLV_CHECK, BK_DRAWS, BK_CHECK, BK_TABLE = 4096, 64, 256, 16, 4
+EVIDENCE_CUT = {"adam_steps": 10, "learning_rate": 0.1}
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -1599,6 +1650,509 @@ def filters_phase(card, reset_counts, read_counts, sw_model, constant,
     print(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+def _tensors(out) -> list:
+    """The float tensors of a result: a tensor, or the fields of a
+    NamedTuple (nested ones included), in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out] if out.is_floating_point() else []
+    if isinstance(out, tuple):
+        return [t for x in out for t in _tensors(x)]
+    return []
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| / max |b| over the entries finite in both (the CPU
+    tests' scaled bar); the finiteness must agree."""
+    import torch
+
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not bool((fa == fb).all()):
+        raise AssertionError("finiteness differs from the CPU")
+    if not bool(fb.any()):
+        return 0.0
+    scale = float(b[fb].abs().max())
+    return float((a - b)[fb].abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def posterior_tools_phase(card, reset_counts, read_counts, sw_model, ss,
+                          ss_cpu, res, data) -> None:
+    """Phase 12: what a user does after ``fit`` (12a-12d, see the module
+    docstring), on phase 7's ``PosteriorResult`` ``res`` of the state space
+    ``ss`` (SW-2007, stationary filter) and its data; ``ss_cpu`` is the
+    same configuration on the CPU."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.models.validation import check_steady_state
+    from geconpy_torch.ops.eig import eig_vals
+    from geconpy_torch.ops.precision import highest_precision
+    from geconpy_torch.stats import forecast as fc
+    from geconpy_torch.stats import perturbation_diagnostics as pdiag
+    from geconpy_torch.stats import posterior as post
+    from geconpy_torch.stats import prior_predictive as prior_pred
+    from geconpy_torch.stats.estimation import PosteriorResult
+    from geconpy_torch.stats.ml import _gated_loglik, _standard_errors, fit_ml
+    from geconpy_torch.stats.model_comparison import (compare_models,
+                                                      find_map,
+                                                      laplace_evidence,
+                                                      marginal_likelihood,
+                                                      modified_harmonic_mean,
+                                                      neg_hessian_fn)
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    def part(tag, fn):
+        """One call with the counts set to 0 just before and read just
+        after (no kernel may launch): (result, ms by CUDA events, peak
+        device memory)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        counts = {k_: n_ for k_, n_ in read_counts().items() if n_}
+        if counts:
+            raise AssertionError(f"{tag} launched {counts}: phase 12 runs "
+                                 "no kernel (the reference runs it as XLA)")
+        return out, start.elapsed_time(stop), torch.cuda.max_memory_allocated(
+            dev)
+
+    def held(tag, card_out, cpu_out, bar, gap_fn=rel_max) -> float:
+        """Every float tensor of the card's result against the CPU's."""
+        gaps = [gap_fn(a, b) for a, b in zip(_tensors(card_out),
+                                              _tensors(cpu_out))]
+        gap = max(gaps) if gaps else 0.0
+        if not gaps or gap > bar:
+            raise AssertionError(f"{tag}: card vs CPU rel {gap:.3e} > {bar}")
+        return gap
+
+    def subset(result, chains, draws):
+        """The first ``chains`` x ``draws`` of a posterior."""
+        return PosteriorResult(
+            samples=result.samples[:chains, :draws],
+            unconstrained=result.unconstrained[:chains, :draws],
+            logp=result.logp[:chains, :draws],
+            param_names=result.param_names,
+            diverging=result.diverging[:chains, :draws],
+            accept_prob=result.accept_prob[:chains, :draws],
+            step_size=result.step_size[:chains])
+
+    def profiled(fn) -> str:
+        t0 = time.perf_counter()
+        wall, dev_ms, n_k, reads = profile_call(fn)
+        return (f"one call profiled: wall {wall:.1f} ms, device {dev_ms:.1f} "
+                f"ms, {n_k} kernel launches, {reads} host reads (the profile "
+                f"took {time.perf_counter() - t0:.1f} s)")
+
+    n_all = res.unconstrained.shape[0] * res.unconstrained.shape[1]
+    sub = subset(res, 4, POST_CHECK // 4)
+
+    # ---- 12a: posterior bands
+    t_step = time.perf_counter()
+    lines = []
+    calls = {
+        "posterior_irfs": (post.posterior_irfs,
+                           dict(periods=40, max_draws=POST_DRAWS)),
+        "posterior_autocorrelation": (post.posterior_autocorrelation,
+                                      dict(n_lags=10, max_draws=POST_DRAWS)),
+        "posterior_fevd": (post.posterior_fevd,
+                           dict(horizon=40, max_draws=POST_DRAWS)),
+        "posterior_diagnostics": (post.posterior_diagnostics,
+                                  dict(max_draws=None))}
+    for name, (fn, kw) in calls.items():
+        out, ms, peak = part(f"12a {name}",
+                             lambda fn=fn, kw=kw: fn(ss, res, **kw))
+        if not all(bool(torch.isfinite(t).all()) for t in _tensors(out)
+                   if name != "posterior_diagnostics"):
+            raise AssertionError(f"12a {name}: non-finite bands")
+        kw_sub = dict(kw, max_draws=None)
+        card_sub, cpu_sub = fn(ss, sub, **kw_sub), fn(ss_cpu, sub, **kw_sub)
+        gap_fn = rel_max
+        if name == "posterior_diagnostics":
+            # equal flags; the residual norms are rounding (~1e-15), so
+            # every float is held as |a - b| / (1 + |b|)
+            if not all(torch.equal(getattr(card_sub, f).cpu(),
+                                   getattr(cpu_sub, f))
+                       for f in ("ss_success", "solver_success", "stable")):
+                raise AssertionError("12a posterior_diagnostics: flags "
+                                     "differ from the CPU")
+            gap_fn = lambda a, b: compare(a.cpu(), b)[0]  # noqa: E731
+        gap = held(f"12a {name}", card_sub, cpu_sub, 1e-10, gap_fn)
+        lines.append(f"{name} {ms:.1f} ms, peak {peak} B, CPU rel "
+                     f"{gap:.3e}")
+        if name == "posterior_irfs":
+            irf_shape = tuple(out.mean.shape)
+        if name == "posterior_fevd":
+            fevd_rows = float((out.values.sum(dim=1) - 1).abs().max())
+        if name == "posterior_diagnostics":
+            solved = int((out.ss_success & out.solver_success
+                          & out.stable).sum())
+    prof_irf = profiled(lambda: post.posterior_irfs(ss, res, periods=40,
+                                                    max_draws=POST_DRAWS))
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    pred, ms, peak = part("12a posterior_predictive", lambda: (
+        post.posterior_predictive(ss, res, gen(), periods=100,
+                                  max_draws=PRED_DRAWS)))
+    again = post.posterior_predictive(ss, res, gen(), periods=100,
+                                      max_draws=PRED_DRAWS)
+    bitwise = torch.equal(pred.mean, again.mean) and torch.equal(
+        pred.quantiles, again.quantiles)
+    # the same normals through the private core on both devices
+    g_cpu = torch.Generator().manual_seed(1)
+    sol_c = ss_cpu.build_solution_fn()(post._flat_draws(ss_cpu, sub, None))
+    sol_g = ss.build_solution_fn()(post._flat_draws(ss, sub, None))
+    eps = torch.randn((POST_CHECK, 100, sol_c["Q"].shape[-1]),
+                      generator=g_cpu, dtype=torch.float64)
+    eta = torch.randn((POST_CHECK, 100, len(SW_OBS)), generator=g_cpu,
+                      dtype=torch.float64)
+    gap_pred = held("12a posterior_predictive", post._predictive_paths(
+        sol_g, eps.to(dev), eta.to(dev)), post._predictive_paths(
+        sol_c, eps, eta), 1e-10)
+    if not bitwise or not bool(torch.isfinite(pred.mean).all()):
+        raise AssertionError(f"12a posterior_predictive: bitwise {bitwise}, "
+                             f"finite {bool(torch.isfinite(pred.mean).all())}")
+    lines.append(f"posterior_predictive ({PRED_DRAWS} draws x 100 periods) "
+                 f"{ms:.1f} ms, peak {peak} B, bitwise reproducible, "
+                 f"injected normals CPU rel {gap_pred:.3e}")
+    print(f"phase 12a posterior bands on phase 7's {n_all} draws (IRFs "
+          f"{irf_shape} over {POST_DRAWS} draws; {solved}/{n_all} draws "
+          f"solved; FEVD rows sum to 1 within {fevd_rows:.1e}): "
+          + "; ".join(lines) + f"; bars: rel 1e-10 on {POST_CHECK} draws; "
+          f"posterior_irfs {prof_irf}; no kernel launched; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 12b: forecasts
+    t_step = time.perf_counter()
+    fan, ms_fan, peak_fan = part("12b posterior_forecast", lambda: (
+        fc.posterior_forecast(ss, res, data, horizon=12,
+                              max_draws=FORECAST_DRAWS, n_paths_per_draw=4,
+                              seed=0)))
+    if not bool(torch.isfinite(fan.quantiles).all()) \
+            or not bool((fan.quantiles[1:] >= fan.quantiles[:-1]).all()):
+        raise AssertionError("12b posterior_forecast: bands not finite or "
+                             "not ordered")
+    sol_c = ss_cpu.build_solution_fn(full_state=True)(
+        post._flat_draws(ss_cpu, sub, None))
+    sol_g = ss.build_solution_fn(full_state=True)(
+        post._flat_draws(ss, sub, None))
+    term_c = fc._terminal_state(ss_cpu, sol_c, data)
+    gap_term = held("12b terminal state", fc._terminal_state(
+        ss, sol_g, data), term_c, 1e-8)
+    n = term_c[0].shape[-1]
+    x0 = term_c[0][:, None] + 0.01 * torch.randn(
+        (POST_CHECK, 4, n), generator=g_cpu, dtype=torch.float64)
+    eps = torch.randn((POST_CHECK, 4, 12, sol_c["Q"].shape[-1]),
+                      generator=g_cpu, dtype=torch.float64)
+    eta = torch.randn((POST_CHECK, 4, 12, len(SW_OBS)), generator=g_cpu,
+                      dtype=torch.float64)
+    gap_paths = held("12b forecast paths", fc._forecast_paths(
+        sol_g, x0.to(dev), eps.to(dev), eta.to(dev), True),
+        fc._forecast_paths(sol_c, x0, eps, eta, True), 1e-8)
+    r_i, pi_i = SW_OBS.index("r"), SW_OBS.index("pinf")
+    conditions = {"r": np.full(8, data[-1, r_i]),
+                  "pinf": np.full(8, data[-1, pi_i])}
+    kw_c = dict(horizon=12, quantiles=(0.0, 0.5, 1.0))
+    (cond, shocks), ms_cond, peak_cond = part(
+        "12b conditional_forecast", lambda: fc.conditional_forecast(
+            ss, res, data, conditions, max_draws=COND_DRAWS, **kw_c))
+    # quantiles 0 and 1: every draw's path at the conditioned entries
+    hit = max(float(((cond.quantiles[:, i, :8] - float(path[0])).abs()
+                     / (1.0 + abs(float(path[0])))).max())
+              for i, path in ((r_i, conditions["r"]),
+                              (pi_i, conditions["pinf"])))
+    gap_cond = held("12b conditional_forecast", fc.conditional_forecast(
+        ss, sub, data, conditions, max_draws=None, **kw_c),
+        fc.conditional_forecast(ss_cpu, sub, data, conditions,
+                                max_draws=None, **kw_c), 1e-8)
+    if hit > 1e-8 or not bool(torch.isfinite(shocks.quantiles).all()):
+        raise AssertionError(f"12b conditional_forecast: conditioned "
+                             f"entries off by {hit:.3e}")
+    print(f"phase 12b forecasts: posterior_forecast (horizon 12, "
+          f"{FORECAST_DRAWS} draws x 4 paths) {ms_fan:.1f} ms, peak "
+          f"{peak_fan} B; terminal state CPU rel {gap_term:.3e}, paths on "
+          f"injected draws {gap_paths:.3e} ({POST_CHECK} draws); "
+          f"conditional_forecast (r and pinf held for 8 quarters, "
+          f"{COND_DRAWS} draws) {ms_cond:.1f} ms, peak {peak_cond} B, every "
+          f"draw on its conditions within {hit:.3e}, CPU rel {gap_cond:.3e} "
+          f"({POST_CHECK} draws); bars 1e-8; no kernel "
+          f"launched; step {time.perf_counter() - t_step:.1f} s [{card}]",
+          flush=True)
+
+    # ---- 12c: evidence and maximum likelihood
+    t_step = time.perf_counter()
+    t0 = time.perf_counter()
+    mhm = modified_harmonic_mean(res.unconstrained, res.logp)
+    mhm_ms = (time.perf_counter() - t0) * 1e3
+    if not math.isfinite(mhm):
+        raise AssertionError(f"12c modified_harmonic_mean {mhm}")
+    rbc = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"), verbose=False)
+    kw_8a = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+                 filter_type="sequential")
+    full, full_cpu = (DSGEStateSpace(rbc, device=d_).configure(**kw_8a)
+                      for d_ in ("cuda", "cpu"))
+    twin = DSGEStateSpace(rbc, device="cuda").configure(**dict(
+        kw_8a, constant_params=["alpha", "sigma_C", "rho_A"]))
+    rbc_data, _ = full.data_from_prior(gen(), periods=64,
+                                       params={"rho_A": 0.85,
+                                               "sigma_A": 0.012})
+    log_ml, ms_ml, _ = part("12c marginal_likelihood", lambda: (
+        marginal_likelihood(full, rbc_data, **EVIDENCE_CUT)))
+    # the card's mode (the search marginal_likelihood ran: its evidence
+    # there is log_ml itself), then the CPU's evidence at that same mode,
+    # held at the CPU tests' bar 0.5 d κ(H) 1e-6 with the Hessian there
+    vag_card = full.build_logpost_and_grad(rbc_data)
+    u_mode = find_map(vag_card, full.initial_position(), **EVIDENCE_CUT)
+    log_ml_again = laplace_evidence(vag_card, u_mode)
+    u_mode = u_mode.cpu()
+    vag_cpu = full_cpu.build_logpost_and_grad(rbc_data)
+    log_ml_cpu = laplace_evidence(vag_cpu, u_mode)
+    H = neg_hessian_fn(vag_cpu)(u_mode).numpy()
+    d_ = len(u_mode)
+    bar_ml = 0.5 * d_ * float(np.linalg.cond(H)) * 1e-6
+    table, ms_cmp, _ = part("12c compare_models", lambda: compare_models(
+        {"full": full, "restricted": twin}, rbc_data, **EVIDENCE_CUT))
+    ml, ms_fit, peak_fit = part("12c fit_ml", lambda: fit_ml(
+        full, rbc_data, **EVIDENCE_CUT))
+    # the CPU's log-likelihood, transform and standard errors at the
+    # card's maximum: loglik rel 1e-8, SEs κ(H) 1e-6 relative
+    u_hat = torch.as_tensor(ml.unconstrained)
+    ll_cpu = _gated_loglik(full_cpu, rbc_data)
+    se_cpu, H_ll = _standard_errors(full_cpu, ll_cpu, u_hat)
+    bar_se = float(np.linalg.cond(H_ll)) * 1e-6
+    gap_ll = abs(ml.loglik - float(ll_cpu(u_hat[None])[0][0])) \
+        / abs(ml.loglik)
+    se_card = np.asarray([ml.std_errors[k] for k in full.param_labels])
+    gap_se = float(np.max(np.abs(se_card - se_cpu)
+                          / np.where(se_cpu > 0, se_cpu, 1.0)))
+    theta_cpu = full_cpu.constrain(u_hat).numpy()
+    gap_par = max(abs(ml.params[k] - theta_cpu[i]) / abs(theta_cpu[i])
+                  for i, k in enumerate(full.param_labels))
+    gap_ml = abs(log_ml - log_ml_cpu)
+    probs = float(table.posterior_prob.sum())
+    in_table = float(table.log_ml[table.names.index("full")])
+    if not (math.isfinite(log_ml) and log_ml_again == log_ml
+            and gap_ml <= bar_ml
+            and gap_ll <= 1e-8 and gap_par <= 1e-12 and gap_se <= bar_se
+            and abs(probs - 1.0) < 1e-12 and in_table == log_ml
+            and ml.success):
+        raise AssertionError(
+            f"12c: log ML {log_ml} (in the table {in_table}, at the "
+            f"card's mode again {log_ml_again}) "
+            f"vs CPU {log_ml_cpu} (bar {bar_ml:.3e}), loglik rel "
+            f"{gap_ll:.3e}, params {gap_par:.3e}, SEs {gap_se:.3e} (bar "
+            f"{bar_se:.3e}), table {table}, fit_ml success {ml.success}")
+    print(f"phase 12c evidence: modified_harmonic_mean on phase 7's draws "
+          f"{mhm:.4f} ({mhm_ms:.1f} ms, host); rbc_estimation (8a's "
+          f"configuration, 64 periods at rho_A 0.85; reduced: {EVIDENCE_CUT} "
+          f"of find_map's 500 on both sides): marginal_likelihood "
+          f"{log_ml:.6f} ({ms_ml:.0f} ms; the CPU's at the card's mode: gap "
+          f"{gap_ml:.3e}, bar "
+          f"{bar_ml:.3e}); compare_models {table.names} "
+          f"log ML {[round(float(v), 4) for v in table.log_ml]} posterior "
+          f"prob {[round(float(v), 4) for v in table.posterior_prob]} "
+          f"({ms_cmp:.0f} ms); fit_ml {ms_fit:.0f} ms, peak {peak_fit} B, "
+          f"params {ml.params}, SEs {ml.std_errors}, the CPU at its "
+          f"maximum: loglik rel {gap_ll:.3e}, params {gap_par:.3e}, SEs "
+          f"{gap_se:.3e} (bar {bar_se:.3e}); no kernel launched; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 12d: diagnostics
+    t_step = time.perf_counter()
+    solv, ms_solv, peak_solv = part("12d prior_solvability_check", lambda: (
+        pdiag.prior_solvability_check(sw_model, n_samples=SWEEP_DRAWS,
+                                      seed=0, device="cuda")))
+    stages = {}
+    for s_ in solv.failure_stage:
+        stages[s_] = stages.get(s_, 0) + 1
+    draws = {name: solv.draws[:SOLV_CHECK, i]
+             for i, name in enumerate(solv.param_names)}
+    check_g = pdiag.solvability_check(sw_model, draws, device="cuda")
+    check_c = pdiag.solvability_check(
+        sw_model, {k: v.cpu() for k, v in draws.items()}, device="cpu")
+    flags = ["steady_state", "linearization", "policy_solve", "stability",
+             "residual_norms", "success"]
+    same = all(torch.equal(getattr(check_g, f).cpu(), getattr(check_c, f))
+               for f in flags) and check_g.failure_stage \
+        == check_c.failure_stage == solv.failure_stage[:SOLV_CHECK]
+    gap_norms = max(compare(getattr(check_g, f).cpu(), getattr(check_c, f))[0]
+                    for f in ("spectral_radius", "deterministic_norm",
+                              "stochastic_norm"))
+    if not same or gap_norms > 1e-8:
+        raise AssertionError(f"12d solvability_check vs CPU: flags equal "
+                             f"{same}, norms rel {gap_norms:.3e}")
+    bk_draws = {k: v[:BK_DRAWS] for k, v in
+                zip(solv.param_names, solv.draws.T)}
+    bk, ms_bk, peak_bk = part("12d bk_condition_sweep", lambda: (
+        pdiag.bk_condition_sweep(sw_model, bk_draws, device="cuda")))
+    bk_c = pdiag.bk_condition_sweep(
+        sw_model, {k: v[:BK_CHECK].cpu() for k, v in bk_draws.items()},
+        device="cpu")
+    same_bk = all(torch.equal(getattr(bk, f)[:BK_CHECK].cpu(),
+                              getattr(bk_c, f))
+                  for f in ("n_unstable", "n_forward", "bk_satisfied", "ok"))
+    clean = [i for i in range(BK_DRAWS) if bool(bk.ok[i])][:BK_TABLE]
+    for i in clean:
+        table_i = sw_model.check_bk_condition(verbose=False, **{
+            k: float(v[i]) for k, v in bk_draws.items()})
+        if table_i["n_unstable"] != int(bk.n_unstable[i]) \
+                or table_i["bk_satisfied"] != bool(bk.bk_satisfied[i]):
+            raise AssertionError(f"12d bk sweep draw {i}: {table_i} vs "
+                                 f"{int(bk.n_unstable[i])}")
+    if not same_bk or len(clean) < BK_TABLE:
+        raise AssertionError(f"12d bk sweep: CPU counts equal {same_bk}, "
+                             f"clean draws {len(clean)}")
+    sol_g = sw_model.solve_model(verbose=False)
+    sol_c = sw_model.solve_model(verbose=False, device="cpu")
+    tables_g, ms_sum, _ = part("12d summary", sol_g.summary)
+    tables_c = sol_c.summary()
+    if (tables_g.states, tables_g.jumps) != (tables_c.states, tables_c.jumps):
+        raise AssertionError("12d summary: states and jumps differ")
+    gap_sum = held("12d summary", tables_g, tables_c, 1e-10)
+    rho_g, ms_rho, _ = part("12d spectral_radius_sensitivity", lambda: (
+        pdiag.spectral_radius_sensitivity(sw_model)))
+    gap_rho = held("12d spectral_radius_sensitivity", rho_g,
+                   pdiag.spectral_radius_sensitivity(sw_model, device="cpu"),
+                   1e-10)
+    eig_g, ms_eig, peak_eig = part("12d eigenvalue_sensitivity", lambda: (
+        pdiag.eigenvalue_sensitivity(sw_model)))
+    eig_c = pdiag.eigenvalue_sensitivity(sw_model, device="cpu")
+    # The ε-regularized BK companion matrix M (1e7 roots, 17 roots at or
+    # near zero) is so ill-conditioned that rounding moves some finite
+    # roots by ~1e-4.  The bar is derived from it: M on the card and on the
+    # CPU differ by δ (relative); on the CPU a random relative change of M
+    # of size δ moves root k by m_k, and the card's root k must be within
+    # 100 m_k + 1e-10 |λ_k| of the CPU's (a random direction moves a root
+    # less than the worst one) (roots sorted by modulus, then
+    # imaginary part).  The roots with m_k < 1e-9 |λ_k| also hold their
+    # derivatives within 1e-4 of each root's largest (the CPU test's bar).
+    # The other finite roots are held by value alone; how far the same
+    # change of M moves their derivatives on the CPU is printed.
+    order = lambda lam: np.lexsort((lam.imag, np.abs(lam)))  # noqa: E731
+    lam_g = eig_g.eigenvalues.cpu().numpy()
+    lam_c = eig_c.eigenvalues.numpy()
+    i_g, i_c = order(lam_g), order(lam_c)
+    lam_g, lam_c = lam_g[i_g], lam_c[i_c]
+
+    def companion(theta):
+        sol_ = sw_model.ss_solver(theta)
+        lin_ = sw_model.linearizer(True)(sol_.x_ss, sol_.theta_full)
+        return pdiag._bk_companion(lin_.A, lin_.B, lin_.C,
+                                   sw_model.lead_var_idx)
+
+    theta_c = sw_model.default_theta()
+    M_c = companion(theta_c).detach().numpy()
+    delta = max(rel_max(companion(theta_c.to(dev)).detach().cpu(),
+                        torch.as_tensor(M_c)), 1e-16)
+    change = 1 + delta * np.random.default_rng(0).standard_normal(M_c.shape)
+    lam_p = np.linalg.eigvals(M_c * change)
+    lam_p = lam_p[order(lam_p)]
+    finite = (np.abs(lam_c) > 1e-6) & (np.abs(lam_c) < 1e6)
+    moved = np.abs(lam_p - np.linalg.eigvals(M_c)[order(np.linalg.eigvals(
+        M_c))])
+    root_gap = np.abs(lam_g - lam_c)
+    over = finite & (root_gap > 100 * moved + 1e-10 * np.abs(lam_c))
+    steady = finite & (moved < 1e-9 * np.abs(lam_c))
+    parts = ("real", "imag", "modulus")
+    a_ = np.stack([getattr(eig_g, p_).cpu().numpy()[i_g][steady]
+                   for p_ in parts], axis=1)
+    b_ = np.stack([getattr(eig_c, p_).numpy()[i_c][steady] for p_ in parts],
+                  axis=1)
+    # each root's largest derivative over its parts (a real root's
+    # imaginary part has derivatives of rounding size)
+    scale = np.abs(b_).max(axis=(1, 2), keepdims=True)
+    gap_der = float((np.abs(a_ - b_) / scale).max())
+    # the derivatives of Re λ and Im λ at the changed M, on the CPU
+    change_t = torch.as_tensor(change)
+
+    def changed_parts(theta):
+        re_, im_ = eig_vals(companion(theta) * change_t)
+        return torch.stack([re_, im_])
+
+    with highest_precision():
+        lam_pt = torch.complex(*changed_parts(theta_c).detach()).numpy()
+        jac_p = torch.autograd.functional.jacobian(changed_parts, theta_c)
+    i_p = order(lam_pt)
+    d_p = np.stack([jac_p[0].numpy()[i_p], jac_p[1].numpy()[i_p]], axis=1)
+    d_c = np.stack([eig_c.real.numpy()[i_c], eig_c.imag.numpy()[i_c]],
+                   axis=1)
+    der_move = (np.abs(d_p - d_c).max(axis=(1, 2))
+                / np.abs(d_c).max(axis=(1, 2)).clip(min=1e-300))
+    loose = finite & ~steady
+    med_move = float(np.median(der_move[loose])) if loose.any() else 0.0
+    if over.any() or gap_der > 1e-4 or steady.sum() < 3:
+        raise AssertionError(
+            f"12d eigenvalue_sensitivity vs CPU: roots {lam_c[over]} off by "
+            f"{root_gap[over]} (moved {moved[over]} by a relative change of "
+            f"{delta:.3e}), derivatives {gap_der:.3e} on {int(steady.sum())} "
+            "well-conditioned roots")
+    ss_ok = check_steady_state(sw_model)
+    open_ok = check_steady_state(geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("open_rbc"), verbose=False))
+    bad = dict(sw_model.steady_state(verbose=False))
+    first = next(iter(bad))
+    bad[first] = float(bad[first]) + 1.0
+    bad_ok = check_steady_state(sw_model, steady_state=bad)
+    if not (ss_ok and open_ok) or bad_ok:
+        raise AssertionError(f"12d check_steady_state: SW-2007 {ss_ok}, "
+                             f"open_rbc {open_ok}, perturbed {bad_ok}")
+    sweep, ms_pp, peak_pp = part("12d prior_predictive_sweep", lambda: (
+        prior_pred.prior_predictive_sweep(ss, n_draws=SWEEP_DRAWS,
+                                          periods=40, fevd_horizon=20,
+                                          seed=0)))
+    prof_pp = profiled(lambda: prior_pred.prior_predictive_sweep(
+        ss, n_draws=SWEEP_DRAWS, periods=40, fevd_horizon=20, seed=0))
+    U = prior_pred._prior_draws(ss, POST_CHECK, gen())
+    gap_pp = held("12d prior_predictive_sweep", prior_pred._sweep_core(
+        ss, U, 40, 20, (0.05, 0.5, 0.95)), prior_pred._sweep_core(
+        ss_cpu, U.cpu(), 40, 20, (0.05, 0.5, 0.95)), 1e-10)
+    if not bool(torch.isfinite(sweep.irf.quantiles).all()) \
+            or not 0.5 < sweep.success_rate <= 1.0:
+        raise AssertionError(f"12d prior_predictive_sweep: success rate "
+                             f"{sweep.success_rate}")
+    print(f"phase 12d diagnostics: prior_solvability_check on SW-2007 "
+          f"({len(solv.param_names)} priors, {SWEEP_DRAWS} draws) "
+          f"{ms_solv:.1f} ms, peak {peak_solv} B, success "
+          f"{float(solv.success.double().mean()):.4f}, failures by stage "
+          f"{stages}; solvability_check on {SOLV_CHECK} of them equal to the "
+          f"CPU (norms rel {gap_norms:.3e}); bk_condition_sweep "
+          f"({BK_DRAWS} draws) {ms_bk:.1f} ms, peak {peak_bk} B, "
+          f"{int(bk.ok.sum())} clean, {int(bk.bk_satisfied.sum())} "
+          f"satisfied, counts equal to the CPU on {BK_CHECK} and to "
+          f"check_bk_condition on {BK_TABLE}; summary {ms_sum:.1f} ms (CPU "
+          f"rel {gap_sum:.3e}); spectral_radius_sensitivity {ms_rho:.1f} ms "
+          f"(rel {gap_rho:.3e}); eigenvalue_sensitivity ({len(lam_g)} roots) "
+          f"{ms_eig:.1f} ms, peak {peak_eig} B: M card vs CPU "
+          f"{delta:.3e}, the {int(finite.sum())} finite roots within "
+          f"{float(root_gap[finite].max()):.3e} of the CPU (each within 100x "
+          f"its "
+          f"move under that change), derivatives of the "
+          f"{int(steady.sum())} well-conditioned ones {gap_der:.3e} of each "
+          f"root's largest (the other {int(loose.sum())} held by value "
+          f"alone; that change of M moves their derivatives on the CPU by "
+          f"{float(der_move[loose].min(initial=np.inf)):.3e}-"
+          f"{float(der_move[loose].max(initial=0.0)):.3e} of their largest, "
+          f"median {med_move:.3e}); "
+          f"check_steady_state SW-2007 {ss_ok}, open_rbc {open_ok}, "
+          f"perturbed {bad_ok}; prior_predictive_sweep ({SWEEP_DRAWS} draws, "
+          f"40 periods, FEVD 20) {ms_pp:.1f} ms, peak {peak_pp} B, success "
+          f"rate {sweep.success_rate:.4f}, CPU rel {gap_pp:.3e} on "
+          f"{POST_CHECK} draws, {prof_pp}; no kernel launched; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    print(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -2240,7 +2794,7 @@ def main() -> int:
           f"unsolvable prior particles {unsolvable:.4f} [{card}]", flush=True)
 
     # ---- phase 7: NUTS estimation at full width, through the user's entry
-    path_launches["cycle_reduction"] = nuts_phase(
+    path_launches["cycle_reduction"], nuts_res, nuts_data = nuts_phase(
         ss_vg, ss_vg_cpu, card, reset_counts, read_counts, **NUTS_CUT)
 
     # ---- phase 8: the sequential path, through the user's entry points
@@ -2257,6 +2811,10 @@ def main() -> int:
     # ---- phase 11: every filter of the likelihood, the smoothers
     filters_phase(card, reset_counts, read_counts, model, constant, vg_data,
                   vg_draw, vg_batch)
+
+    # ---- phase 12: what a user does after fit, on phase 7's posterior
+    posterior_tools_phase(card, reset_counts, read_counts, model, ss_vg,
+                          ss_vg_cpu, nuts_res, nuts_data)
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
@@ -2284,7 +2842,8 @@ def nuts_phase(ss, ss_cpu, card, reset_counts, read_counts, num_warmup: int,
     its plain version on the inputs of one real leapfrog call at batch 128
     (float64, rel 1e-9, success flags equal) and that call's values and
     gradients against the float64 CPU path (rel 5e-4 and 1e-3, phase 5's
-    bars).  Returns K4's launches during the fit."""
+    bars).  Returns K4's launches during the fit, the fit's
+    ``PosteriorResult`` and its float32 data."""
     import numpy as np
     import torch
 
@@ -2454,7 +3013,7 @@ def nuts_phase(ss, ss_cpu, card, reset_counts, read_counts, num_warmup: int,
     if float(both.double().mean()) < 0.99 or rel_v > 5e-4 or rel_g > 1e-3:
         raise AssertionError(f"leapfrog call off the float64 path: value rel "
                              f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
-    return k4
+    return k4, res, data32
 
 
 def sweep_breakdown(ss, data, batch, card, sweeps, reps: int = 5):

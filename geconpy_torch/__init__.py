@@ -26,8 +26,14 @@ sweep (``fit_smc``) and NUTS estimation (``fit``, ``policy="xla"`` or
 step), every filter of the likelihood (sequential, parallel,
 Chandrasekhar, steady state, and stationary with the Hewer, SDA and auto
 settles, which routes mixed-frequency data to the cyclostationary filter),
-the smoothers behind ``DSGEStateSpace.filter_data``, the posterior's
-smoothed states and historical shock decomposition, with hand-written CUDA kernels for cycle reduction, the
+the smoothers behind ``DSGEStateSpace.filter_data``, the posterior tools
+(IRF, autocorrelation, FEVD and predictive bands, solver diagnostics,
+smoothed states, the historical shock decomposition, unconditional and
+conditional forecasts), the model evidence (Laplace and modified harmonic
+mean, ``compare_models``) and maximum likelihood (``fit_ml``), the
+solvability, Blanchard-Kahn and prior predictive sweeps with the
+eigenvalue sensitivities, the prior samplers and ``check_steady_state``,
+with hand-written CUDA kernels for cycle reduction, the
 Riccati settle, the filter tail, the fused settle + tail and the DARE
 settle: every TPU kernel of the reference has its counterpart.
 A ``DSGEStateSpace`` runs on the GPU unless it is built with
@@ -42,19 +48,37 @@ import pathlib as _pathlib
 
 from .analysis.simulate import impulse_response_function, simulate
 from .models.model import Model, PolicySolution, model_from_gcn
+from .models.validation import check_steady_state
 from .stats.covariance import (autocorrelation_matrix, autocovariance_matrix,
                                build_Q_matrix, stationary_covariance_matrix)
 from .stats.estimation import PosteriorResult, fit
+from .stats.forecast import conditional_forecast, posterior_forecast
+from .stats.perturbation_diagnostics import (bk_condition_sweep,
+                                             check_bk_condition,
+                                             eigenvalue_sensitivity,
+                                             prior_solvability_check,
+                                             solvability_check,
+                                             summarize_perturbation_solution)
 from .stats.posterior import prepare_mixed_frequency_data
+from .stats.sampling import (bounds_from_priors, sample_from_priors,
+                             sample_from_priors_qmc, sample_uniform,
+                             sample_uniform_from_priors)
 from .stats.smc import SMCResult, fit_smc
 from .stats.statespace import (DSGEStateSpace, data_from_prior,
                                statespace_from_gcn)
 
 __all__ = ["DSGEStateSpace", "Model", "PolicySolution", "PosteriorResult",
            "SMCResult", "autocorrelation_matrix", "autocovariance_matrix",
-           "build_Q_matrix", "data_from_prior", "fit", "fit_smc",
+           "bk_condition_sweep", "bounds_from_priors", "build_Q_matrix",
+           "check_bk_condition", "check_steady_state", "conditional_forecast",
+           "data_from_prior", "eigenvalue_sensitivity", "fit", "fit_smc",
            "get_example_gcn", "impulse_response_function", "model_from_gcn",
-           "prepare_mixed_frequency_data", "simulate", "stationary_covariance_matrix", "statespace_from_gcn"]
+           "posterior_forecast", "prepare_mixed_frequency_data",
+           "prior_solvability_check", "sample_from_priors",
+           "sample_from_priors_qmc", "sample_uniform",
+           "sample_uniform_from_priors", "simulate", "solvability_check",
+           "stationary_covariance_matrix", "statespace_from_gcn",
+           "summarize_perturbation_solution"]
 
 
 def get_example_gcn(name: str = "rbc") -> str:

@@ -85,7 +85,8 @@ def _cholesky_nan(Q: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor; NaN where Q is not positive definite (where
     ``jnp.linalg.cholesky`` gives NaN), never an exception."""
     L, info = torch.linalg.cholesky_ex(Q)
-    return torch.where(info == 0, L, torch.full_like(L, torch.nan))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, torch.nan))
 
 
 def simulate(solution, periods: int = 40, n_simulations: int = 100,

@@ -119,6 +119,11 @@ class Distribution:
             return hi - torch.exp(u), u
         return u, torch.zeros_like(u)
 
+    def hdi(self, mass: float = 0.94) -> tuple[float, float]:
+        """Central interval of the given mass (used for prior sweep bounds)."""
+        a = (1 - mass) / 2
+        return float(self.ppf(a)), float(self.ppf(1 - a))
+
 
 @dataclasses.dataclass(frozen=True)
 class Normal(Distribution):

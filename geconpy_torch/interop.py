@@ -9,8 +9,9 @@ plan; :func:`state_from_reference` checks each against the port's own
 the same thing.  :func:`particles_from_reference` does the same for an SMC
 particle cloud (the draws with their log-likelihoods and log-priors), and
 :func:`adaptation_from_reference` for a NUTS sampler's adaptation state
-with its chains' positions.  This module imports no JAX: it takes numpy
-arrays only.
+with its chains' positions, and :func:`posterior_from_reference` for a
+posterior sample (the reference's ``PosteriorResult`` fields).  This
+module imports no JAX: it takes numpy arrays only.
 """
 
 from __future__ import annotations
@@ -18,10 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .stats.estimation import PosteriorResult
 from .stats.nuts import WindowedAdaptation
 
 __all__ = ["state_from_reference", "particles_from_reference",
-           "adaptation_from_reference"]
+           "adaptation_from_reference", "posterior_from_reference"]
 
 _KEYS = ("param_labels", "theta_default", "est_idx", "static_idx",
          "dynamic_idx", "U")
@@ -124,6 +126,46 @@ def adaptation_from_reference(arrays: dict[str, np.ndarray], port_ss
         k: torch.as_tensor(np.array(v, dtype=np.int32 if k in (
             "count", "welford_n") else np.float64)) for k, v in vals.items()})
     return {"q": torch.as_tensor(q), "adapt": adapt}
+
+
+def posterior_from_reference(arrays: dict, port_ss) -> PosteriorResult:
+    """Map a reference ``PosteriorResult``'s fields onto ``port_ss``.
+
+    ``arrays`` holds ``param_names`` (the reference's column order),
+    ``samples`` and ``unconstrained`` (chains, draws, n_estimated), ``logp``
+    (chains, draws), ``diverging``, ``accept_prob`` and ``step_size``.
+    Returns the port's ``PosteriorResult`` over the same draws (float64,
+    numpy).  Raises ``ValueError`` on a mismatch in names or order, or when
+    a field's shape does not fit the draws.
+    """
+    fields = ("param_names", "samples", "unconstrained", "logp",
+              "diverging", "accept_prob", "step_size")
+    missing = [k for k in fields if k not in arrays]
+    if missing:
+        raise ValueError(f"posterior_from_reference: missing arrays {missing}")
+    labels = _checked_labels(arrays["param_names"], port_ss)
+    draws = {k: np.array(arrays[k], dtype=np.float64)
+             for k in ("samples", "unconstrained")}
+    for k, v in draws.items():
+        if v.ndim != 3 or v.shape[-1] != len(labels):
+            raise ValueError(f"{k} must be (chains, draws, {len(labels)}), "
+                             f"got {v.shape}")
+    lead = draws["unconstrained"].shape[:2]
+    if draws["samples"].shape[:2] != lead:
+        raise ValueError(f"samples {draws['samples'].shape} and unconstrained "
+                         f"{draws['unconstrained'].shape} differ")
+    per_draw = {k: np.asarray(arrays[k]) for k in ("logp", "diverging",
+                                                    "accept_prob")}
+    for k, v in per_draw.items():
+        if v.shape != lead:
+            raise ValueError(f"{k} must be {lead}, one value per draw, got "
+                             f"{v.shape}")
+    return PosteriorResult(
+        samples=draws["samples"], unconstrained=draws["unconstrained"],
+        logp=per_draw["logp"].astype(np.float64), param_names=labels,
+        diverging=per_draw["diverging"].astype(bool),
+        accept_prob=per_draw["accept_prob"].astype(np.float64),
+        step_size=np.asarray(arrays["step_size"], dtype=np.float64))
 
 
 def _checked_labels(param_labels, port_ss) -> list[str]:

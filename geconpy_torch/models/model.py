@@ -12,8 +12,10 @@ and its gensys fallback, and ``check_bk_condition`` (:442); and
 ``model_from_gcn`` (:496).  No pandas: where the reference returns a
 DataFrame the port returns tensors with name lists (``linearize_model``,
 ``PolicySolution.T``/``R``) or numpy arrays (``check_bk_condition``).
-``summary`` and ``solve_model_second_order`` raise until their modules
-are ported (ROADMAP Queue 1 items 8.4 and 8.6); ``build_report`` and
+``summary`` returns the P/Q/R/S tables of
+``stats/perturbation_diagnostics.py``; ``solve_model_second_order``
+raises until second order is ported (ROADMAP Queue 1 item 8.6);
+``build_report`` and
 ``_repr_html_`` (HTML reporting) are not ported.  ``steady_state``,
 ``linearize_model``, ``solve_model`` and ``check_bk_condition`` run on the
 GPU unless they are given ``device="cpu"``.
@@ -95,10 +97,12 @@ class PolicySolution:
         return autocovariance_matrix(self, n_lags=n_lags, **kwargs)
 
     def summary(self):
-        """P/Q/R/S policy tables and the eigenvalue report: not ported yet."""
-        raise NotImplementedError(
-            "PolicySolution.summary needs the perturbation diagnostics, not "
-            f"ported yet ({_ROADMAP} item 8, 8.4)")
+        """gEcon's P/Q/R/S policy tables
+        (stats.perturbation_diagnostics.summarize_perturbation_solution)."""
+        from ..stats.perturbation_diagnostics import (
+            summarize_perturbation_solution)
+
+        return summarize_perturbation_solution(self)
 
     def __repr__(self):
         status = "ok" if self.success else "FAILED"

@@ -1,14 +1,53 @@
 """Estimation layer (mirrors ``geconpy_tpu/stats``): the state space with its
 single-draw log posterior, batched likelihood sweep and value+gradient, the
 SMC sampler on the sweep, NUTS (``fit``) with its mode search and
-diagnostics, and the posterior's smoothed states and mixed-frequency data
-grid."""
+diagnostics, maximum likelihood and the model evidence, the posterior
+tools and forecasts, the solvability, BK and prior predictive sweeps, and
+the prior samplers."""
 
+from .covariance import (autocorrelation, autocovariance,
+                         autocovariance_matrix, fevd, stationary_covariance,
+                         stationary_covariance_matrix)
+from .diagnostics import effective_sample_size, split_rhat, summarize_chains
 from .estimation import PosteriorResult, fit
-from .posterior import posterior_smoothed_states, prepare_mixed_frequency_data
+from .forecast import conditional_forecast, posterior_forecast
+from .ml import MLResult, fit_ml
+from .model_comparison import (compare_models, find_map, laplace_evidence,
+                               marginal_likelihood, modified_harmonic_mean)
+from .perturbation_diagnostics import (bk_condition_sweep,
+                                       eigenvalue_sensitivity,
+                                       make_bk_count_fn,
+                                       prior_solvability_check,
+                                       solvability_check,
+                                       spectral_radius_sensitivity,
+                                       summarize_perturbation_solution)
+from .posterior import (posterior_autocorrelation, posterior_diagnostics,
+                        posterior_fevd, posterior_girfs, posterior_irfs,
+                        posterior_predictive, posterior_smoothed_states,
+                        prepare_mixed_frequency_data)
+from .prior_predictive import prior_predictive_sweep
+from .sampling import (bounds_from_priors, sample_from_priors,
+                       sample_from_priors_qmc, sample_uniform_from_priors)
 from .smc import SMCResult, fit_smc
-from .statespace import DSGEStateSpace, EstimatedParameter
+from .statespace import DSGEStateSpace, EstimatedParameter, LogPostExtras
 
-__all__ = ["DSGEStateSpace", "EstimatedParameter", "PosteriorResult",
-           "SMCResult", "fit", "fit_smc", "posterior_smoothed_states",
-           "prepare_mixed_frequency_data"]
+__all__ = [
+    "DSGEStateSpace", "EstimatedParameter", "LogPostExtras",
+    "PosteriorResult", "fit",
+    "posterior_forecast", "conditional_forecast",
+    "SMCResult", "fit_smc",
+    "MLResult", "fit_ml", "compare_models", "find_map", "laplace_evidence",
+    "marginal_likelihood", "modified_harmonic_mean",
+    "effective_sample_size", "split_rhat", "summarize_chains",
+    "stationary_covariance", "stationary_covariance_matrix",
+    "autocovariance", "autocovariance_matrix", "autocorrelation", "fevd",
+    "eigenvalue_sensitivity", "spectral_radius_sensitivity",
+    "prior_solvability_check", "solvability_check",
+    "summarize_perturbation_solution", "bk_condition_sweep", "make_bk_count_fn",
+    "posterior_irfs", "posterior_autocorrelation", "posterior_fevd",
+    "posterior_smoothed_states", "posterior_diagnostics",
+    "posterior_predictive", "posterior_girfs", "prior_predictive_sweep",
+    "prepare_mixed_frequency_data",
+    "bounds_from_priors", "sample_from_priors", "sample_from_priors_qmc",
+    "sample_uniform_from_priors",
+]

@@ -110,28 +110,31 @@ def stationary_covariance(T, R, Q) -> torch.Tensor:
 
 @highest_precision()
 def autocovariance(T, R, Q, n_lags: int = 10) -> torch.Tensor:
-    """Gamma_k = T^k Sigma for k = 0..n_lags-1: (n_lags, n, n)."""
+    """Gamma_k = T^k Sigma for k = 0..n_lags-1: (..., n_lags, n, n) for T
+    (..., n, n)."""
     T, R, Q = _tensors(T, R, Q)
     G = stationary_covariance(T, R, Q)
     gammas = []
     for _ in range(n_lags):
         gammas.append(G)
         G = T @ G
-    return torch.stack(gammas)
+    return torch.stack(gammas, dim=-3)
 
 
 def autocorrelation(T, R, Q, n_lags: int = 10) -> torch.Tensor:
     """Gamma_k normalized by the stationary standard deviations."""
     gammas = autocovariance(T, R, Q, n_lags)
-    sd = torch.sqrt(torch.clamp(torch.diagonal(gammas[0]), min=1e-300))
-    return gammas / (sd[:, None] * sd[None, :])
+    sd = torch.sqrt(torch.clamp(torch.diagonal(gammas[..., 0, :, :], dim1=-2,
+                                               dim2=-1), min=1e-300))
+    return gammas / (sd[..., None, :, None] * sd[..., None, None, :])
 
 
 @highest_precision()
 def fevd(T, R, Q, horizon: int = 40) -> torch.Tensor:
     """Forecast-error variance decomposition: the share of each variable's
     h-step-ahead forecast-error variance due to each orthogonalized shock
-    (Cholesky of Q), (horizon, n_variables, n_shocks), rows summing to 1."""
+    (Cholesky of Q), (..., horizon, n_variables, n_shocks), rows summing
+    to 1."""
     T, R, Q = _tensors(T, R, Q)
     impact = R @ _cholesky_nan(Q)          # (n, k) orthogonalized impacts
     n = T.shape[-1]
@@ -142,7 +145,7 @@ def fevd(T, R, Q, horizon: int = 40) -> torch.Tensor:
         acc = acc + (Phi @ impact) ** 2
         shares.append(acc)
         Phi = T @ Phi
-    shares = torch.stack(shares)
+    shares = torch.stack(shares, dim=-3)
     total = shares.sum(dim=-1, keepdim=True)
     return shares / torch.clamp(total, min=1e-300)
 

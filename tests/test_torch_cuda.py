@@ -20,7 +20,12 @@ the device gensys over a batch on the card gives each draw's solo CPU run.
 Every filter of the likelihood (the SDA and auto settles, steady state,
 Chandrasekhar, parallel, the cyclostationary filter of mixed-frequency
 data) gives the CPU's log posterior on the card, and so do ``filter_data``,
-the disturbance smoother and the historical shock decomposition.
+the disturbance smoother and the historical shock decomposition.  The
+tools a user runs after a fit give the CPU's results on the card: the
+posterior bands, predictive and forecast paths, the Laplace evidence and
+``fit_ml`` at the bars of their CPU tests, and the solvability, BK and
+prior predictive sweeps with the policy tables and eigenvalue
+sensitivities.
 """
 
 import numpy as np
@@ -798,3 +803,220 @@ def test_smoothers_and_posterior_tools_on_the_card_equal_the_cpu(device):
     dec_cpu = historical_shock_decomposition(ss_cpu, result, data)
     for a, b in zip(dec[:3], dec_cpu[:3]):
         assert gap(a, b) <= 1e-10
+
+
+def _rel(a, b):
+    """max |a - b| / max |b|, the finiteness equal."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    ok = torch.isfinite(b)
+    return float((a - b)[ok].abs().max() / b[ok].abs().max().clamp(min=1e-300))
+
+
+def _float_fields(out):
+    if isinstance(out, torch.Tensor):
+        return [out] if out.is_floating_point() else []
+    if isinstance(out, tuple):
+        return [t for x in out for t in _float_fields(x)]
+    return []
+
+
+@pytest.fixture(scope="module")
+def rbc_posterior(device):
+    """``rbc_estimation`` with Y and C observed with measurement error, on
+    the card and the CPU, 40 periods of data and 2 x 4 jittered draws."""
+    from geconpy_torch.stats.estimation import PosteriorResult
+
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"))
+    kw = dict(observed_states=["Y", "C"], measurement_error=["Y", "C"])
+    ss = DSGEStateSpace(model, device=device).configure(**kw)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(**kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device=device).manual_seed(0), periods=40)
+    u0 = ss.unconstrain(draw).cpu().numpy()
+    us = u0[None, None] + 0.04 * np.random.default_rng(0).standard_normal(
+        (2, 4, len(u0)))
+    result = PosteriorResult(
+        samples=us, unconstrained=us, logp=np.zeros((2, 4)),
+        param_names=ss.param_labels, diverging=np.zeros((2, 4), bool),
+        accept_prob=np.ones((2, 4)), step_size=np.full(2, 0.1))
+    return ss, ss_cpu, result, data
+
+
+@pytest.mark.parametrize("name", ["posterior_irfs", "posterior_autocorrelation",
+                                  "posterior_fevd", "posterior_diagnostics"])
+def test_posterior_bands_on_the_card_equal_the_cpu(rbc_posterior, name):
+    """Each band function on the card within rel 1e-10 of the CPU on the
+    same draws, no kernel launched."""
+    from geconpy_torch.stats import posterior
+
+    ss, ss_cpu, result, _ = rbc_posterior
+    fn = getattr(posterior, name)
+    cycle_reduction.launches = 0
+    got, want = fn(ss, result), fn(ss_cpu, result)
+    assert cycle_reduction.launches == 0
+    assert all(t.device.type == "cuda" for t in _float_fields(got))
+    for a, b in zip(_float_fields(got), _float_fields(want)):
+        if name == "posterior_diagnostics":     # rounding-level norms
+            a = a.cpu()
+            assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-10
+        else:
+            assert _rel(a, b) <= 1e-10
+    if name == "posterior_diagnostics":
+        for f in ("ss_success", "solver_success", "stable"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+
+
+def test_predictive_and_forecasts_on_the_card_equal_the_cpu(rbc_posterior,
+                                                            device):
+    """``posterior_predictive``'s and ``posterior_forecast``'s paths on the
+    same normals, and the terminal filtered state, within rel 1e-10 / 1e-8
+    of the CPU; both reproduce bitwise under one seed on the card;
+    ``conditional_forecast`` within rel 1e-8 and on its conditions."""
+    from geconpy_torch.stats import forecast, posterior
+
+    ss, ss_cpu, result, data = rbc_posterior
+    sols = [s.build_solution_fn()(posterior._flat_draws(s, result, None))
+            for s in (ss, ss_cpu)]
+    g = torch.Generator().manual_seed(3)
+    eps = torch.randn((8, 20, 1), generator=g, dtype=torch.float64)
+    eta = torch.randn((8, 20, 2), generator=g, dtype=torch.float64)
+    assert _rel(posterior._predictive_paths(sols[0], eps.to(device),
+                                            eta.to(device)),
+                posterior._predictive_paths(sols[1], eps, eta)) <= 1e-10
+    runs = [posterior.posterior_predictive(
+        ss, result, torch.Generator(device=device).manual_seed(1),
+        periods=20) for _ in range(2)]
+    assert torch.equal(runs[0].quantiles, runs[1].quantiles)
+    full = [s.build_solution_fn(full_state=True)(
+        posterior._flat_draws(s, result, None)) for s in (ss, ss_cpu)]
+    term = [forecast._terminal_state(s, sol, data)
+            for s, sol in zip((ss, ss_cpu), full)]
+    for a, b in zip(*term):
+        assert _rel(a, b) <= 1e-8
+    fans = [forecast.posterior_forecast(ss, result, data, horizon=6, seed=2)
+            for _ in range(2)]
+    assert torch.equal(fans[0].mean, fans[1].mean)
+    assert fans[0].mean.device.type == "cuda"
+    cond = {"Y": np.full(3, float(data[-1, 0]))}
+    kw = dict(horizon=6, quantiles=(0.0, 0.5, 1.0))
+    got = forecast.conditional_forecast(ss, result, data, cond, **kw)
+    want = forecast.conditional_forecast(ss_cpu, result, data, cond, **kw)
+    for a, b in zip(_float_fields(got), _float_fields(want)):
+        assert _rel(a, b) <= 1e-8
+    assert float((got[0].quantiles[:, 0, :3] - cond["Y"][0]).abs().max()) \
+        <= 1e-8 * (1 + abs(cond["Y"][0]))
+
+
+def test_evidence_and_ml_on_the_card_equal_the_cpu(device):
+    """The Laplace evidence at the card's mode on both devices, within
+    0.5 d κ(H) 1e-6 (the CPU tests' bar); ``fit_ml`` on the card with the
+    CPU's log-likelihood (rel 1e-8) and standard errors (κ(H) 1e-6) at its
+    maximum; ``compare_models`` probabilities sum to 1."""
+    from geconpy_torch.stats.ml import _gated_loglik, _standard_errors, fit_ml
+    from geconpy_torch.stats.model_comparison import (compare_models,
+                                                      find_map,
+                                                      laplace_evidence,
+                                                      neg_hessian_fn)
+
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"))
+    kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+              filter_type="stationary", kalman_settle=12)
+    ss = DSGEStateSpace(model, device=device).configure(**kw)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(**kw)
+    data, _ = ss.data_from_prior(torch.Generator(device=device).manual_seed(2),
+                                 periods=60, params={"rho_A": 0.6})
+    cut = dict(adam_steps=30, learning_rate=0.1)
+    vag = ss.build_logpost_and_grad(data)
+    u = find_map(vag, ss.initial_position(), **cut)
+    vag_cpu = ss_cpu.build_logpost_and_grad(data)
+    H = neg_hessian_fn(vag_cpu)(u.cpu()).numpy()
+    bar = 0.5 * len(u) * np.linalg.cond(H) * 1e-6
+    assert abs(laplace_evidence(vag, u) - laplace_evidence(vag_cpu, u.cpu())) \
+        <= bar
+    res = fit_ml(ss, data, **cut)
+    u_hat = torch.as_tensor(res.unconstrained)
+    ll_cpu = _gated_loglik(ss_cpu, data)
+    se, H_ll = _standard_errors(ss_cpu, ll_cpu, u_hat)
+    assert abs(res.loglik - float(ll_cpu(u_hat[None])[0][0])) \
+        <= 1e-8 * abs(res.loglik)
+    got = np.asarray([res.std_errors[k] for k in ss.param_labels])
+    np.testing.assert_allclose(got, se, rtol=np.linalg.cond(H_ll) * 1e-6)
+    twin = DSGEStateSpace(model, device=device).configure(
+        **dict(kw, constant_params=["alpha", "sigma_C", "rho_A"]))
+    table = compare_models({"full": ss, "twin": twin}, data, **cut)
+    assert abs(float(table.posterior_prob.sum()) - 1.0) < 1e-12
+
+
+def test_diagnostic_sweeps_on_the_card_equal_the_cpu(device):
+    """``solvability_check`` and ``bk_condition_sweep`` flags and counts
+    equal to the CPU (norms rel 1e-8 as |a - b| / (1 + |b|)), the P/Q/R/S
+    tables and ``spectral_radius_sensitivity`` at rel 1e-10,
+    ``eigenvalue_sensitivity``'s finite nonzero roots at rel 1e-8 of the
+    largest (derivatives 1e-4 of each root's largest), ``check_steady_state`` true, and the prior
+    predictive core at rel 1e-10; ``sample_from_priors`` with its defaults
+    draws on the card, as its seed and device say; no kernel launched."""
+    from geconpy_torch.models.validation import check_steady_state
+    from geconpy_torch.stats import perturbation_diagnostics as pdiag
+    from geconpy_torch.stats import prior_predictive
+    from geconpy_torch.stats.sampling import sample_from_priors
+
+    nk = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("nk_3eq"))
+    phi = {"phi_pi": np.random.default_rng(1).uniform(0.3, 2.5, size=24)}
+    for fn, fields in ((pdiag.solvability_check,
+                        ("steady_state", "linearization", "policy_solve",
+                         "stability", "residual_norms", "success")),
+                       (pdiag.bk_condition_sweep,
+                        ("n_unstable", "n_forward", "bk_satisfied", "ok"))):
+        got, want = fn(nk, phi, device=device), fn(nk, phi, device="cpu")
+        for f in fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+    a = pdiag.solvability_check(nk, phi, device=device)
+    b = pdiag.solvability_check(nk, phi, device="cpu")
+    for f in ("spectral_radius", "deterministic_norm", "stochastic_norm"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        assert float(((x - y).abs() / (1 + y.abs())).max()) <= 1e-8
+    rbc = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("rbc"))
+    t_g = rbc.solve_model(verbose=False).summary()
+    t_c = rbc.solve_model(verbose=False, device="cpu").summary()
+    for x, y in zip(_float_fields(t_g), _float_fields(t_c)):
+        assert _rel(x, y) <= 1e-10
+    assert _rel(pdiag.spectral_radius_sensitivity(rbc).d_rho_d_param,
+                pdiag.spectral_radius_sensitivity(
+                    rbc, device="cpu").d_rho_d_param) <= 1e-10
+    e_g = pdiag.eigenvalue_sensitivity(rbc)
+    e_c = pdiag.eigenvalue_sensitivity(rbc, device="cpu")
+    lam_g, lam_c = e_g.eigenvalues.cpu().numpy(), e_c.eigenvalues.numpy()
+    i_g = np.lexsort((lam_g.imag, np.abs(lam_g)))
+    i_c = np.lexsort((lam_c.imag, np.abs(lam_c)))
+    mod = np.abs(lam_c[i_c])
+    keep = (mod > 1e-6) & (mod < 1e6)      # the finite, nonzero roots
+    assert np.abs(lam_g[i_g] - lam_c[i_c])[keep].max() <= 1e-8 * mod.max()
+    parts = ("real", "imag", "modulus")
+    x = np.stack([getattr(e_g, p).cpu().numpy()[i_g][keep] for p in parts], 1)
+    y = np.stack([getattr(e_c, p).numpy()[i_c][keep] for p in parts], 1)
+    # each root's largest derivative over its parts (a real root's
+    # imaginary part has derivatives of rounding size)
+    scale = np.abs(y).max(axis=(1, 2), keepdims=True)
+    assert (np.abs(x - y) / scale).max() <= 1e-4
+    assert check_steady_state(rbc) is True
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"))
+    kw = dict(observed_states=["Y"], measurement_error=["Y"])
+    ss = DSGEStateSpace(model, device=device).configure(**kw)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(**kw)
+    U = prior_predictive._prior_draws(
+        ss, 32, torch.Generator(device=device).manual_seed(0))
+    assert U.device.type == "cuda"
+    got = prior_predictive._sweep_core(ss, U, 12, 8, (0.05, 0.5, 0.95))
+    want = prior_predictive._sweep_core(ss_cpu, U.cpu(), 12, 8,
+                                        (0.05, 0.5, 0.95))
+    for x, y in zip(_float_fields(got), _float_fields(want)):
+        assert _rel(x, y) <= 1e-10
+    priors = {p.name: p.prior for p in ss.estimated}
+    draws = sample_from_priors(priors, 16)     # the defaults: the card
+    again = sample_from_priors(priors, 16, seed=0, device=device)
+    assert all(v.device.type == "cuda" for v in draws.values())
+    assert all(torch.equal(draws[k], again[k]) for k in priors)

@@ -16,7 +16,8 @@
   iteration) picks gensys and logs the reference's message;
 - ``check_bk_condition`` gives the reference's eigenvalue table
   (rel 1e-10) and attributes;
-- ``PolicySolution``'s repr, its conveniences and the parts not ported yet.
+- ``PolicySolution``'s repr, its conveniences, its ``summary`` (the
+  reference's P/Q/R/S tables at rel 1e-10) and the part not ported yet.
 """
 
 import logging
@@ -194,8 +195,17 @@ def test_policy_solution_repr_and_unported_parts(rbc):
     assert isinstance(p.T, torch.Tensor) and p.T.shape == (9, 9)
     assert p.steady_state.success
     assert set(map(str, p.steady_state)) == set(map(str, r.steady_state))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        p.summary()
+    # the P/Q/R/S tables against the reference's frame
+    tables, want = p.summary(), r.summary()
+    assert (tables.states, tables.jumps) == (want.attrs["states"],
+                                             want.attrs["jumps"])
+    for block, rows, cols in (("P", tables.states, tables.states),
+                              ("Q", tables.states, tables.shocks),
+                              ("R", tables.jumps, tables.states),
+                              ("S", tables.jumps, tables.shocks)):
+        np.testing.assert_allclose(getattr(tables, block).numpy(),
+                                   want.loc[block].loc[rows, cols].to_numpy(),
+                                   rtol=1e-10, atol=1e-14, err_msg=block)
     with pytest.raises(NotImplementedError, match="item 8"):
         port.solve_model_second_order()
     irf = p.impulse_responses(periods=5)
