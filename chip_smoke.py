@@ -231,7 +231,37 @@ Phases, one line each (plus one line per kernel in phase 3):
    ``check_steady_state`` on SW-2007 and ``open_rbc`` (and false on a
    perturbed steady state), ``prior_predictive_sweep`` at 4,096 draws
    (its core at rel 1e-10 to the CPU on 16).  The phase prints its
-   seconds.
+   seconds;
+13. second order (``second_order_phase``; ``tools/second_order_probe.py``
+   runs it alone on jittered SW-2007 draws), float64, each part with its
+   ms a call (CUDA events) and peak memory, the counts set to 0 before
+   each part, and no kernel launched by a second-order part.  13a
+   ``solve_model_second_order(shock_std=0.01)`` on all 21 bundled models,
+   the four blocks card vs CPU at rel 1e-10 (``rbc_skilled_unskilled`` at
+   1e-6, as in 10a), zero on both for SW-2007, ``nk_3eq`` and ``nk_soe``;
+   ``nk_sw``'s user call and its batched solve at batch 512.  13b ``nk_sw`` (21 variables, 6 shocks): ``simulate_second_order``
+   (4,096 x 200), ``impulse_response_second_order`` (6 x 40),
+   ``generalized_irf`` (256 x 40) and ``second_order_mean``, card vs CPU
+   on the same shocks at 1e-10, the simulation's last period within 5
+   standard errors (plus the exact transient) of the mean.  13c ``nk_sw``
+   with its 6 observables under measurement error (28 parameters, 200
+   periods, draws the generating draw + 0.01 N(0,1), jitter 1e-7): the
+   marginalized value+grad at batches 128 and 512 and the full UKF at 128,
+   >= 99% finite and every gradient finite, 8 draws at 1e-8 / 1e-6 of the
+   float64 CPU path, ``SO_PROFILE_PERIODS`` periods profiled; the
+   first-order value+grad of
+   the same draws on a stationary twin with ``settle="pallas"`` (K4 and K6
+   once each); ``filter_data_second_order`` at 1e-8 of the CPU; the
+   reference bench's ``rbc_estimation`` configuration at batch 512.  13d
+   on ``rbc_estimation`` (100 periods): the particle filter (8,192
+   particles, 3 seeds) within 3.0 of the UKF, ``nk_sw``'s (4,096
+   particles, 8 runs batched) all succeeding, ``fit(order=2)`` and
+   ``fit_pmmh`` cut as ``SO_FIT`` and ``SO_PMMH`` say (printed beside the
+   reference's defaults), every draw finite.  13e ``posterior_girfs`` on
+   13d's posterior and on phase 7's (100 draws x 128 paths x 40
+   periods), SW-2007's equal to ``posterior_irfs``' bands within 1e-10
+   (its quadratic blocks vanish), 8 draws card vs CPU on the same normals.
+   The phase prints its seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -325,6 +355,32 @@ POST_DRAWS, PRED_DRAWS, FORECAST_DRAWS, COND_DRAWS = 500, 200, 500, 200
 POST_CHECK = 16
 SWEEP_DRAWS, SOLV_CHECK, BK_DRAWS, BK_CHECK, BK_TABLE = 4096, 64, 256, 16, 4
 EVIDENCE_CUT = {"adam_steps": 10, "learning_rate": 0.1}
+
+# phase 13: nk_sw's observables (all with measurement error), the
+# value+grad batches (marginalized filter; the full UKF at the smaller),
+# the draws held to the CPU, timed calls, the simulation (paths x periods)
+# and GIRF draws of 13b, the particles and generator seeds of 13d's
+# particle filters, the cut NUTS and PMMH runs of 13d beside the
+# reference's defaults, and 13e's GIRF bands
+# a value+grad call of 13c takes ~4 s at either batch (launch-bound: a
+# first chip run read 20,065 launches over 10 periods), so each is timed
+# once after one warm-up; 13c profiles SO_PROFILE_PERIODS periods;
+# fit(order=2) at 3 + 3 transitions and depth 4 took 146.3 s (64 calls of
+# 2.3 s) and fit_pmmh at 50 + 50 33.5 s, so both are cut further (at
+# 1 + 2 transitions every transition diverged: one warmup iteration does
+# not adapt the step size)
+SO_OBS = ["Y", "C", "I", "pi", "R", "w"]
+SO_BATCHES, SO_FULL_BATCH, SO_CHECK = (128, 512), 128, 8
+SO_PROFILE_PERIODS = 2
+SO_SIM, SO_GIRF_DRAWS = (4096, 200), 256
+SO_PF = {"rbc_estimation": (8192, 3), "nk_sw": (4096, 8)}
+SO_FIT = dict(num_chains=16, num_warmup=3, num_samples=1, max_depth=2,
+              init="prior", seed=0, order=2)
+SO_FIT_FULL = {"num_warmup": 500, "num_samples": 500, "max_depth": 8}
+SO_PMMH = dict(num_chains=4, n_particles=4096, num_warmup=25,
+               num_samples=25, seed=0)
+SO_PMMH_FULL = {"num_warmup": 1000, "num_samples": 2000}
+GIRF_KW = dict(periods=40, n_mc=128, max_draws=100)
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -2153,6 +2209,390 @@ def posterior_tools_phase(card, reset_counts, read_counts, sw_model, ss,
           flush=True)
 
 
+def second_order_phase(card, reset_counts, read_counts, sw_ss, sw_ss_cpu,
+                       sw_res) -> None:
+    """Phase 13: the second-order layer (13a-13e, see the module
+    docstring).  ``sw_ss``/``sw_ss_cpu`` are phase 7's SW-2007 state space
+    on the card and the CPU, ``sw_res`` its ``PosteriorResult``."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.analysis import (impulse_response_second_order,
+                                        simulate_second_order)
+    from geconpy_torch.models import second_order as so
+    from geconpy_torch.stats import nonlinear, posterior
+    from geconpy_torch.stats.estimation import fit, fit_pmmh
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def part(tag, fn, reps=1, kernels=()):
+        """``reps`` calls after the counts are set to 0, timed by CUDA
+        events: (last result, ms a call, peak device memory, counts).  Only
+        the kernels named in ``kernels`` may launch."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        counts = {k_: n_ for k_, n_ in read_counts().items() if n_}
+        stray = {k_: n_ for k_, n_ in counts.items() if k_ not in kernels}
+        if stray:
+            raise AssertionError(f"{tag} launched {stray}: the second-order "
+                                 "layer runs no kernel")
+        return (out, start.elapsed_time(stop) / reps,
+                torch.cuda.max_memory_allocated(dev), counts)
+
+    def profiled(fn) -> str:
+        t0 = time.perf_counter()
+        wall, dev_ms, n_k, reads = profile_call(fn)
+        return (f"profiled: wall {wall:.1f} ms, device {dev_ms:.1f} ms, "
+                f"{n_k} launches, {reads} host reads (the profile took "
+                f"{time.perf_counter() - t0:.1f} s)")
+
+    def held(tag, a, b, bar) -> float:
+        gap = rel_max(a, b)
+        if gap > bar:
+            raise AssertionError(f"{tag}: card vs CPU rel {gap:.3e} > {bar}")
+        return gap
+
+    # ---- 13a: the second-order solve of every bundled model
+    names = sorted(p.stem for p in (ROOT / "geconpy_torch" / "data").glob(
+        "*.gcn"))
+    worst, zero = (0.0, ""), []
+    for name in names:
+        model = geconpy_torch.model_from_gcn(
+            geconpy_torch.get_example_gcn(name), verbose=False)
+        reset_counts()
+        sol, res2 = model.solve_model_second_order(shock_std=0.01)
+        if any(read_counts().values()):
+            raise AssertionError(f"13a {name} launched {read_counts()}")
+        _, res_c = model.solve_model_second_order(shock_std=0.01,
+                                                  device="cpu")
+        if res2.G_xx.device.type != "cuda" or not bool(res2.success) \
+                or not bool(res_c.success):
+            raise AssertionError(f"13a {name}: success card "
+                                 f"{bool(res2.success)} CPU "
+                                 f"{bool(res_c.success)}")
+        scale = max(float(x.abs().max()) for x in res_c[:4])
+        card_scale = max(float(x.abs().max()) for x in res2[:4])
+        t_scale = float(sol.T.abs().max())
+        if max(scale, card_scale) <= 1e-12 * t_scale:
+            zero.append(name)       # linear in its coordinates: rounding
+            continue
+        gap = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(res2[:4], res_c[:4])) / scale
+        # rbc_skilled_unskilled's T is fixed by its pencil only to ~1e-6
+        # (phase 10a), and so are its second-order blocks
+        bar = 1e-6 if name == "rbc_skilled_unskilled" else 1e-10
+        if gap > bar:
+            raise AssertionError(f"13a {name}: blocks card vs CPU rel "
+                                 f"{gap:.3e} > {bar}")
+        if bar == 1e-10:
+            worst = max(worst, (gap, name))
+    if not {"sw2007", "nk_3eq", "nk_soe"} <= set(zero):
+        raise AssertionError(f"13a: blocks not zero on {zero}")
+    nk = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("nk_sw"),
+                                      verbose=False)
+    sol, res2 = nk.solve_model_second_order(shock_std=0.01)
+    sol_c, res2_c = nk.solve_model_second_order(shock_std=0.01, device="cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nk.solve_model_second_order(shock_std=0.01, solution=sol)
+    torch.cuda.synchronize()
+    user_ms = (time.perf_counter() - t0) * 1e3
+    ss_sol = nk._solve_ss(dev, {})
+    solve2 = nk.second_order_solver()
+    B = 512
+    args = (ss_sol.x_ss.reshape(1, -1).expand(B, -1),
+            ss_sol.theta_full.reshape(1, -1).expand(B, -1),
+            sol.T.expand(B, -1, -1), sol.R.expand(B, -1, -1),
+            1e-4 * torch.eye(6, dtype=torch.float64, device=dev).expand(
+                B, -1, -1))
+    with torch.no_grad():
+        _, solve_ms, solve_peak, _ = part("13a solve2", lambda: solve2(*args),
+                                          reps=2)
+    print(f"phase 13a solve_model_second_order(shock_std=0.01) on all "
+          f"{len(names)} bundled models, card vs CPU: every solve succeeds; "
+          f"largest blocks gap rel {worst[0]:.3e} ({worst[1]}; bar 1e-10; "
+          f"rbc_skilled_unskilled at 1e-6); blocks zero on both (at 1e-12 of "
+          f"max|T|) for {zero}; nk_sw (max|G_xx| "
+          f"{float(res2.G_xx.abs().max()):.1f}) {user_ms:.1f} ms a user call "
+          f"(its first-order solution given); the batched solve at batch "
+          f"{B} {solve_ms:.1f} ms a call (Hessian by nested jacfwd, doubling, "
+          f"solves), peak {solve_peak} B; no kernel; step "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+    # ---- 13b: analysis at nk_sw's width, float64
+    t_step = time.perf_counter()
+    k = len(sol.shocks)
+    Q = 1e-4 * torch.eye(k, dtype=torch.float64)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sims, sim_ms, sim_peak, _ = part(
+        "13b simulate_second_order", lambda: simulate_second_order(
+            sol, res2, periods=SO_SIM[1], n_simulations=SO_SIM[0],
+            shock_std=0.01, generator=gen))
+    eps = 0.01 * torch.randn((SO_SIM[0], SO_SIM[1], k), generator=gen,
+                             device=dev, dtype=torch.float64)
+    paths = so.simulate_pruned(sol.T, sol.R, res2, eps)
+    gap_sim = held("13b simulate_pruned", paths,
+                   so.simulate_pruned(sol_c.T, sol_c.R, res2_c, eps.cpu()),
+                   1e-10)
+    irf, irf_ms, _, _ = part("13b impulse_response_second_order",
+                             lambda: impulse_response_second_order(
+                                 sol, res2, periods=40, shock_size=0.01))
+    gap_irf = held("13b IRFs", irf.values, impulse_response_second_order(
+        sol_c, res2_c, periods=40, shock_size=0.01).values, 1e-10)
+    shock = torch.zeros(k, dtype=torch.float64)
+    shock[0] = 0.01
+    girf, girf_ms, _, _ = part(
+        "13b generalized_irf", lambda: so.generalized_irf(
+            sol.T, sol.R, res2, shock.to(dev), Q.to(dev), periods=40,
+            n_draws=SO_GIRF_DRAWS, generator=gen))
+    normals = torch.randn((SO_GIRF_DRAWS, 40, k), generator=gen, device=dev,
+                          dtype=torch.float64)
+    gap_girf = held("13b GIRF", so._girf_from_normals(
+        sol.T, sol.R, res2, shock.to(dev), Q.to(dev), normals),
+        so._girf_from_normals(sol_c.T, sol_c.R, res2_c, shock, Q,
+                              normals.cpu()), 1e-10)
+    mean, mean_ms, _, _ = part("13b second_order_mean",
+                               lambda: so.second_order_mean(
+                                   sol.T, sol.R, res2, Q.to(dev)))
+    gap_mean = held("13b second_order_mean", mean, so.second_order_mean(
+        sol_c.T, sol_c.R, res2_c, Q), 1e-10)
+    # the simulation's last period against the stationary mean: within 5
+    # standard errors plus what the exact mean of a path started at zero
+    # still lacks of the stationary one after SO_SIM[1] periods
+    T_c, R_c = sol_c.T, sol_c.R
+    m2 = torch.zeros(T_c.shape[0], dtype=torch.float64)
+    S1 = torch.zeros_like(T_c)
+    for _ in range(SO_SIM[1]):
+        m2 = T_c @ m2 + 0.5 * (res2_c.G_xx * S1).sum((-2, -1)) \
+            + 0.5 * (res2_c.G_uu * Q).sum((-2, -1)) + 0.5 * res2_c.g_ss
+        S1 = T_c @ S1 @ T_c.mT + R_c @ Q @ R_c.mT
+    last = sims.values[:, -1].cpu()
+    se = last.std(dim=0) / math.sqrt(last.shape[0])
+    transient = (m2 - mean.cpu()).abs()
+    miss = (last.mean(dim=0) - mean.cpu()).abs()
+    if bool((miss > 5 * se + transient + 1e-12).any()):
+        raise AssertionError(f"13b: the simulation's mean is off "
+                             f"second_order_mean by {miss.max():.3e} "
+                             f"(5 se {5 * se.max():.3e})")
+    print(f"phase 13b nk_sw analysis on the card, float64 (21 variables, 6 "
+          f"shocks): simulate_second_order {SO_SIM[0]} x {SO_SIM[1]} "
+          f"{sim_ms:.1f} ms (peak {sim_peak} B), "
+          f"impulse_response_second_order (6 shocks x 40) {irf_ms:.1f} ms, generalized_irf "
+          f"({SO_GIRF_DRAWS} draws x 40) {girf_ms:.1f} ms, second_order_mean "
+          f"{mean_ms:.1f} ms; card vs CPU on the same shocks: paths "
+          f"{gap_sim:.3e}, IRFs {gap_irf:.3e}, GIRF {gap_girf:.3e}, mean "
+          f"{gap_mean:.3e} (bar 1e-10); the last period's mean within "
+          f"{float((miss / se).max()):.2f} se of second_order_mean (bar 5 se "
+          f"+ the transient, at most {float(transient.max()):.3e}); max "
+          f"|mean| {float(mean.abs().max()):.3e}; no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 13c: the second-order likelihood at nk_sw's width
+    t_step = time.perf_counter()
+    kw = dict(observed_states=SO_OBS, measurement_error=SO_OBS)
+    ss2 = DSGEStateSpace(nk, device="cuda").configure(**kw)
+    ss2_cpu = DSGEStateSpace(nk, device="cpu").configure(**kw)
+    data, draw = ss2.data_from_prior(
+        torch.Generator(device=dev).manual_seed(0), periods=PERIODS)
+    u0 = ss2.unconstrain(draw)
+    U = u0[None] + 0.01 * torch.randn(
+        (max(SO_BATCHES), u0.shape[0]), generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev, dtype=torch.float64)
+    lines = []
+    ss2.build_logpost_and_grad_second_order(data, jitter=1e-7)(
+        U[:SO_FULL_BATCH])                               # warm-up
+    for method, batches in (("marginalized", SO_BATCHES),
+                            ("full", (SO_FULL_BATCH,))):
+        vag = ss2.build_logpost_and_grad_second_order(data, jitter=1e-7,
+                                                      method=method)
+        for b in batches:
+            (v, g), ms, peak, _ = part(f"13c {method} {b}",
+                                       lambda: vag(U[:b]))
+            frac = float(torch.isfinite(v).double().mean())
+            if frac < 0.99 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"13c {method} batch {b}: {frac:.4f} "
+                                     "finite, gradients finite "
+                                     f"{bool(torch.isfinite(g).all())}")
+            lines.append(f"{method} batch {b} {ms * 1e3 / b:.1f} us/draw "
+                         f"({ms:.1f} ms a call, peak {peak} B, {frac:.4f} "
+                         "finite)")
+            if method == "marginalized" and b == max(SO_BATCHES):
+                v2, g2 = v, g
+    t0 = time.perf_counter()
+    v_c, g_c = ss2_cpu.build_logpost_and_grad_second_order(
+        data, jitter=1e-7)(U[:SO_CHECK].cpu())
+    cpu_s = time.perf_counter() - t0
+    rel_v = float(((v2[:SO_CHECK].cpu() - v_c).abs() / v_c.abs()).max())
+    rel_g = float(((g2[:SO_CHECK].cpu() - g_c).abs().amax(-1)
+                   / g_c.abs().amax(-1)).max())
+    if rel_v > 1e-8 or rel_g > 1e-6:
+        raise AssertionError(f"13c vs the CPU on {SO_CHECK} draws: value "
+                             f"{rel_v:.3e}, gradient {rel_g:.3e}")
+    short = ss2.build_logpost_and_grad_second_order(
+        data[:SO_PROFILE_PERIODS], jitter=1e-7)
+    short(U[:SO_FULL_BATCH])
+    prof = profiled(lambda: short(U[:SO_FULL_BATCH]))
+    # the first-order value+grad of the same draws, K4 and K6
+    ss1 = DSGEStateSpace(nk, device="cuda").configure(
+        filter_type="stationary", **kw)
+    vag1 = ss1.build_batched_logpost_and_grad(data, settle="pallas")
+    vag1(U)
+    (v1, _g1), ms1, _, counts1 = part(
+        "13c first order", lambda: vag1(U), kernels=("cycle_reduction",
+                                                      "dare_settle"))
+    if counts1 != {"cycle_reduction": 1, "dare_settle": 1}:
+        raise AssertionError(f"13c first-order value+grad launched {counts1}")
+    fd, fd_ms, _, _ = part("13c filter_data_second_order",
+                           lambda: nonlinear.filter_data_second_order(
+                               ss2, data, params=draw))
+    fd_c = nonlinear.filter_data_second_order(ss2_cpu, data, params=draw)
+    gap_fd = max(held("13c filter_data paths", fd.paths, fd_c.paths, 1e-8),
+                 held("13c filter_data loglik", fd.loglik, fd_c.loglik, 1e-8))
+    rbc = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"), verbose=False)
+    rbc_kw = dict(observed_states=["Y", "C"], measurement_error=["Y", "C"])
+    ss_r = DSGEStateSpace(rbc, device="cuda").configure(**rbc_kw)
+    data_r, draw_r = ss_r.data_from_prior(
+        torch.Generator(device=dev).manual_seed(0), periods=PERIODS)
+    u_r = ss_r.unconstrain(draw_r)
+    U_r = u_r[None] + 0.01 * torch.randn(
+        (max(SO_BATCHES), u_r.shape[0]), generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev, dtype=torch.float64)
+    vag_r = ss_r.build_logpost_and_grad_second_order(data_r)
+    (v_r, _), ms_r, peak_r, _ = part("13c rbc_estimation", lambda: vag_r(U_r))
+    print(f"phase 13c nk_sw second-order value+grad (6 observables with "
+          f"measurement error, 28 estimated parameters, {PERIODS} periods, "
+          f"jitter 1e-7, remat, float64; draws = the generating draw + 0.01 "
+          f"N(0,1)): " + "; ".join(lines) + f"; vs the float64 CPU path on "
+          f"{SO_CHECK} draws: value {rel_v:.3e}, gradient {rel_g:.3e} (bars "
+          f"1e-8 / 1e-6; CPU {cpu_s:.1f} s); {SO_PROFILE_PERIODS} periods "
+          f"at batch {SO_FULL_BATCH} {prof}; first order (stationary filter, "
+          f"settle='pallas', same {max(SO_BATCHES)} draws) "
+          f"{ms1 * 1e3 / max(SO_BATCHES):.1f} us/draw, launches {counts1}, "
+          f"{float(torch.isfinite(v1).double().mean()):.4f} finite; "
+          f"filter_data_second_order at the generating draw {fd_ms:.1f} ms, "
+          f"card vs CPU {gap_fd:.3e}; the reference bench's configuration "
+          f"(rbc_estimation, Y and C with measurement error, {PERIODS} "
+          f"periods, batch {max(SO_BATCHES)}) "
+          f"{ms_r * 1e3 / max(SO_BATCHES):.1f} us/draw, peak {peak_r} B, "
+          f"{float(torch.isfinite(v_r).double().mean()):.4f} finite; second-"
+          f"order parts launch no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 13d: estimation
+    t_step = time.perf_counter()
+    data_e, draw_e = ss_r.data_from_prior(
+        torch.Generator(device=dev).manual_seed(11), periods=100)
+    u_e = ss_r.unconstrain(draw_e)
+    ll_ukf = float(ss_r.build_logpost_second_order(data_e)(u_e)) - float(
+        ss_r.build_second_order_solution_fn()(u_e)["logprior"])
+    n_r, seeds_r = SO_PF["rbc_estimation"]
+    pf_r = ss_r.build_pf_loglik_second_order(data_e, n_particles=n_r)
+    pf_lls = []
+    for s in range(seeds_r):
+        (ll, ok), pf_ms, _, _ = part("13d rbc PF", lambda: pf_r(
+            u_e, torch.Generator(device=dev).manual_seed(s)))
+        if not bool(ok):
+            raise AssertionError("13d rbc_estimation PF failed")
+        pf_lls.append(float(ll))
+    gap_pf = abs(float(np.mean(pf_lls)) - ll_ukf)
+    if gap_pf > 3.0:
+        raise AssertionError(f"13d PF mean {np.mean(pf_lls)} vs UKF {ll_ukf}")
+    n_s, seeds_s = SO_PF["nk_sw"]
+    pf_s = ss2.build_pf_loglik_second_order(data, n_particles=n_s)
+    (ll_s, ok_s), pfs_ms, pfs_peak, _ = part("13d nk_sw PF", lambda: pf_s(
+        u0[None].expand(seeds_s, -1),
+        torch.Generator(device=dev).manual_seed(0)))
+    if not bool(ok_s.all()):
+        raise AssertionError(f"13d nk_sw PF: success {ok_s.tolist()}")
+    ukf_s = float(ss2.build_logpost_second_order(data, jitter=1e-7)(u0)) \
+        - float(ss2.build_second_order_solution_fn()(u0)["logprior"])
+    t0 = time.perf_counter()
+    reset_counts()
+    fit2 = fit(ss_r, data_e, **SO_FIT)
+    fit_s = time.perf_counter() - t0
+    if any(read_counts().values()) or not np.isfinite(fit2.logp).all():
+        raise AssertionError(f"13d fit(order=2): launches {read_counts()}, "
+                             f"finite {np.isfinite(fit2.logp).mean()}")
+    n_calls = int(np.sum(fit2.n_calls))
+    t0 = time.perf_counter()
+    reset_counts()
+    pm = fit_pmmh(ss_r, data_e, **SO_PMMH)
+    pm_s = time.perf_counter() - t0
+    if any(read_counts().values()) or not np.isfinite(pm.logp).all():
+        raise AssertionError(f"13d fit_pmmh: launches {read_counts()}, finite "
+                             f"{np.isfinite(pm.logp).mean()}")
+    print(f"phase 13d estimation: rbc_estimation PF ({n_r} particles, "
+          f"{seeds_r} generator seeds, 100 periods) "
+          + ", ".join(f"{x:.3f}" for x in pf_lls) + f", mean "
+          f"{np.mean(pf_lls):.3f} vs UKF {ll_ukf:.3f} (gap {gap_pf:.3f}, "
+          f"bar 3.0), {pf_ms:.1f} ms a call; nk_sw PF ({n_s} particles, "
+          f"{seeds_s} runs batched as draws, {PERIODS} periods) mean "
+          f"{float(ll_s.mean()):.3f} sd {float(ll_s.std()):.3f} vs UKF "
+          f"{ukf_s:.3f} (gap {float(ll_s.mean()) - ukf_s:.3f}, not asserted), "
+          f"all succeed, {pfs_ms:.1f} ms a call, peak {pfs_peak} B; "
+          f"fit(order=2) {SO_FIT} (cut from {SO_FIT_FULL}) {fit_s:.1f} s, "
+          f"{n_calls} value+grad calls "
+          f"({fit_s / max(n_calls, 1) * 1e3:.1f} ms a call), all {fit2.logp.size} draws finite, acceptance "
+          f"{float(np.mean(fit2.accept_prob)):.3f}, divergent "
+          f"{float(np.mean(fit2.diverging)):.3f}; fit_pmmh {SO_PMMH} (cut "
+          f"from {SO_PMMH_FULL}) {pm_s:.1f} s, acceptance "
+          f"{float(pm.accept_prob[:, 0].mean()):.3f}, draws finite; no "
+          f"kernel; step {time.perf_counter() - t_step:.1f} s [{card}]",
+          flush=True)
+
+    # ---- 13e: GIRF bands
+    t_step = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gb_r, gr_ms, _, _ = part("13e posterior_girfs rbc", lambda:
+                             posterior.posterior_girfs(
+                                 ss_r, fit2, "epsilon_A", gen, **GIRF_KW))
+    sw_shock = sw_ss.model.functions.shock_names[0]
+    gb, gb_ms, gb_peak, _ = part("13e posterior_girfs sw2007", lambda:
+                                 posterior.posterior_girfs(
+                                     sw_ss, sw_res, sw_shock, gen, **GIRF_KW))
+    with torch.no_grad():
+        ib = posterior.posterior_irfs(sw_ss, sw_res,
+                                      periods=GIRF_KW["periods"],
+                                      max_draws=GIRF_KW["max_draws"])
+    gap_lin = max(rel_max(gb.mean, ib.mean[0]),
+                  rel_max(gb.quantiles, ib.quantiles[:, 0]))
+    if gap_lin > 1e-10:
+        raise AssertionError(f"13e SW-2007 GIRF bands vs posterior_irfs "
+                             f"{gap_lin:.3e}")
+    us = posterior._flat_draws(sw_ss, sw_res, POST_CHECK // 2)
+    normals = torch.randn((us.shape[0], GIRF_KW["n_mc"], GIRF_KW["periods"],
+                           sw_ss.model.functions.n_shocks), generator=gen,
+                          device=dev, dtype=torch.float64)
+    with torch.no_grad():
+        gap_g = held("13e GIRF paths", posterior._girf_paths(
+            nonlinear._solution_fn(sw_ss)(us), 0, None, normals),
+            posterior._girf_paths(nonlinear._solution_fn(sw_ss_cpu)(
+                us.cpu()), 0, None, normals.cpu()), 1e-10)
+    print(f"phase 13e GIRF bands ({GIRF_KW}): on 13d's order-2 posterior of "
+          f"rbc_estimation ({fit2.logp.size} draws) {gr_ms:.1f} ms, max "
+          f"|mean| {float(gb_r.mean.abs().max()):.3e}; on phase 7's SW-2007 "
+          f"posterior ({sw_shock}) {gb_ms:.1f} ms, peak {gb_peak} B, equal to "
+          f"posterior_irfs' bands at the same draws within {gap_lin:.3e} (bar "
+          f"1e-10: SW-2007's quadratic blocks vanish); {us.shape[0]} draws "
+          f"card vs CPU on the same normals {gap_g:.3e}; no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    print(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -2815,6 +3255,10 @@ def main() -> int:
     # ---- phase 12: what a user does after fit, on phase 7's posterior
     posterior_tools_phase(card, reset_counts, read_counts, model, ss_vg,
                           ss_vg_cpu, nuts_res, nuts_data)
+
+    # ---- phase 13: second order, at nk_sw's width, and GIRF bands
+    second_order_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
+                       nuts_res)
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():

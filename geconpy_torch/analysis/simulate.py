@@ -8,8 +8,9 @@ product: every path of a batch, and every shock of an impulse response,
 steps together.  The reference's labelled pandas results become tensors
 with name lists (:class:`ImpulseResponses`, :class:`Simulations`), and its
 JAX key an explicit ``torch.Generator`` on the solution's device.  The
-second-order functions raise until second-order perturbation is ported
-(ROADMAP Queue 1 item 8, 8.6).
+second-order ``simulate_second_order`` (:161) and
+``impulse_response_second_order`` (:211) run the pruned system of
+:mod:`~geconpy_torch.models.second_order`.
 """
 
 from __future__ import annotations
@@ -158,15 +159,45 @@ def impulse_response_function(solution, periods: int = 40,
     return ImpulseResponses(values, names, list(solution.variables))
 
 
-def simulate_second_order(*args, **kwargs):
-    """Simulation of the pruned second-order solution: not ported yet."""
-    raise NotImplementedError(
-        "second-order simulation is not ported yet (ROADMAP Queue 1 item 8, "
-        "8.6)")
+def simulate_second_order(solution, second_order, periods: int = 40,
+                          n_simulations: int = 100,
+                          shock_std: float | dict | None = None,
+                          shock_cov=None,
+                          generator: torch.Generator | None = None,
+                          seed: int = 0) -> Simulations:
+    """Monte-Carlo simulation of the pruned second-order solution
+    (``simulate.py:161``): ``second_order`` is the ``SecondOrderResult`` of
+    ``Model.solve_model_second_order``.  The shock rules and the draws are
+    :func:`simulate`'s; the paths (n_simulations, periods, n) are in hat
+    coordinates with the uncertainty correction, so their means sit at
+    the stochastic steady state."""
+    from ..models.second_order import simulate_pruned
+
+    T, R = solution.T, solution.R
+    chol = _shock_chol(R.shape[-1], solution.shocks, shock_cov, shock_std, T)
+    if generator is None:
+        generator = torch.Generator(device=T.device).manual_seed(int(seed))
+    draws = torch.randn((n_simulations, periods, R.shape[-1]),
+                        generator=generator, dtype=T.dtype, device=T.device)
+    paths = simulate_pruned(T, R, second_order, draws @ chol.mT)
+    return Simulations(paths, list(solution.variables))
 
 
-def impulse_response_second_order(*args, **kwargs):
-    """Second-order impulse responses: not ported yet."""
-    raise NotImplementedError(
-        "second-order impulse responses are not ported yet (ROADMAP Queue 1 "
-        "item 8, 8.6)")
+def impulse_response_second_order(solution, second_order, periods: int = 40,
+                                  shock_size: float | dict = 1.0
+                                  ) -> ImpulseResponses:
+    """Second-order IRFs of every shock (``simulate.py:211``): the pruned
+    path with the impulse less the path without it, sign- and
+    size-dependent.  ``shock_size`` is a scalar or a dict by shock name
+    (1.0 for a shock it leaves out); values (n_shocks, periods, n)."""
+    from ..models.second_order import irf_second_order
+
+    T, R = solution.T, solution.R
+    names = list(solution.shocks)
+    if isinstance(shock_size, dict):
+        sizes = [float(shock_size.get(s, 1.0)) for s in names]
+    else:
+        sizes = [float(shock_size)] * len(names)
+    values = irf_second_order(T, R, second_order,
+                              torch.diag(_like(sizes, T)), periods)
+    return ImpulseResponses(values, names, list(solution.variables))

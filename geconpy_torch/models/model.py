@@ -14,8 +14,8 @@ DataFrame the port returns tensors with name lists (``linearize_model``,
 ``PolicySolution.T``/``R``) or numpy arrays (``check_bk_condition``).
 ``summary`` returns the P/Q/R/S tables of
 ``stats/perturbation_diagnostics.py``; ``solve_model_second_order``
-raises until second order is ported (ROADMAP Queue 1 item 8.6);
-``build_report`` and
+(:400) returns the first-order solution with the second-order blocks
+(``models/second_order.py``); ``build_report`` and
 ``_repr_html_`` (HTML reporting) are not ported.  ``steady_state``,
 ``linearize_model``, ``solve_model`` and ``check_bk_condition`` run on the
 GPU unless they are given ``device="cpu"``.
@@ -44,9 +44,6 @@ _log = logging.getLogger(__name__)
 __all__ = ["Model", "PolicySolution", "model_from_gcn"]
 
 VALID_SOLVERS = ("cycle_reduction", "gensys", "gensys_host", "backward")
-
-_ROADMAP = "ROADMAP Queue 1"
-
 
 @dataclass
 class PolicySolution:
@@ -412,11 +409,62 @@ class Model:
                                   "succeeded")
         return T, R, success, eu, solver
 
-    def solve_model_second_order(self, *args, **kwargs):
-        """Second-order perturbation: not ported yet."""
-        raise NotImplementedError(
-            "solve_model_second_order is not ported yet "
-            f"({_ROADMAP} item 8, 8.6)")
+    def second_order_solver(self, loglin_variables="auto"):
+        """Cached batched ``solve2(x_ss, theta_full, T, R, Q)`` of
+        ``models/second_order.py``, one per log-linearization, as the
+        reference caches it (``model.py:427-431``)."""
+        if loglin_variables == "auto":
+            loglin_variables = self.default_loglin
+        key = ("second_order", loglin_variables
+               if isinstance(loglin_variables, bool)
+               else tuple(sorted(loglin_variables)))
+        if key not in self._solvers:
+            from .second_order import make_second_order_solver
+
+            self._solvers[key] = make_second_order_solver(self.functions,
+                                                          loglin_variables)
+        return self._solvers[key]
+
+    def solve_model_second_order(
+        self,
+        loglin_variables="auto",
+        shock_std=None,
+        shock_cov=None,
+        solution: PolicySolution | None = None,
+        verbose: bool = False,
+        *,
+        device: str | torch.device = "cuda",
+        **updates,
+    ):
+        """Second-order perturbation (``models/second_order.py``).
+
+        Returns ``(PolicySolution, SecondOrderResult)``: the first-order
+        T and R and the quadratic blocks G_xx, G_xu, G_uu with the
+        uncertainty correction g_ss, computed from the shock covariance
+        (``shock_std`` or ``shock_cov``, std 0.01 per shock by default).
+        Without a ``solution`` the first-order solve runs on ``device``;
+        with one, everything runs on its device.  A solve that does not
+        converge logs a warning and returns ``success=False``.
+        """
+        from ..stats.covariance import build_shock_cov
+        from .second_order import SecondOrderResult
+
+        if solution is None:
+            solution = self.solve_model(loglin_variables=loglin_variables,
+                                        verbose=verbose, device=device,
+                                        **updates)
+        T, R = solution.T, solution.R
+        sol_ss = self._solve_ss(T.device, updates)
+        Q = build_shock_cov(self.n_shocks, shock_std, shock_cov,
+                            dtype=T.dtype, device=T.device)
+        with torch.no_grad():
+            res2 = self.second_order_solver(loglin_variables)(
+                sol_ss.x_ss.reshape(1, -1), sol_ss.theta_full.reshape(1, -1),
+                T[None], R[None], Q[None])
+        res2 = SecondOrderResult(*(x[0] for x in res2))
+        if not bool(res2.success):
+            _log.warning("second-order solve did not converge cleanly")
+        return solution, res2
 
     # ------------------------------------------------------------- diagnostics
     def check_bk_condition(self, verbose: bool = True, *,

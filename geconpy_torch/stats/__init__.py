@@ -1,7 +1,7 @@
 """Estimation layer (mirrors ``geconpy_tpu/stats``): the state space with its
 single-draw log posterior, batched likelihood sweep and value+gradient, the
-SMC sampler on the sweep, NUTS (``fit``) with its mode search and
-diagnostics, maximum likelihood and the model evidence, the posterior
+SMC sampler on the sweep, NUTS (``fit``, first or second order) with its
+mode search and diagnostics, the second-order likelihoods and PMMH, maximum likelihood and the model evidence, the posterior
 tools and forecasts, the solvability, BK and prior predictive sweeps, and
 the prior samplers."""
 
@@ -9,11 +9,15 @@ from .covariance import (autocorrelation, autocovariance,
                          autocovariance_matrix, fevd, stationary_covariance,
                          stationary_covariance_matrix)
 from .diagnostics import effective_sample_size, split_rhat, summarize_chains
-from .estimation import PosteriorResult, fit
+from .estimation import PosteriorResult, fit, fit_pmmh
 from .forecast import conditional_forecast, posterior_forecast
 from .ml import MLResult, fit_ml
 from .model_comparison import (compare_models, find_map, laplace_evidence,
                                marginal_likelihood, modified_harmonic_mean)
+from .nonlinear import (build_logpost_second_order,
+                        build_pf_loglik_second_order,
+                        build_second_order_solution_fn,
+                        filter_data_second_order, quadratic_drive_covariance)
 from .perturbation_diagnostics import (bk_condition_sweep,
                                        eigenvalue_sensitivity,
                                        make_bk_count_fn,
@@ -25,6 +29,7 @@ from .posterior import (posterior_autocorrelation, posterior_diagnostics,
                         posterior_fevd, posterior_girfs, posterior_irfs,
                         posterior_predictive, posterior_smoothed_states,
                         prepare_mixed_frequency_data)
+from .pmmh import PMMHResult, sample_pmmh
 from .prior_predictive import prior_predictive_sweep
 from .sampling import (bounds_from_priors, sample_from_priors,
                        sample_from_priors_qmc, sample_uniform_from_priors)
@@ -33,7 +38,10 @@ from .statespace import DSGEStateSpace, EstimatedParameter, LogPostExtras
 
 __all__ = [
     "DSGEStateSpace", "EstimatedParameter", "LogPostExtras",
-    "PosteriorResult", "fit",
+    "PosteriorResult", "fit", "fit_pmmh", "PMMHResult", "sample_pmmh",
+    "build_logpost_second_order", "build_pf_loglik_second_order",
+    "build_second_order_solution_fn", "filter_data_second_order",
+    "quadratic_drive_covariance",
     "posterior_forecast", "conditional_forecast",
     "SMCResult", "fit_smc",
     "MLResult", "fit_ml", "compare_models", "find_map", "laplace_evidence",

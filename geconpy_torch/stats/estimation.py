@@ -1,15 +1,19 @@
 """Bayesian estimation front-end: NUTS over the DSGE state-space posterior.
 
 Mirrors ``geconpy_tpu/stats/estimation.py`` (``PosteriorResult`` :92,
-``fit`` :123).  Every leapfrog step is one value+grad call for all chains.
-With ``policy="xla"`` (the default) that is the batched form of the
-single-draw log posterior ``DSGEStateSpace.build_logpost`` (the adaptive
+``fit`` :123, ``fit_pmmh`` :315).  Every leapfrog step is one value+grad
+call for all chains.  With ``policy="xla"`` (the default) that is the
+batched form of the single-draw log posterior
+``DSGEStateSpace.build_logpost`` (the adaptive
 cycle reduction and the configured filter, in plain PyTorch), which the
 reference differentiates per chain under ``vmap``.  With
 ``policy="pallas"`` it is ``DSGEStateSpace.build_batched_logpost_and_grad``
 (the reference's ``make_batched_logp_grad``, :53, routes the vmapped chains
 to the same batched call), which launches the cycle-reduction kernel K4 on
-the GPU.  The chains run on the state space's device.
+the GPU.  With ``order=2`` it is the second-order log posterior's
+(``DSGEStateSpace.build_logpost_and_grad_second_order``, plain PyTorch).
+``fit_pmmh`` runs the batched PMMH chains of :mod:`.pmmh` on the particle
+filter.  The chains run on the state space's device.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from .nuts import NUTSResult, sample_nuts
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["fit", "PosteriorResult", "posterior_mode"]
+__all__ = ["fit", "fit_pmmh", "PosteriorResult", "posterior_mode"]
 
 _ROADMAP = "ROADMAP Queue 1"
 
@@ -71,25 +75,27 @@ class PosteriorResult:
         return dict(zip(self.param_names, flat.mean(axis=0)))
 
 
-def _value_and_grad(ss_mod, data: np.ndarray, policy: str):
-    """The value+grad of ``fit``'s ``policy``."""
+def _value_and_grad(ss_mod, data: np.ndarray, policy: str, order: int = 1):
+    """The value+grad of ``fit``'s ``policy`` and ``order``."""
+    if order == 2:
+        return ss_mod.build_logpost_and_grad_second_order(data)
     if policy == "xla":
         return ss_mod.build_logpost_and_grad(data)
     return ss_mod.build_batched_logpost_and_grad(data)
 
 
 def posterior_mode(ss_mod, data: np.ndarray, dtype: torch.dtype = torch.float32,
-                   policy: str = "xla", **find_map_kwargs
+                   policy: str = "xla", order: int = 1, **find_map_kwargs
                    ) -> tuple[torch.Tensor, float]:
     """The posterior mode from ``ss_mod.initial_position()`` in ``dtype``,
     and its log posterior, by :func:`find_map` on the value+grad of
-    ``fit``'s ``policy``.
+    ``fit``'s ``policy`` and ``order``.
 
     Memoized per (value+grad function, start point), as the reference
     memoizes its mode search: the first search for a model, data and start
     point is kept, whatever ``find_map_kwargs`` a later call passes, and
     ``fit(init="map")`` with the same ``policy`` reads it."""
-    vag = _value_and_grad(ss_mod, data, policy)
+    vag = _value_and_grad(ss_mod, data, policy, order)
     u0 = ss_mod.initial_position().to(dtype)
     bucket = _MAP_CACHE.setdefault(vag, {})
     key = (str(dtype), u0.cpu().numpy().tobytes())
@@ -129,9 +135,13 @@ def fit(
     (``ss_mod.build_logpost_and_grad``: the adaptive cycle reduction and
     the configured filter, the sequential one by default).
     ``policy="pallas"`` takes ``ss_mod.build_batched_logpost_and_grad(data)``
-    (the cycle-reduction kernel K4, the default settle).  Not ported yet,
-    and refused with ``NotImplementedError``: ``order=2``, ``mesh`` and
-    ``cache_dir`` (ROADMAP Queue 1 item 8).
+    (the cycle-reduction kernel K4, the default settle).  ``order=2``
+    samples the posterior of the pruned second-order solution on the
+    value+grad of ``ss_mod.build_logpost_second_order(data)`` (the
+    marginalized unscented filter, ``stats/nonlinear.py``) and requires
+    ``policy="xla"``.  Not ported yet, and refused with
+    ``NotImplementedError``: ``mesh`` and ``cache_dir`` (ROADMAP Queue 1
+    item 8).
 
     ``seed`` seeds one ``torch.Generator`` on the state space's device,
     which draws the starts and every random number of the sampler.
@@ -161,11 +171,10 @@ def fit(
         raise NotImplementedError(
             f"mesh= (chains sharded over several devices) is not ported yet "
             f"({_ROADMAP} item 8)")
-    if order == 2:
-        raise NotImplementedError(
-            f"order=2 (second-order estimation) is not ported yet "
-            f"({_ROADMAP} item 8)")
-    if order != 1:
+    if order == 2 and policy != "xla":
+        raise ValueError("order=2 estimation requires policy='xla' "
+                         "(the Pallas batch kernels are first-order)")
+    if order not in (1, 2):
         raise ValueError(f"order must be 1 or 2, got {order!r}")
     if policy not in ("xla", "pallas"):
         raise ValueError(f"policy must be 'xla' or 'pallas', got {policy!r}")
@@ -180,14 +189,18 @@ def fit(
         raise ValueError(f"mass_matrix must be 'diag' or 'dense', "
                          f"got {mass_matrix!r}")
 
-    vag = _value_and_grad(ss_mod, data, policy)
-    logpost = (ss_mod.build_logpost(data) if policy == "xla"
-               else ss_mod.build_batched_logpost(data))
+    vag = _value_and_grad(ss_mod, data, policy, order)
+    if order == 2:
+        logpost = ss_mod.build_logpost_second_order(data)
+    elif policy == "xla":
+        logpost = ss_mod.build_logpost(data)
+    else:
+        logpost = ss_mod.build_batched_logpost(data)
     device = ss_mod._device()
     generator = torch.Generator(device=device).manual_seed(seed)
     if init == "map":
         u_mode, mode_logp = posterior_mode(ss_mod, data, dtype=dtype,
-                                           policy=policy)
+                                           policy=policy, order=order)
         _log.info("MAP found: logpost %.2f", mode_logp)
         inits = u_mode[None, :] + 0.05 * torch.randn(
             (num_chains, u_mode.shape[0]), generator=generator, dtype=dtype,
@@ -234,3 +247,66 @@ def fit(
                      100 * div_rate)
     return PosteriorResult(param_names=ss_mod.param_labels,
                            n_calls=res.n_calls, seconds=res.seconds, **out)
+
+
+def _logprior(ss_mod, U: torch.Tensor) -> torch.Tensor:
+    """Log prior density of unconstrained draws U (..., dim), the
+    transforms' Jacobians included."""
+    lp = U.new_zeros(U.shape[:-1])
+    for i, p in enumerate(ss_mod.estimated):
+        x, logjac = p.prior.from_unconstrained(U[..., i])
+        lp = lp + p.prior.logpdf(x) + logjac
+    return lp
+
+
+def fit_pmmh(
+    ss_mod,
+    data: np.ndarray,
+    num_chains: int = 4,
+    num_warmup: int = 1000,
+    num_samples: int = 2000,
+    seed: int = 0,
+    n_particles: int = 4096,
+    initial_scale: float = 0.1,
+    init_jitter: float = 0.25,
+    segment_size: int | None = None,
+) -> PosteriorResult:
+    """Particle-marginal Metropolis-Hastings posterior of the pruned
+    second-order model (the reference's ``fit_pmmh``, :315, with its
+    defaults): the exact pseudo-marginal target of the particle filter
+    (``build_pf_loglik_second_order``, ``n_particles`` a chain), chains
+    batched on ``ss_mod``'s device, float64.  ``seed`` seeds one
+    ``torch.Generator`` there, which jitters each chain's start by
+    ``init_jitter`` N(0, 1) around ``ss_mod.initial_position()`` and draws
+    every random number of the sampler and the filter.  ``logp`` is the
+    joint log posterior (the likelihood estimate plus the log prior);
+    ``step_size`` holds the final proposal scales.  A chain accepting
+    under 5% logs a warning."""
+    from .pmmh import sample_pmmh
+
+    pf = ss_mod.build_pf_loglik_second_order(data, n_particles=n_particles)
+    device = ss_mod._device()
+    generator = torch.Generator(device=device).manual_seed(seed)
+    inits = torch.stack([
+        ss_mod.initial_position(jitter=init_jitter, generator=generator)
+        for _ in range(num_chains)])
+    res = sample_pmmh(pf, lambda U: _logprior(ss_mod, U), inits, generator,
+                      num_warmup=num_warmup, num_samples=num_samples,
+                      initial_scale=initial_scale, segment_size=segment_size)
+    # the joint log posterior, not the bare likelihood estimate: the
+    # evidence estimators read logp as the posterior density
+    logp = res.loglik + _logprior(ss_mod, res.samples)
+    acc = res.accept_rate.cpu().numpy()
+    if acc.min() < 0.05:
+        _log.warning("PMMH chain acceptance as low as %.3f — increase "
+                     "n_particles (estimator variance) or lower "
+                     "initial_scale", acc.min())
+    n_c, n_d, _ = res.samples.shape
+    return PosteriorResult(
+        samples=ss_mod.constrain(res.samples).cpu().numpy(),
+        unconstrained=res.samples.cpu().numpy(),
+        logp=logp.cpu().numpy(),
+        param_names=ss_mod.param_labels,
+        diverging=np.zeros((n_c, n_d), dtype=bool),
+        accept_prob=np.repeat(acc[:, None], n_d, axis=1),
+        step_size=res.scale.cpu().numpy())

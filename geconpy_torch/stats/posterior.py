@@ -6,8 +6,8 @@ Mirrors ``geconpy_tpu/stats/posterior.py``: ``_flat_draws`` (:37),
 ``posterior_irfs`` (:46), ``posterior_autocorrelation`` (:88),
 ``posterior_fevd`` (:112), ``posterior_smoothed_states`` (:129),
 ``historical_shock_decomposition`` (:156), ``posterior_predictive``
-(:223), ``posterior_girfs`` (:271, which needs the second-order solution
-and raises), ``posterior_diagnostics`` (:317) and
+(:223), ``posterior_girfs`` (:271, on the second-order solution of
+:mod:`.nonlinear`), ``posterior_diagnostics`` (:317) and
 ``prepare_mixed_frequency_data`` (:342, arrays only).  The reference
 ``vmap``s a per-draw solve and scan over the draws; here the solution, the
 scans and the smoother run once, batched over the draws.  Where the
@@ -39,8 +39,6 @@ __all__ = ["Bands", "ShareTable", "PosteriorDiagnostics", "SmoothedStateBands",
            "posterior_smoothed_states", "posterior_diagnostics",
            "posterior_predictive", "posterior_girfs",
            "historical_shock_decomposition", "prepare_mixed_frequency_data"]
-
-_ROADMAP = "ROADMAP Queue 1"
 
 
 class Bands(NamedTuple):
@@ -245,16 +243,52 @@ def posterior_predictive(ss_mod: DSGEStateSpace, result: PosteriorResult,
                   (list(ss_mod.observed_states), range(periods)))
 
 
+def _girf_paths(sol: dict, j: int, shock_size: float | None,
+                normals: torch.Tensor) -> torch.Tensor:
+    """Each draw's generalized IRF of shock ``j`` (D, periods, n) on the
+    standard normals ``normals`` (D, n_mc, periods, n_shocks); the impulse
+    is ``shock_size`` or one standard deviation of the shock."""
+    from ..models.second_order import SecondOrderResult, _girf_from_normals
+
+    Q = sol["Q"]
+    res2 = SecondOrderResult(sol["G_xx"], sol["G_xu"], sol["G_uu"],
+                             sol["g_ss"], sol["so_success"])
+    size = torch.sqrt(Q[..., j, j]) if shock_size is None \
+        else torch.full_like(Q[..., j, j], float(shock_size))
+    vec = Q.new_zeros(Q.shape[:-1])
+    vec[..., j] = size
+    return _girf_from_normals(sol["T"], sol["R"], res2, vec, Q, normals)
+
+
+@torch.no_grad()
 def posterior_girfs(ss_mod: DSGEStateSpace, result: PosteriorResult,
                     shock: str, generator: torch.Generator | None = None,
                     shock_size: float | None = None, periods: int = 40,
                     n_mc: int = 128, max_draws: int | None = 100,
-                    quantiles=(0.05, 0.5, 0.95)):
-    """Second-order generalized IRF bands: need the second-order solution,
-    not ported yet."""
-    raise NotImplementedError(
-        "posterior_girfs needs the second-order solution, not ported yet "
-        f"({_ROADMAP} item 8, 8.6)")
+                    quantiles=(0.05, 0.5, 0.95)) -> Bands:
+    """Second-order generalized IRF posterior bands: one batched
+    second-order solve over the retained draws, then each draw's
+    Koop-Pesaran-Potter GIRF of ``shock`` over ``n_mc`` shock paths
+    (``models/second_order.py::generalized_irf``), ``dims`` (variable,
+    time).  ``shock_size`` defaults to one standard deviation of the shock
+    at each draw.  The standard normals (draws, n_mc, periods, n_shocks)
+    come from ``generator`` (on the state space's device; without one, a
+    generator there seeded with 0)."""
+    from .nonlinear import _solution_fn
+
+    mf = ss_mod.model.functions
+    j = mf.shock_names.index(shock)
+    device = ss_mod._device()
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    ss_mod._check_generator(generator)
+    sol = _solution_fn(ss_mod)(_flat_draws(ss_mod, result, max_draws))
+    normals = torch.randn((sol["T"].shape[0], n_mc, periods, mf.n_shocks),
+                          generator=generator, dtype=sol["T"].dtype,
+                          device=device)
+    girfs = _girf_paths(sol, j, shock_size, normals)
+    return _bands(girfs.mT, quantiles, ("variable", "time"),
+                  (list(mf.variable_names), range(periods)))
 
 
 def _solve_draws(ss_mod, result, data, max_draws):

@@ -21,7 +21,8 @@ filter), ``build_logpost_extras`` (:800), ``filter_data`` (:1202),
 :meth:`_build_policy_batch`), ``_build_pallas_policy_batch_diff`` (:1109,
 here :meth:`_build_policy_batch_diff`), ``build_batched_loglik`` (:860),
 ``build_batched_logpost`` (:965), ``build_batched_logpost_and_grad``
-(:1076), ``sample_prior`` (:1244) and ``data_from_prior`` (:1252, with
+(:1076), the second-order builders (:832-857, with the batched
+``build_logpost_and_grad_second_order``), ``sample_prior`` (:1244) and ``data_from_prior`` (:1252, with
 ``pct_missing``), and the module-level ``statespace_from_gcn`` (:1355) and
 ``data_from_prior`` (:1372).  The policy step routes ``solver`` as the
 reference's does (``"cycle_reduction"``, ``"gensys"`` on the device disk
@@ -188,7 +189,14 @@ def _value_and_grad(f):
         U = U.detach().requires_grad_(True)
         with torch.enable_grad():
             vals = f(U) if record is None else f(U, record)
-            (grads,) = torch.autograd.grad(vals, U, torch.ones_like(vals))
+            grads = None
+            if vals.requires_grad:
+                # None where the value does not depend on U (no
+                # estimated parameter)
+                (grads,) = torch.autograd.grad(vals, U, torch.ones_like(vals),
+                                               allow_unused=True)
+        if grads is None:
+            grads = torch.zeros_like(U)
         grads = torch.where(torch.isfinite(grads), grads,
                             torch.zeros_like(grads))
         return vals.detach(), grads
@@ -567,6 +575,8 @@ class DSGEStateSpace:
             self._check_device(values, "values")
             values = values.detach().cpu()
         vals = np.asarray(values, dtype=np.float64)
+        if not self.estimated:
+            return torch.zeros(0, dtype=torch.float64, device=self._device())
         u = torch.stack([p.prior.to_unconstrained(torch.as_tensor(v))
                          for p, v in zip(self.estimated, vals)])
         return u.to(self._device())
@@ -574,6 +584,8 @@ class DSGEStateSpace:
     def constrain(self, u: torch.Tensor) -> torch.Tensor:
         """Unconstrained vector (..., n_est) -> constrained values."""
         self._check_device(u, "u")
+        if not self.estimated:
+            return u.new_zeros(u.shape[:-1] + (0,))
         return torch.stack([p.prior.from_unconstrained(u[..., i])[0]
                             for i, p in enumerate(self.estimated)], dim=-1)
 
@@ -1138,6 +1150,42 @@ class DSGEStateSpace:
         draws) are zeroed, the NUTS kernel's convention.  ``kwargs`` go to
         :meth:`build_batched_logpost`."""
         return _value_and_grad(self.build_batched_logpost(data, **kwargs))
+
+    # ------------------------------------------------ second-order estimation
+    @_cached_build
+    def build_logpost_second_order(self, data: np.ndarray, **kwargs):
+        """Differentiable log posterior of the pruned second-order solution
+        by the unscented filter, ``u (dim,) or (B, dim) -> () or (B,)``
+        (``stats/nonlinear.py::build_logpost_second_order``, whose keywords
+        ``kwargs`` takes); the same gate as :meth:`build_logpost`."""
+        from .nonlinear import build_logpost_second_order
+
+        return build_logpost_second_order(self, data, **kwargs)
+
+    @_cached_build
+    def build_logpost_and_grad_second_order(self, data: np.ndarray,
+                                            **kwargs):
+        """``f(U) -> (logpost (B,), grad (B, dim))`` of
+        :meth:`build_logpost_second_order` by one backward pass over the
+        batch, non-finite gradient rows zeroed: the value+grad of
+        ``fit(order=2)``."""
+        return _value_and_grad(self.build_logpost_second_order(data,
+                                                               **kwargs))
+
+    def build_pf_loglik_second_order(self, data: np.ndarray, **kwargs):
+        """``(u, generator) -> (loglik, success)``, the particle filter's
+        unbiased marginal likelihood of the pruned second-order system
+        (``stats/nonlinear.py::build_pf_loglik_second_order``)."""
+        from .nonlinear import build_pf_loglik_second_order
+
+        return build_pf_loglik_second_order(self, data, **kwargs)
+
+    def build_second_order_solution_fn(self):
+        """``u -> dict`` of the pruned second-order solution
+        (``stats/nonlinear.py::build_second_order_solution_fn``)."""
+        from .nonlinear import build_second_order_solution_fn
+
+        return build_second_order_solution_fn(self)
 
     # ------------------------------------------------------ filter/smoother
     def filter_data(self, data: np.ndarray, params: dict | None = None,

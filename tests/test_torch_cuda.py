@@ -25,7 +25,11 @@ tools a user runs after a fit give the CPU's results on the card: the
 posterior bands, predictive and forecast paths, the Laplace evidence and
 ``fit_ml`` at the bars of their CPU tests, and the solvability, BK and
 prior predictive sweeps with the policy tables and eigenvalue
-sensitivities.
+sensitivities.  The second-order layer gives the CPU's results on the
+card: the blocks of ``solve_model_second_order``, the pruned paths, IRFs,
+mean and GIRF (rel 1e-10), the second-order value+grad (1e-8 / 1e-6),
+``filter_data_second_order`` and the particle filter on the same normals,
+and ``fit(order=2)``, ``fit_pmmh`` and ``posterior_girfs`` run there.
 """
 
 import numpy as np
@@ -1020,3 +1024,110 @@ def test_diagnostic_sweeps_on_the_card_equal_the_cpu(device):
     again = sample_from_priors(priors, 16, seed=0, device=device)
     assert all(v.device.type == "cuda" for v in draws.values())
     assert all(torch.equal(draws[k], again[k]) for k in priors)
+
+
+@pytest.mark.parametrize("name", ["rbc", "nk_sw"])
+def test_second_order_solve_on_the_card_equals_the_cpu(device, name):
+    """``solve_model_second_order`` on the card: the four blocks within rel
+    1e-10 of the CPU's (of the largest entry), no kernel launched; the
+    pruned paths, IRFs, mean and GIRF (on the same normals) likewise."""
+    from geconpy_torch.models import second_order as so
+
+    model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(name))
+    cycle_reduction.launches = 0
+    sol, res2 = model.solve_model_second_order(shock_std=0.01)
+    sol_c, res2_c = model.solve_model_second_order(shock_std=0.01,
+                                                   device="cpu")
+    assert cycle_reduction.launches == 0
+    assert res2.G_xx.device.type == "cuda" and bool(res2.success)
+    scale = max(float(x.abs().max()) for x in res2_c[:4])
+    for a, b in zip(res2[:4], res2_c[:4]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-10 * scale
+    k = len(sol.shocks)
+    eps = 0.01 * torch.randn((4, 30, k), generator=torch.Generator()
+                             .manual_seed(0), dtype=torch.float64)
+    Q = 1e-4 * torch.eye(k, dtype=torch.float64)
+    shock = 0.01 * torch.eye(k, dtype=torch.float64)[0]
+    pairs = [
+        (so.simulate_pruned(sol.T, sol.R, res2, eps.to(device)),
+         so.simulate_pruned(sol_c.T, sol_c.R, res2_c, eps)),
+        (so.irf_second_order(sol.T, sol.R, res2, 0.02 * torch.eye(
+            k, dtype=torch.float64, device=device)),
+         so.irf_second_order(sol_c.T, sol_c.R, res2_c,
+                             0.02 * torch.eye(k, dtype=torch.float64))),
+        (so.second_order_mean(sol.T, sol.R, res2, Q.to(device)),
+         so.second_order_mean(sol_c.T, sol_c.R, res2_c, Q)),
+        (so._girf_from_normals(sol.T, sol.R, res2, shock.to(device),
+                               Q.to(device), eps[:, :12].to(device)),
+         so._girf_from_normals(sol_c.T, sol_c.R, res2_c, shock, Q,
+                               eps[:, :12]))]
+    for a, b in pairs:
+        assert a.device.type == "cuda"
+        assert _rel(a, b) <= 1e-10
+
+
+@pytest.mark.parametrize("method", ["marginalized", "full"])
+def test_second_order_logpost_on_the_card_equals_the_cpu(rbc_posterior,
+                                                         method):
+    """The second-order value+grad at 8 draws within rel 1e-8 / 1e-6 of the
+    CPU; ``filter_data_second_order`` within rel 1e-8; the particle filter
+    on the same normals within rel 1e-10; no kernel launched."""
+    from geconpy_torch.stats import nonlinear
+
+    ss, ss_cpu, result, data = rbc_posterior
+    U = torch.as_tensor(result.unconstrained.reshape(-1, len(ss.estimated)))
+    cycle_reduction.launches = 0
+    v, g = ss.build_logpost_and_grad_second_order(data, method=method)(
+        U.to(ss.device))
+    v_c, g_c = ss_cpu.build_logpost_and_grad_second_order(
+        data, method=method)(U)
+    assert cycle_reduction.launches == 0
+    assert bool(torch.isfinite(v).all())
+    assert float(((v.cpu() - v_c).abs() / v_c.abs()).max()) <= 1e-8
+    assert float((g.cpu() - g_c).abs().max()) <= 1e-6 * float(
+        g_c.abs().max())
+    fd = [nonlinear.filter_data_second_order(s, data, smoother=True)
+          for s in (ss, ss_cpu)]
+    for a, b in zip(_float_fields(fd[0]), _float_fields(fd[1])):
+        assert _rel(a, b) <= 1e-8
+    nz = 2 * ss.model.functions.n_variables
+    g_ = torch.Generator().manual_seed(4)
+    init = torch.randn((2, 256, nz), generator=g_, dtype=torch.float64)
+    us = torch.rand((40, 2), generator=g_, dtype=torch.float64)
+    eps = torch.randn((40, 2, 256, 2), generator=g_, dtype=torch.float64)
+    lls = []
+    for s, dev in ((ss, ss.device), (ss_cpu, torch.device("cpu"))):
+        pf = s.build_pf_loglik_second_order(data, n_particles=256)
+        lls.append(pf.from_draws(U[:2].to(dev), init.to(dev),
+                                 lambda t: (us[t].to(dev), eps[t].to(dev))))
+    assert bool(lls[0][1].all())
+    assert float(((lls[0][0].cpu() - lls[1][0]).abs()
+                  / lls[1][0].abs()).max()) <= 1e-10
+
+
+def test_second_order_estimation_runs_on_the_card(rbc_posterior, device):
+    """``fit(order=2)``, ``fit_pmmh`` and ``posterior_girfs`` run their
+    chains and draws on the card (finite, reproducible); the GIRF bands on
+    the same normals within rel 1e-10 of the CPU."""
+    from geconpy_torch.stats import nonlinear, posterior
+    from geconpy_torch.stats.estimation import fit, fit_pmmh
+
+    ss, ss_cpu, result, data = rbc_posterior
+    res = fit(ss, data, num_chains=4, num_warmup=2, num_samples=2,
+              max_depth=2, order=2, dtype=torch.float64)
+    assert np.isfinite(res.logp).all()
+    pm = fit_pmmh(ss, data, num_chains=2, num_warmup=5, num_samples=5,
+                  n_particles=256)
+    assert np.isfinite(pm.logp).all()
+    us = posterior._flat_draws(ss_cpu, result, None)
+    normals = torch.randn((us.shape[0], 8, 6, 2), generator=torch.Generator()
+                          .manual_seed(5), dtype=torch.float64)
+    paths = [posterior._girf_paths(nonlinear._solution_fn(s)(
+        us.to(s._device())), 0, None, normals.to(s._device()))
+        for s in (ss, ss_cpu)]
+    assert _rel(paths[0], paths[1]) <= 1e-10
+    runs = [posterior.posterior_girfs(
+        ss, result, ss.model.functions.shock_names[0],
+        torch.Generator(device=device).manual_seed(1), periods=6, n_mc=8)
+        for _ in range(2)]
+    assert torch.equal(runs[0].mean, runs[1].mean)

@@ -159,7 +159,7 @@ def test_fit_with_the_xla_policy(setup):
 
 
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(order=2), NotImplementedError, "item 8"),
+    (dict(order=2, policy="pallas"), ValueError, "order=2"),
     (dict(mesh=object()), NotImplementedError, "item 8"),
     (dict(cache_dir="cache"), NotImplementedError, "item 8"),
     (dict(order=3), ValueError, "order"),

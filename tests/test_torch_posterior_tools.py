@@ -19,8 +19,10 @@ the same draws:
   within 5 standard errors of the model's own.
 - The reference's identities: one draw's IRF is that draw's solution
   iterated, FEVD rows sum to 1, the predictive envelope covers the data.
-- ``posterior_girfs`` raises (second order is not ported), and
-  ``posterior_from_reference`` refuses mismatched labels and shapes.
+- ``posterior_girfs`` on injected draws (the reference's normals rebuilt
+  from its key) at rel 1e-10, and bitwise reproducible under one
+  generator; ``posterior_from_reference`` refuses mismatched labels and
+  shapes.
 """
 
 import os
@@ -40,6 +42,7 @@ import torch
 import geconpy_torch
 import geconpy_tpu
 from geconpy_torch.interop import posterior_from_reference
+from geconpy_torch.stats import nonlinear as port_nonlinear
 from geconpy_torch.stats import posterior as port
 from geconpy_torch.stats.statespace import DSGEStateSpace as PortStateSpace
 from geconpy_tpu.stats import posterior as ref
@@ -240,10 +243,34 @@ def test_predictive_by_distribution(posterior):
     assert ((y_last.var(0) - var).abs() < 5 * var * np.sqrt(2 / (n - 1))).all()
 
 
-def test_girfs_raise_until_second_order_is_ported(posterior):
-    _, port_ss, _, port_res, _ = posterior
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.posterior_girfs(port_ss, port_res, "epsilon_A")
+def test_girfs_match_reference_on_injected_draws(posterior):
+    """The reference's GIRF normals, rebuilt from its key as it splits it
+    over the draws, through the port's second-order solve and core: the
+    bands at rel 1e-10.  Under one generator the port's bands are bitwise
+    reproducible, and a given shock size moves them."""
+    ref_ss, port_ss, ref_res, port_res, _ = posterior
+    key, periods, n_mc = jax.random.PRNGKey(6), 8, 16
+    want = ref.posterior_girfs(ref_ss, ref_res, "epsilon_A", key,
+                               periods=periods, n_mc=n_mc,
+                               max_draws=MAX_DRAWS)
+    us = port._flat_draws(port_ss, port_res, MAX_DRAWS)
+    normals = np.stack([np.asarray(jax.random.normal(
+        k, (n_mc, periods, 1), jnp.float64))
+        for k in jax.random.split(key, len(us))])
+    sol = port_nonlinear._solution_fn(port_ss)(us)
+    girfs = port._girf_paths(sol, 0, None, torch.as_tensor(normals))
+    got = port._bands(girfs.mT, (0.05, 0.5, 0.95), ("variable", "time"),
+                      (list(port_ss.model.functions.variable_names),
+                       range(periods)))
+    assert got.dims == tuple(want.index.names)
+    _assert_bands(got, want, (len(got.labels[0]), periods))
+    runs = [port.posterior_girfs(port_ss, port_res, "epsilon_A",
+                                 torch.Generator().manual_seed(1),
+                                 shock_size=size, periods=periods,
+                                 n_mc=n_mc, max_draws=4)
+            for size in (None, None, 0.05)]
+    assert torch.equal(runs[0].mean, runs[1].mean)
+    assert not torch.allclose(runs[0].mean, runs[2].mean)
 
 
 def test_posterior_from_reference_refuses_mismatches(posterior):

@@ -203,9 +203,9 @@ def test_simulate_is_reproducible_under_one_generator(solved):
 
 
 def test_simulated_variance_matches_stationary_covariance():
-    sol = geconpy_torch.model_from_gcn(
-        geconpy_torch.get_example_gcn("rbc"), verbose=False).solve_model(
-        verbose=False, device="cpu")
+    model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("rbc"),
+                                         verbose=False)
+    sol = model.solve_model(verbose=False, device="cpu")
     Sigma = geconpy_torch.stationary_covariance_matrix(sol, shock_std=0.01)
     sims = geconpy_torch.simulate(sol, periods=20000, n_simulations=4,
                                   shock_std=0.01, seed=7)
@@ -213,7 +213,13 @@ def test_simulated_variance_matches_stationary_covariance():
     sample_var = float(sims.values[..., y].var())
     np.testing.assert_allclose(float(Sigma.values[y, y]), sample_var,
                                rtol=0.15)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_sim.simulate_second_order(sol)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_sim.impulse_response_second_order(sol)
+    # the pruned second-order simulation and IRFs of the same solution
+    _, res2 = model.solve_model_second_order(solution=sol, shock_std=0.01)
+    sims2 = port_sim.simulate_second_order(sol, res2, periods=20,
+                                           n_simulations=3, shock_std=0.01,
+                                           seed=7)
+    assert sims2.values.shape == (3, 20, len(sol.variables))
+    assert sims2.variables == sol.variables
+    assert bool(torch.isfinite(sims2.values).all())
+    irf2 = port_sim.impulse_response_second_order(sol, res2, periods=5)
+    assert irf2.values.shape == (len(sol.shocks), 5, len(sol.variables))

@@ -206,8 +206,11 @@ def test_policy_solution_repr_and_unported_parts(rbc):
         np.testing.assert_allclose(getattr(tables, block).numpy(),
                                    want.loc[block].loc[rows, cols].to_numpy(),
                                    rtol=1e-10, atol=1e-14, err_msg=block)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.solve_model_second_order()
+    # the second-order blocks on p's device beside the first-order solution
+    sol2, res2 = port.solve_model_second_order(solution=p, shock_std=0.01)
+    assert sol2 is p and bool(res2.success)
+    assert res2.G_xx.shape == (9, 9, 9) and res2.G_xu.shape == (9, 9, 1)
+    assert res2.G_uu.shape == (9, 1, 1) and res2.g_ss.shape == (9,)
     irf = p.impulse_responses(periods=5)
     assert irf.values.shape == (1, 5, 9) and irf.shocks == p.shocks
     sims = p.simulate(periods=6, n_simulations=2)
