@@ -261,7 +261,36 @@ Phases, one line each (plus one line per kernel in phase 3):
    13d's posterior and on phase 7's (100 draws x 128 paths x 40
    periods), SW-2007's equal to ``posterior_irfs``' bands within 1e-10
    (its quadratic blocks vanish), 8 draws card vs CPU on the same normals.
-   The phase prints its seconds.
+   The phase prints its seconds;
+14. the other estimators and the deterministic paths (``estimators_phase``;
+   ``tools/estimators_probe.py`` runs it alone), float64, each part one
+   call on the card after the counts are set to 0 (no kernel may launch:
+   the reference runs all of it as XLA) and the same call on the CPU, with
+   the gap, the bar, the ms (CUDA events on the card, the host clock on the
+   CPU), the peak memory and the step's seconds.  14a
+   ``iskrev_identification`` on phase 5's SW-2007 (22 parameters, 7
+   observables, ``n_lags=5``: 280 moments): J rel 1e-8, rank and
+   ``identified`` equal; ``nk_3eq`` without the rate at the reference
+   test's swap point, rank deficient by 2 on both.  14b
+   ``fit_moment_matching(lags=(1,))`` on phase 5's data, the search cut to
+   ``EST_CUT`` (printed beside the reference's defaults, the same on the
+   CPU): estimates rel 1e-6; the moments, G and the standard errors at the
+   initial position rel 1e-8.  14c ``fit_irf_matching`` on SW-2007's own
+   IRFs (7 shocks x 40 horizons x 7 observables at the calibration with
+   ``IRF_MOVED``), from the calibration, cut as 14b: estimates rel 1e-6,
+   the fitted IRFs and standard errors at the start rel 1e-8, the
+   recovered parameters printed.  14d ``dsge_var_lambda_profile`` (p = 4)
+   on phase 5's data: log ML rel 1e-10 at every lambda.  14e
+   ``solve_perfect_foresight`` on ``nk_sw`` over 200 periods: a temporary
+   preference shock with ``"direct"`` and ``"krylov"``, a permanent change
+   through ``terminal_params`` and a ``param_paths`` run, each succeeding,
+   with the CPU's iterations and its trajectory within rel 1e-10; krylov
+   within the reference test's rtol 1e-6 / atol 1e-8 of direct.  14f
+   ``solve_occbin`` with a zero lower bound on ``nk_sw``'s gross rate
+   (``zlb_regimes``; ``ZLB_SHOCK`` over 40 periods): regimes equal to the
+   CPU's, a spell of at least 2 periods, the path within rel 1e-10, R never
+   below 1; and the reference test's ``nk_3eq`` ``occbin_irf`` at +/-0.05
+   at rel 1e-10 with equal regimes.  The phase prints its seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -381,6 +410,66 @@ SO_PMMH = dict(num_chains=4, n_particles=4096, num_warmup=25,
                num_samples=25, seed=0)
 SO_PMMH_FULL = {"num_warmup": 1000, "num_samples": 2000}
 GIRF_KW = dict(periods=40, n_mc=128, max_draws=100)
+
+# phase 14: the GMM and IRF-matching searches cut (the same on the CPU)
+# beside the reference's defaults; IRF matching's generating point (the
+# calibration with three parameters moved; the search starts at the
+# calibration); nk_sw's perfect-foresight runs (a temporary preference
+# shock, a permanent change, a 20-period path of beta) and its zero lower
+# bound (a preference shock that keeps the floor binding for 4 periods)
+EST_CUT = {"adam_steps": 10, "newton_steps": 2}
+EST_FULL = {"adam_steps": 400, "newton_steps": 6}
+IRF_MOVED = {"crhoa": 0.9, "chabb": 0.6, "crpi": 1.8}
+PF_PERIODS, OCC_PERIODS = 200, 40
+PF_SHOCK = {"epsilon_pref": 0.05}
+PF_TERMINAL = {"g_y": 0.22}
+PF_PATH = {"beta": (0.995, 0.99)}
+ZLB_SHOCK = ("epsilon_pref", -0.2)
+# nk_sw's smoothed Taylor rule (geconpy_torch/data/nk_sw.gcn:170-172)
+SW_RULE = """        log(R[] / R[ss]) = rho_R * log(R[-1] / R[ss]) +
+            (1 - rho_R) * (phi_pi * log(pi[]) + phi_y * log(Y[] / Y[-1])) +
+            epsilon_R[];
+"""
+# the three-equation NK model of the reference's OccBin test
+NK3_ZLB = """
+options { linear = TRUE; };
+block STEADY_STATE {
+    identities { pi[ss] = 0; x[ss] = 0; i[ss] = 0; inot[ss] = 0; rn[ss] = 0; };
+};
+block NK {
+    identities {
+        pi[] = beta * E[][pi[1]] + kappa * x[];
+        x[] = E[][x[1]] - (1 / sigma) * (i[] - E[][pi[1]] - rn[]);
+        inot[] = phi_pi * pi[] + phi_x * x[];
+        i[] = inot[];
+        rn[] = rho_rn * rn[-1] + epsilon_rn[];
+    };
+    shocks { epsilon_rn[]; };
+    calibration {
+        beta = 0.99; kappa = 0.1; sigma = 2.0;
+        phi_pi = 1.5; phi_x = 0.5; rho_rn = 0.7;
+    };
+};
+"""
+
+
+def zlb_regimes(src: str) -> tuple[str, str]:
+    """nk_sw's two OccBin regimes with a floor of 1 on the gross rate R:
+    the Taylor rule sets a notional rate Rnot (steady state 1/beta) and
+    ``R[] = Rnot[];`` when slack, ``R[] = 1;`` when binding.  Both are
+    built with ``simplify_constants_flag=False``, so ``B[] = 0`` stays a
+    variable in both."""
+    if SW_RULE not in src:
+        raise AssertionError("nk_sw's Taylor rule is not the expected text")
+    slack = src.replace(SW_RULE, SW_RULE.replace("log(R[] / R[ss])",
+                                                 "log(Rnot[] / R[ss])")
+                        + "        R[] = Rnot[];\n")
+    slack = slack.replace("        R[ss] = 1 / beta;\n",
+                          "        R[ss] = 1 / beta;\n"
+                          "        Rnot[ss] = 1 / beta;\n")
+    return slack, slack.replace("        R[] = Rnot[];\n",
+                                "        R[] = 1;\n")
+
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -2593,6 +2682,301 @@ def second_order_phase(card, reset_counts, read_counts, sw_ss, sw_ss_cpu,
           flush=True)
 
 
+def estimators_phase(card, reset_counts, read_counts, sw_ss, sw_ss_cpu,
+                     data) -> None:
+    """Phase 14: the other estimators and the deterministic paths (14a-14f,
+    see the module docstring).  ``sw_ss``/``sw_ss_cpu`` are phase 5's
+    SW-2007 state space on the card and the CPU, ``data`` its 200 periods."""
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.analysis import occbin
+    from geconpy_torch.analysis.perfect_foresight import \
+        solve_perfect_foresight
+    from geconpy_torch.stats import dsge_var, irf_matching, moment_matching
+    from geconpy_torch.stats._optim import jacobian
+    from geconpy_torch.stats.identification import iskrev_identification
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    def part(tag, fn):
+        """One call on the card after the counts are set to 0: (result, ms
+        by CUDA events, peak device memory).  No kernel may launch."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        stray = {k_: n_ for k_, n_ in read_counts().items() if n_}
+        if stray:
+            raise AssertionError(f"{tag} launched {stray}: phase 14 runs no "
+                                 "kernel")
+        return out, start.elapsed_time(stop), \
+            torch.cuda.max_memory_allocated(dev)
+
+    def cpu_call(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def held(tag, gap, bar) -> float:
+        if not gap <= bar:
+            raise AssertionError(f"{tag}: card vs CPU rel {gap:.3e} > {bar}")
+        return gap
+
+    def rel_dict(a: dict, b: dict) -> float:
+        return max(abs(a[k_] - b[k_]) / max(abs(b[k_]), 1e-300) for k_ in b)
+
+    # ---- 14a: Iskrev identification
+    t_step = time.perf_counter()
+    n_lags = 5
+    ident, id_ms, id_peak = part("14a SW-2007", lambda: iskrev_identification(
+        sw_ss, n_lags=n_lags))
+    ident_c, id_cpu_ms = cpu_call(lambda: iskrev_identification(
+        sw_ss_cpu, n_lags=n_lags))
+    gap_id = held("14a SW-2007 J", rel_max(torch.as_tensor(ident.jacobian),
+                                           torch.as_tensor(ident_c.jacobian)),
+                  1e-8)
+    if (ident.rank, ident.identified) != (ident_c.rank, ident_c.identified):
+        raise AssertionError(f"14a SW-2007 rank {ident.rank} vs CPU "
+                             f"{ident_c.rank}")
+    nk3 = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(
+        "nk_3eq"), verbose=False)
+    nk_kw = dict(observed_states=["x", "pi"],
+                 constant_params=["beta", "kappa", "sigma", "phi_pi", "phi_x"])
+    sym = {"rho_rn": 0.6, "rho_v": 0.6, "sigma_rn": 0.003, "sigma_v": 0.003}
+    nk_id, nk_ms, _ = part("14a nk_3eq", lambda: iskrev_identification(
+        DSGEStateSpace(nk3, device="cuda").configure(**nk_kw), params=sym))
+    nk_id_c = iskrev_identification(
+        DSGEStateSpace(nk3, device="cpu").configure(**nk_kw), params=sym)
+    gap_nk = held("14a nk_3eq J", rel_max(torch.as_tensor(nk_id.jacobian),
+                                          torch.as_tensor(nk_id_c.jacobian)),
+                  1e-8)
+    n_nk = len(nk_id.param_names)
+    if nk_id.rank != nk_id_c.rank or nk_id.rank != n_nk - 2 \
+            or nk_id.identified:
+        raise AssertionError(f"14a nk_3eq rank {nk_id.rank} (CPU "
+                             f"{nk_id_c.rank}) of {n_nk}")
+    print(f"phase 14a iskrev_identification: SW-2007 "
+          f"({len(ident.param_names)} parameters, {len(sw_ss.observed_states)} "
+          f"observables, n_lags={n_lags}, {ident.jacobian.shape[0]} moments) J "
+          f"card vs CPU rel {gap_id:.3e} (bar 1e-8), rank {ident.rank} on both, "
+          f"identified {ident.identified}, smallest singular value "
+          f"{ident.singular_values[-1]:.3e}, max collinearity "
+          f"{ident.collinearity.max():.6f}; {id_ms:.1f} ms (CPU {id_cpu_ms:.1f} "
+          f"ms), peak {id_peak} B; nk_3eq without the rate at the swap point: "
+          f"J rel {gap_nk:.3e}, rank {nk_id.rank} of {n_nk} on both (deficient "
+          f"by 2), {nk_ms:.1f} ms; no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 14b: GMM on phase 5's data
+    t_step = time.perf_counter()
+    lags = (1,)
+    gmm, gmm_ms, gmm_peak = part("14b GMM", lambda: moment_matching.
+                                 fit_moment_matching(sw_ss, data, lags=lags,
+                                                     **EST_CUT))
+    gmm_c, gmm_cpu_ms = cpu_call(lambda: moment_matching.fit_moment_matching(
+        sw_ss_cpu, data, lags=lags, **EST_CUT))
+    gap_est = held("14b GMM estimates", rel_dict(gmm.params, gmm_c.params),
+                   1e-6)
+    u_fix = sw_ss.initial_position()
+    fixed = moment_matching.fit_moment_matching(
+        sw_ss, data, lags=lags, u0=u_fix, adam_steps=0, newton_steps=0)
+    fixed_c = moment_matching.fit_moment_matching(
+        sw_ss_cpu, data, lags=lags, u0=u_fix.cpu(), adam_steps=0,
+        newton_steps=0)
+    solve_fix = sw_ss.build_solution_fn(full_state=True)
+    solve_fix_c = sw_ss_cpu.build_solution_fn(full_state=True)
+    G, g_ms, _ = part("14b G", lambda: jacobian(
+        lambda U: moment_matching.model_moments(solve_fix(U), lags), u_fix,
+        gmm.n_moments))
+    G_c = jacobian(lambda U: moment_matching.model_moments(solve_fix_c(U),
+                                                           lags),
+                   u_fix.cpu(), gmm.n_moments)
+    gap_fix = held("14b moments, G and SEs at a fixed u", max(
+        rel_max(fixed.moments, fixed_c.moments), rel_max(G, G_c),
+        rel_dict(fixed.std_errors, fixed_c.std_errors)), 1e-8)
+    print(f"phase 14b fit_moment_matching SW-2007 lags={lags} "
+          f"({gmm.n_moments} moments, {len(gmm.params)} parameters) on phase "
+          f"5's {len(data)} periods, {EST_CUT} (cut from {EST_FULL}, the same "
+          f"on the CPU): estimates card vs CPU rel {gap_est:.3e} (bar 1e-6), "
+          f"loss {gmm.loss:.6e} (CPU {gmm_c.loss:.6e}), success "
+          f"{gmm.success}; at the initial position the moments, G "
+          f"({tuple(G.shape)}) and the standard errors rel {gap_fix:.3e} (bar "
+          f"1e-8); {gmm_ms:.1f} ms the fit (CPU {gmm_cpu_ms:.1f} ms), G "
+          f"{g_ms:.1f} ms, peak {gmm_peak} B; no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 14c: IRF matching on SW-2007's own IRFs
+    t_step = time.perf_counter()
+    model = sw_ss.model
+    periods = 40
+    truth = model.default_theta(**IRF_MOVED).to(dev)
+    target = {}
+    for shock in model.shocks:
+        path, ok = irf_matching.build_irf_fn(model, shock, periods=periods)(
+            truth)
+        if not bool(ok):
+            raise AssertionError(f"14c target IRF of {shock} failed")
+        cols = [model.variables.index(v) for v in sw_ss.observed_states]
+        target[shock] = irf_matching.IRFTarget(
+            path[:, cols].cpu().numpy(), list(sw_ss.observed_states))
+    est = list(IRF_MOVED)
+    fit_kw = dict(estimated=est, **EST_CUT)
+    irm, irm_ms, irm_peak = part("14c IRF matching", lambda: irf_matching.
+                                 fit_irf_matching(model, target, **fit_kw))
+    irm_c, irm_cpu_ms = cpu_call(lambda: irf_matching.fit_irf_matching(
+        model, target, device="cpu", **fit_kw))
+    gap_irm = held("14c estimates", rel_dict(irm.params, irm_c.params), 1e-6)
+    fixed = irf_matching.fit_irf_matching(model, target, estimated=est,
+                                          adam_steps=0, newton_steps=0)
+    fixed_c = irf_matching.fit_irf_matching(model, target, estimated=est,
+                                            adam_steps=0, newton_steps=0,
+                                            device="cpu")
+    gap_irm_fix = held("14c fitted IRFs and SEs at the start", max(
+        rel_max(fixed.fitted, fixed_c.fitted),
+        rel_dict(fixed.std_errors, fixed_c.std_errors)), 1e-8)
+    recovered = {k_: f"{v:.6f} (truth {IRF_MOVED[k_]})"
+                 for k_, v in irm.params.items()}
+    print(f"phase 14c fit_irf_matching SW-2007: target its own IRFs of all "
+          f"{len(target)} shocks over {periods} horizons for the "
+          f"{len(sw_ss.observed_states)} observables ({irm.n_obs} entries) at "
+          f"the calibration with {IRF_MOVED}, from the calibration, "
+          f"{EST_CUT} (cut from {EST_FULL}, the same on the CPU): estimates "
+          f"card vs CPU rel {gap_irm:.3e} (bar 1e-6), recovered {recovered}, "
+          f"loss {irm.loss:.3e}, success {irm.success}; at the start the "
+          f"fitted IRFs and standard errors rel {gap_irm_fix:.3e} (bar 1e-8); "
+          f"{irm_ms:.1f} ms the fit (CPU {irm_cpu_ms:.1f} ms), peak {irm_peak} "
+          f"B; no kernel; step {time.perf_counter() - t_step:.1f} s [{card}]",
+          flush=True)
+
+    # ---- 14d: the DSGE-VAR lambda profile
+    t_step = time.perf_counter()
+    prof, prof_ms, prof_peak = part("14d DSGE-VAR", lambda: dsge_var.
+                                    dsge_var_lambda_profile(sw_ss, data, p=4))
+    prof_c, prof_cpu_ms = cpu_call(lambda: dsge_var.dsge_var_lambda_profile(
+        sw_ss_cpu, data, p=4))
+    if not np.array_equal(prof.lambdas, prof_c.lambdas) \
+            or not np.isfinite(prof.log_ml).all():
+        raise AssertionError(f"14d lambdas {prof.lambdas} vs {prof_c.lambdas}"
+                             f", log_ml {prof.log_ml}")
+    gap_var = held("14d log_ml", float(np.max(np.abs(prof.log_ml - prof_c.
+                                                      log_ml)
+                                              / np.abs(prof_c.log_ml))), 1e-10)
+    print(f"phase 14d dsge_var_lambda_profile SW-2007 p=4 on phase 5's data: "
+          f"{len(prof.lambdas)} lambdas from {prof.lambdas[0]:.4f} "
+          f"(lambda_min {prof.lambda_min:.4f}) to {prof.lambdas[-1]:g}, log ML "
+          f"card vs CPU rel {gap_var:.3e} at every lambda (bar 1e-10), argmax "
+          f"lambda {prof.lambdas[int(np.argmax(prof.log_ml))]:g}; "
+          f"{prof_ms:.1f} ms (CPU {prof_cpu_ms:.1f} ms), peak {prof_peak} B; "
+          f"no kernel; step {time.perf_counter() - t_step:.1f} s [{card}]",
+          flush=True)
+
+    # ---- 14e: perfect foresight on nk_sw
+    t_step = time.perf_counter()
+    nk_sw = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn(
+        "nk_sw"), verbose=False)
+    runs = {"direct": dict(shocks={k_: np.array([v]) for k_, v in
+                                   PF_SHOCK.items()}),
+            "krylov": dict(shocks={k_: np.array([v]) for k_, v in
+                                   PF_SHOCK.items()}, direction="krylov"),
+            "terminal": dict(terminal_params=PF_TERMINAL,
+                             initial_guess="linear"),
+            "path": dict(param_paths={k_: np.concatenate(
+                [np.full(20, v), np.full(PF_PERIODS - 20, d)])
+                for k_, (v, d) in PF_PATH.items()})}
+    pf, words = {}, []
+    for name, kw in runs.items():
+        res, ms, peak = part(f"14e {name}", lambda: solve_perfect_foresight(
+            nk_sw, periods=PF_PERIODS, **kw))
+        res_c, cpu_ms = cpu_call(lambda: solve_perfect_foresight(
+            nk_sw, periods=PF_PERIODS, device="cpu", **kw))
+        if not (res.success and res_c.success) or res.n_iter != res_c.n_iter:
+            raise AssertionError(f"14e {name}: success {res.success}/"
+                                 f"{res_c.success}, iterations {res.n_iter}/"
+                                 f"{res_c.n_iter}")
+        gap = held(f"14e {name}", rel_max(res.trajectory, res_c.trajectory),
+                   1e-10)
+        pf[name] = res
+        words.append(f"{name} {res.n_iter} iterations, resid "
+                     f"{res.resid_norm:.2e}, rel {gap:.3e}, {ms:.1f} ms (CPU "
+                     f"{cpu_ms:.1f} ms), peak {peak} B")
+    a, b = pf["krylov"].trajectory, pf["direct"].trajectory
+    k_gap = float(((a - b).abs() / (1e-8 + 1e-6 * b.abs())).max())
+    if k_gap > 1.0:
+        raise AssertionError(f"14e krylov vs direct: {k_gap:.3e} of the "
+                             "reference test's bar")
+    print(f"phase 14e solve_perfect_foresight nk_sw ({nk_sw.n_variables} "
+          f"variables) over {PF_PERIODS} periods, card vs CPU (bar 1e-10, "
+          f"equal iterations): temporary {PF_SHOCK}: " + "; ".join(words[:2])
+          + f"; krylov vs direct at {k_gap:.3e} of the reference test's bar "
+          f"(rtol 1e-6, atol 1e-8); permanent {PF_TERMINAL}: {words[2]}; "
+          f"param_paths {PF_PATH} for 20 periods: {words[3]}; no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 14f: OccBin, the zero lower bound on nk_sw and on nk_3eq
+    t_step = time.perf_counter()
+    slack, binding = zlb_regimes(geconpy_torch.get_example_gcn("nk_sw"))
+    ref_r = geconpy_torch.model_from_gcn(slack, verbose=False,
+                                         simplify_constants_flag=False)
+    alt_r = geconpy_torch.model_from_gcn(binding, verbose=False,
+                                         simplify_constants_flag=False)
+    shock, size = ZLB_SHOCK
+    zkw = dict(bind="Rnot[] < 1", relax="Rnot[] > 1", periods=OCC_PERIODS,
+               shocks={shock: np.array([size])})
+    occ, occ_ms, occ_peak = part("14f nk_sw", lambda: occbin.solve_occbin(
+        ref_r, alt_r, **zkw))
+    occ_c, occ_cpu_ms = cpu_call(lambda: occbin.solve_occbin(
+        ref_r, alt_r, device="cpu", **zkw))
+    if not (occ.success and occ_c.success) \
+            or not np.array_equal(occ.regime, occ_c.regime) \
+            or occ.n_iter != occ_c.n_iter:
+        raise AssertionError(f"14f nk_sw regimes {occ.regime} vs "
+                             f"{occ_c.regime}")
+    gap_occ = held("14f nk_sw path", rel_max(occ.trajectory,
+                                             occ_c.trajectory), 1e-10)
+    R = occ.trajectory[:, occ.variables.index("R")]
+    spell = int(occ.regime.sum())
+    if spell < 2 or float(R.min()) < 1.0 - 1e-12:
+        raise AssertionError(f"14f nk_sw spell {spell}, min R "
+                             f"{float(R.min())}")
+    nk_ref = geconpy_torch.model_from_gcn(NK3_ZLB, verbose=False)
+    nk_alt = geconpy_torch.model_from_gcn(
+        NK3_ZLB.replace("i[] = inot[];", "i[] = -0.0101;"), verbose=False,
+        simplify_constants_flag=False)
+    ikw = dict(bind="inot[] < -0.0101", relax="inot[] > -0.0101",
+               shock="epsilon_rn", sizes=(0.05, -0.05), periods=40)
+    irf, irf_ms, _ = part("14f nk_3eq", lambda: occbin.occbin_irf(
+        nk_ref, nk_alt, **ikw))
+    irf_c = occbin.occbin_irf(nk_ref, nk_alt, device="cpu", **ikw)
+    gap_irf = held("14f nk_3eq occbin_irf", max(
+        rel_max(irf[s].deviation, irf_c[s].deviation) for s in irf), 1e-10)
+    if any(not np.array_equal(irf[s].regime, irf_c[s].regime) for s in irf):
+        raise AssertionError("14f nk_3eq regimes differ from the CPU")
+    print(f"phase 14f solve_occbin nk_sw with a zero lower bound on R (gross "
+          f"rate >= 1; Rnot on the smoothed Taylor rule), {ZLB_SHOCK} over "
+          f"{OCC_PERIODS} periods: spell {spell} periods (regimes "
+          f"{''.join(map(str, occ.regime[:spell + 2]))}...), equal on the "
+          f"CPU, {occ.n_iter} guess-verify rounds, path card vs CPU rel "
+          f"{gap_occ:.3e} (bar 1e-10), min R {float(R.min()):.12f}, min Rnot "
+          f"{float(occ.trajectory[:, occ.variables.index('Rnot')].min()):.6f}; "
+          f"{occ_ms:.1f} ms (CPU {occ_cpu_ms:.1f} ms), peak {occ_peak} B; "
+          f"nk_3eq occbin_irf +/-0.05: rel {gap_irf:.3e}, spell "
+          f"{int(irf[-0.05].regime.sum())} at -0.05 and "
+          f"{int(irf[0.05].regime.sum())} at +0.05, regimes equal, "
+          f"{irf_ms:.1f} ms; no kernel; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    print(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -3259,6 +3643,10 @@ def main() -> int:
     # ---- phase 13: second order, at nk_sw's width, and GIRF bands
     second_order_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
                        nuts_res)
+
+    # ---- phase 14: the other estimators and the deterministic paths
+    estimators_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
+                     vg_data)
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():

@@ -33,6 +33,9 @@ conditional forecasts), the model evidence (Laplace and modified harmonic
 mean, ``compare_models``) and maximum likelihood (``fit_ml``), the
 solvability, Blanchard-Kahn and prior predictive sweeps with the
 eigenvalue sensitivities, the prior samplers and ``check_steady_state``,
+the other estimators (GMM, IRF matching, DSGE-VAR, Iskrev identification,
+the detrending filters) and the deterministic paths (nonlinear perfect
+foresight with its block-tridiagonal and Newton-Krylov solvers, OccBin),
 with hand-written CUDA kernels for cycle reduction, the
 Riccati settle, the filter tail, the fused settle + tail and the DARE
 settle: every TPU kernel of the reference has its counterpart.
@@ -46,6 +49,9 @@ __version__ = "0.1.0"
 
 import pathlib as _pathlib
 
+from .analysis.occbin import OccbinResult, solve_occbin
+from .analysis.perfect_foresight import (PerfectForesightResult,
+                                         solve_perfect_foresight)
 from .analysis.simulate import impulse_response_function, simulate
 from .models.model import Model, PolicySolution, model_from_gcn
 from .models.validation import check_steady_state
@@ -67,8 +73,8 @@ from .stats.smc import SMCResult, fit_smc
 from .stats.statespace import (DSGEStateSpace, data_from_prior,
                                statespace_from_gcn)
 
-__all__ = ["DSGEStateSpace", "Model", "PolicySolution", "PosteriorResult",
-           "SMCResult", "autocorrelation_matrix", "autocovariance_matrix",
+__all__ = ["DSGEStateSpace", "Model", "OccbinResult", "PerfectForesightResult",
+           "PolicySolution", "PosteriorResult", "SMCResult", "autocorrelation_matrix", "autocovariance_matrix",
            "bk_condition_sweep", "bounds_from_priors", "build_Q_matrix",
            "check_bk_condition", "check_steady_state", "conditional_forecast",
            "data_from_prior", "eigenvalue_sensitivity", "fit", "fit_smc",
@@ -77,6 +83,7 @@ __all__ = ["DSGEStateSpace", "Model", "PolicySolution", "PosteriorResult",
            "prior_solvability_check", "sample_from_priors",
            "sample_from_priors_qmc", "sample_uniform",
            "sample_uniform_from_priors", "simulate", "solvability_check",
+           "solve_occbin", "solve_perfect_foresight",
            "stationary_covariance_matrix", "statespace_from_gcn",
            "summarize_perturbation_solution"]
 

@@ -4,8 +4,8 @@ Mirrors ``geconpy_tpu/ops/newton.py``: ``RootResult`` (:26), ``_inf_norm``
 (:34), ``newton_solve`` (:39-119, with the nonmonotone ``memory > 1``
 variant), ``chord_solve`` (:122-197), ``gauss_newton_cg_solve``
 (:200-303), ``levenberg_marquardt_solve`` (:306-360), ``dogleg_solve``
-(:363-459) and ``root`` (:547-582).  ``newton_krylov_solve`` is not ported
-(ROADMAP Queue 1 item 8, with the perfect-foresight solver it serves).
+(:363-459), ``newton_krylov_solve`` (:462-544, on the batched GMRES of
+:mod:`.gmres`) and ``root`` (:547-582).
 
 Every solver works over a leading batch dimension: ``f(x (B, m), *args)
 -> (B, m)``, each tensor of ``args`` with the same leading ``B`` (nested
@@ -31,11 +31,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .gmres import gmres
 from .precision import highest_precision
 
 __all__ = ["RootResult", "newton_solve", "levenberg_marquardt_solve",
-           "dogleg_solve", "chord_solve", "gauss_newton_cg_solve", "root",
-           "batched_jacobian"]
+           "dogleg_solve", "chord_solve", "gauss_newton_cg_solve",
+           "newton_krylov_solve", "root", "batched_jacobian"]
 
 
 class RootResult(NamedTuple):
@@ -419,6 +420,68 @@ def dogleg_solve(f: Callable, x0: torch.Tensor, args: tuple = (),
                          max_radius, step_fn)
 
 
+@highest_precision()
+def newton_krylov_solve(f: Callable, x0: torch.Tensor, args: tuple = (),
+                        tol: float = 1e-8, maxiter: int = 100,
+                        max_backtracks: int = 12, armijo_c: float = 1e-4,
+                        gmres_tol: float = 1e-4, gmres_restart: int = 30,
+                        gmres_maxiter: int = 4) -> RootResult:
+    """Matrix-free inexact Newton-Krylov with Armijo backtracking, batched.
+
+    The Newton direction solves ``J dx = -r`` by GMRES (:func:`.gmres.
+    gmres`, JAX's batched method, each draw its own Krylov basis) whose
+    matvec is one ``torch.func.jvp`` of the residual: the Jacobian is never
+    materialized.  ``gmres_tol`` is the inexact-Newton forcing term.  A
+    non-finite direction falls back to steepest descent (Jᵀr by one
+    ``torch.func.vjp``).  The 12 trial steps are evaluated in one call and
+    the first that meets Armijo is taken; as in the reference's scan, every
+    iteration counts all of them in ``n_feval`` (1 + 13 an iteration), and
+    a draw whose trials all fail stops.
+    """
+    tol = _tol(tol, x0)
+    B = x0.shape[0]
+    dev = x0.device
+    alphas = 0.5 ** torch.arange(max_backtracks, dtype=x0.dtype, device=dev)
+    x = x0
+    r = f(x0, *args)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    nfev = torch.ones(B, dtype=torch.int64, device=dev)
+    done = _inf_norm(r) < tol
+    for _ in range(maxiter):
+        if bool(done.all()):
+            break
+
+        def fx(xx):
+            return f(xx, *args)
+
+        def matvec(v):
+            return torch.func.jvp(fx, (x,), (v,))[1]
+
+        dx = gmres(matvec, -r, tol=gmres_tol, atol=0.0,
+                   restart=min(gmres_restart, x.shape[-1]),
+                   maxiter=gmres_maxiter)
+        _, vjp_fn = torch.func.vjp(fx, x)
+        (grad,) = vjp_fn(r)
+        bad_dir = ~torch.isfinite(dx).all(dim=-1)
+        dx = _where(bad_dir, -grad, dx)
+        m0 = 0.5 * _dot(r, r)
+        slope = _dot(grad, dx)
+        x_try, r_try = _trials(f, x, dx, args, alphas)
+        m_try = 0.5 * _dot(r_try, r_try)
+        ok = torch.isfinite(r_try).all(dim=-1) & (
+            m_try <= m0[:, None] + armijo_c * alphas * slope[:, None])
+        first, accepted = _first(ok)
+        x_new = _where(accepted, _take(x_try, first), x)
+        r_new = _where(accepted, _take(r_try, first), r)
+        live = ~done
+        x = _where(live, x_new, x)
+        r = _where(live, r_new, r)
+        it = it + live.to(it.dtype)
+        nfev = nfev + live.to(nfev.dtype) * (max_backtracks + 1)
+        done = done | (live & (~accepted | (_inf_norm(r_new) < tol)))
+    return _finish(x, r, it, nfev, tol)
+
+
 def _pick_hybrid(res_n: RootResult, res_lm: RootResult) -> RootResult:
     """Newton's answer where it succeeded, LM's elsewhere (the reference's
     ``"hybrid"`` combination)."""
@@ -434,8 +497,8 @@ def root(f: Callable, x0: torch.Tensor, args: tuple = (),
          method: str = "newton", tol: float = 1e-8,
          maxiter: int = 100) -> RootResult:
     """Dispatching root finder; ``method`` in ``"newton"``, ``"newton_nm"``,
-    ``"chord"``, ``"lm"``, ``"dogleg"``, ``"gauss_newton"``, ``"hybrid"``
-    (``"newton_krylov"`` is not ported and raises).
+    ``"chord"``, ``"lm"``, ``"dogleg"``, ``"gauss_newton"``,
+    ``"newton_krylov"``, ``"hybrid"``.
 
     ``"hybrid"`` runs Newton and Levenberg-Marquardt (``2 * maxiter``) from
     the same start on every draw and keeps LM's answer where Newton failed,
@@ -461,8 +524,5 @@ def root(f: Callable, x0: torch.Tensor, args: tuple = (),
             levenberg_marquardt_solve(f, x0, args, tol=tol,
                                       maxiter=2 * maxiter))
     if method == "newton_krylov":
-        raise NotImplementedError(
-            "method 'newton_krylov' (matrix-free GMRES Newton for the "
-            "stacked-time systems of perfect foresight) is not ported: "
-            "ROADMAP Queue 1 item 8")
+        return newton_krylov_solve(f, x0, args, tol=tol, maxiter=maxiter)
     raise ValueError(f"unknown method {method!r}")

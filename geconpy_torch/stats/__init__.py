@@ -2,16 +2,24 @@
 single-draw log posterior, batched likelihood sweep and value+gradient, the
 SMC sampler on the sweep, NUTS (``fit``, first or second order) with its
 mode search and diagnostics, the second-order likelihoods and PMMH, maximum likelihood and the model evidence, the posterior
-tools and forecasts, the solvability, BK and prior predictive sweeps, and
-the prior samplers."""
+tools and forecasts, the solvability, BK and prior predictive sweeps, the
+prior samplers, the minimum-distance estimators (GMM, IRF matching), the
+DSGE-VAR, Iskrev identification and the detrending filters
+(``stats.detrend``)."""
 
 from .covariance import (autocorrelation, autocovariance,
                          autocovariance_matrix, fevd, stationary_covariance,
                          stationary_covariance_matrix)
 from .diagnostics import effective_sample_size, split_rhat, summarize_chains
+from .dsge_var import (dsge_var_lambda_profile, dsge_var_marginal_likelihood,
+                       dsge_var_moments)
 from .estimation import PosteriorResult, fit, fit_pmmh
 from .forecast import conditional_forecast, posterior_forecast
+from .identification import IdentificationResult, iskrev_identification
+from .irf_matching import IRFMatchResult, build_irf_fn, fit_irf_matching
 from .ml import MLResult, fit_ml
+from .moment_matching import (MomentMatchResult, fit_moment_matching,
+                              model_moments)
 from .model_comparison import (compare_models, find_map, laplace_evidence,
                                marginal_likelihood, modified_harmonic_mean)
 from .nonlinear import (build_logpost_second_order,
@@ -44,6 +52,11 @@ __all__ = [
     "quadratic_drive_covariance",
     "posterior_forecast", "conditional_forecast",
     "SMCResult", "fit_smc",
+    "dsge_var_marginal_likelihood", "dsge_var_lambda_profile",
+    "dsge_var_moments",
+    "IRFMatchResult", "build_irf_fn", "fit_irf_matching",
+    "MomentMatchResult", "fit_moment_matching", "model_moments",
+    "IdentificationResult", "iskrev_identification",
     "MLResult", "fit_ml", "compare_models", "find_map", "laplace_evidence",
     "marginal_likelihood", "modified_harmonic_mean",
     "effective_sample_size", "split_rhat", "summarize_chains",

@@ -2,9 +2,10 @@
 
 - In a subprocess that runs from a temporary directory holding only a copy
   of ``geconpy_torch/``, with every import of ``jax``, ``geconpy_tpu`` and
-  ``pandas`` refused by a ``sys.meta_path`` finder, ``import
-  geconpy_torch`` builds SW-2007 and configures it for the forward sweep
-  (``steady_state``) and the value+grad path (``stationary``); the names,
+  ``pandas`` refused by a ``sys.meta_path`` finder, every module of the
+  package imports, and ``geconpy_torch`` builds SW-2007 and configures it
+  for the forward sweep (``steady_state``) and the value+grad path
+  (``stationary``); the names,
   static/dynamic plan, filter core and static pivot order it reports equal
   the JAX package's.
 - An AST scan shows that no file under ``geconpy_torch/``, nor
@@ -49,7 +50,7 @@ COPIED = ([f"lang/{p.name}" for p in sorted((REFERENCE / "lang").glob("*.py"))]
              for p in sorted((REFERENCE / "symbolic").glob("*.py"))]
           + [f"models/{m}.py" for m in ("primitives", "block", "special_blocks",
                                          "registry", "simplify", "timing")]
-          + ["dists/from_ast.py", "ops/gensys_np.py"])
+          + ["dists/from_ast.py", "ops/gensys_np.py", "stats/detrend.py"])
 
 _CHILD = f"""
 import json, sys
@@ -60,10 +61,15 @@ class _Refuse:
             raise ImportError(f"{{name}} is refused in this process")
 
 sys.meta_path.insert(0, _Refuse())
+import importlib, pkgutil
 import torch
 torch.set_num_threads(1)
 import geconpy_torch
 from geconpy_torch.stats.statespace import DSGEStateSpace
+modules = sorted(m.name for m in pkgutil.walk_packages(geconpy_torch.__path__,
+                                                       "geconpy_torch."))
+for name in modules:
+    importlib.import_module(name)
 model = geconpy_torch.model_from_gcn(geconpy_torch.get_example_gcn("sw2007"))
 constant = [p for p in model.param_names if p not in {SW_ESTIMATED!r}]
 report = {{}}
@@ -80,7 +86,7 @@ report.update({{
     "variables": mf.variable_names, "shocks": mf.shock_names,
     "params": mf.param_names,
     "static": plan.static_idx.tolist(), "dynamic": plan.dynamic_idx.tolist(),
-    "package": geconpy_torch.__file__,
+    "package": geconpy_torch.__file__, "modules": modules,
     "loaded": sorted(m.split(".")[0] for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "geconpy_tpu",
                                             "pandas")),
@@ -117,6 +123,13 @@ def reference():
 def test_port_builds_sw2007_without_jax(child_report):
     assert child_report["loaded"] == []
     assert child_report["package"].startswith(child_report["work"])
+    # every module of the package imports there, this slice's among them
+    for name in ("stats._optim", "stats.detrend", "stats.moment_matching",
+                 "stats.identification", "stats.irf_matching",
+                 "stats.dsge_var", "ops.block_tridiag", "ops.gmres",
+                 "ops.newton", "analysis.perfect_foresight",
+                 "analysis.occbin"):
+        assert f"geconpy_torch.{name}" in child_report["modules"]
     for ft in ("steady_state", "stationary"):
         assert len(child_report[ft]["labels"]) == 22
 

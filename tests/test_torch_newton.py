@@ -9,7 +9,10 @@ both packages' ``root``: x at rel 1e-10 (atol 1e-12), equal ``success``,
 ``n_iter`` and ``n_feval``, and a converged residual norm within 1e-12
 (it is rounding noise).  A mixed batch (a draw that converges at once,
 a NaN draw, a slow draw, an ordinary one) equals its solo runs bit for bit,
-for every method.  ``"newton_krylov"`` raises.  CPU, float64, one thread.
+for every method.  ``"newton_krylov"`` (the batched GMRES of
+``geconpy_torch/ops/gmres.py`` inside) is one of the methods, and
+``newton_krylov_solve`` also matches the reference on the banded systems
+of the reference's Krylov tests at tol 1e-10.  CPU, float64, one thread.
 """
 
 import os
@@ -30,7 +33,7 @@ from geconpy_torch.ops import newton as port
 from geconpy_tpu.ops import newton as ref
 
 METHODS = ["newton", "newton_nm", "chord", "lm", "dogleg", "gauss_newton",
-           "hybrid"]
+           "newton_krylov", "hybrid"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,11 +169,34 @@ def test_mixed_batch_matches_reference_vmap():
                                    rtol=1e-10, err_msg=method)
 
 
+def _banded(kind, x, xp):
+    """The banded systems of the reference's Krylov tests
+    (``tests/ops/test_newton.py:157-166``), over a leading batch."""
+    cat = jnp.concatenate if xp is jnp else torch.cat
+    zero = xp.zeros_like(x[..., :1])
+    xm = cat([zero, x[..., :-1]], -1)
+    if kind == "broyden_tridiag":
+        xn = cat([x[..., 1:], zero], -1)
+        return (3.0 - 2.0 * x) * x - xm - 2.0 * xn + 1.0
+    return x - 0.4 * xp.tanh(xm) + 0.2 * xp.exp(-x) - 0.5
+
+
 def test_newton_krylov_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.root(lambda x: quad(x, torch),
-                  torch.tensor([[3.0, 3.0]], dtype=torch.float64),
-                  method="newton_krylov")
+    """Once the pin of the missing method, now its parity check:
+    ``newton_krylov_solve`` on the reference's two banded systems (30 and
+    24 unknowns, tol 1e-10) takes the reference's iterations and function
+    evaluations and lands on its root; an unknown method still raises."""
+    for kind, x0 in (("broyden_tridiag", -np.ones(30)),
+                     ("exp_coupled", np.zeros(24))):
+        want = jax.jit(lambda x, kind=kind: ref.newton_krylov_solve(
+            lambda y: _banded(kind, y, jnp), x, tol=1e-10))(jnp.asarray(x0))
+        got = port.newton_krylov_solve(lambda y: _banded(kind, y, torch),
+                                       torch.tensor(x0)[None], tol=1e-10)
+        assert bool(got.success[0]) and bool(want.success), kind
+        assert int(got.n_iter[0]) == int(want.n_iter), kind
+        assert int(got.n_feval[0]) == int(want.n_feval), kind
+        np.testing.assert_allclose(got.x[0].numpy(), np.asarray(want.x),
+                                   rtol=1e-10, atol=1e-12, err_msg=kind)
     with pytest.raises(ValueError):
         port.root(lambda x: quad(x, torch),
                   torch.tensor([[3.0, 3.0]], dtype=torch.float64),
