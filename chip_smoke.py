@@ -290,14 +290,37 @@ Phases, one line each (plus one line per kernel in phase 3):
    (``zlb_regimes``; ``ZLB_SHOCK`` over 40 periods): regimes equal to the
    CPU's, a spell of at least 2 periods, the path within rel 1e-10, R never
    below 1; and the reference test's ``nk_3eq`` ``occbin_irf`` at +/-0.05
-   at rel 1e-10 with equal regimes.  The phase prints its seconds.
+   at rel 1e-10 with equal regimes.  The phase prints its seconds;
+15. the rest of the reference (``checkpoint_mesh_phase``;
+   ``tools/checkpoint_mesh_probe.py`` runs it alone), one line a part, each with
+   its seconds; 15d's first child process starts first and builds beside
+   15a-15c.  15a ``fit_with_checkpointing`` on 8a's configuration
+   (float64; ``CKPT_FIT``, two segments of ``CKPT_SEGMENT`` draws): the
+   warmup once into a checkpoint, copied twice; one copy sampled
+   unbroken, the other stopped after its first segment and called again;
+   the two equal (bitwise, or within rel 1e-12), the CPU's replay of the
+   first segment on the card's random numbers within rel 1e-8, every draw
+   finite, no kernel launched; the seconds of the warmup and of each
+   segment, the checkpoint's size.  15b phase 6's SMC with
+   ``mesh=make_mesh()`` (this card): stages, log evidence and samples
+   equal to phase 6's bit for bit, K1 and K5 once a sweep; 12d's
+   ``prior_solvability_check`` (4,096 draws) equal with and without the
+   mesh; both wall times.  15c ``summarize_trace`` of a ``torch.profiler``
+   trace of one phase 4 ``"pallas"`` sweep: K1, K2 and K3 device rows,
+   the shares summing to 1 within 1e-6, the top rows; ``program_memory``
+   of the same call within 1% of phase 4's ``max_memory_allocated`` above
+   its start.  15d two child processes with ``GECONPY_TORCH_CACHE_DIR``
+   at one fresh directory: the first builds the kernels there, the second
+   loads them (no build, ``nvcc.log`` unchanged), both launch K4 once on
+   a synthetic pencil, bitwise equal; both processes' seconds.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
 line is ``{"ok": true, "device": {...}}``; the line before the ``nvidia-smi``
 line is one JSON object with each kernel's launches (on the path that runs
-it: K1 and K5 the sweep's, K2 and K3 the ``"pallas"`` sweep's, K6 the
-``"pallas"`` value+grad's, K4 the NUTS fit's), error, times and bound.
+it: K1 and K5 the sweep's plus 15b's SMC under a mesh, K2 and K3 the
+``"pallas"`` sweep's, K6 the ``"pallas"`` value+grad's, K4 the NUTS
+fit's), error, times and bound.
 """
 
 from __future__ import annotations
@@ -2977,6 +3000,336 @@ def estimators_phase(card, reset_counts, read_counts, sw_ss, sw_ss_cpu,
           flush=True)
 
 
+# phase 15: fit_with_checkpointing on 8a's configuration (8 chains, the
+# warmup once, then two segments of CKPT_SEGMENT draws at max_depth 4:
+# 8d's value+grad calls take ~280 ms, a transition ~12 calls); the CPU
+# replays the first segment on the card's random numbers; 15d's child
+# processes and the K4 pencil they launch on
+CKPT_FIT = dict(num_chains=8, num_warmup=3, max_depth=4, seed=0)
+CKPT_SEGMENT = 2
+CACHE_PENCIL = (20, 4, 64)          # n, m, batch of 15d's K4 launch
+PHASE15_BUDGET_S = 90.0
+
+_CACHE_CHILD = r"""
+import json, pathlib, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/tools")
+import numpy as np
+import torch
+import geconpy_torch
+from geconpy_torch.ops import _cuda
+from geconpy_torch.ops.batched_cycle_reduction import cycle_reduction
+from cr_variants import stable_pencil
+n, m, batch = (int(x) for x in sys.argv[2:5])
+A, B, C, _D = (torch.as_tensor(x, device="cuda")
+               for x in stable_pencil(n, m, batch, seed=15))
+cycle_reduction.launches = 0
+T, ok = cycle_reduction(A, B, C)
+torch.cuda.synchronize()
+np.save(sys.argv[5], T.cpu().numpy())
+print(json.dumps({"builds": _cuda.BUILDS, "launches": cycle_reduction.launches,
+                  "cache": geconpy_torch.persistent_cache_enabled(),
+                  "build_dir": str(_cuda._build_dir()), "ok": bool(ok.all()),
+                  "seconds": time.perf_counter() - t0}))
+"""
+
+
+def _cache_child(cache_dir, out_npy):
+    """A child process that loads the kernels with the persistent cache at
+    ``cache_dir`` and launches K4 once (started, not waited for)."""
+    import os
+
+    env = dict(os.environ, GECONPY_TORCH_CACHE_DIR=str(cache_dir))
+    return subprocess.Popen(
+        [sys.executable, "-c", _CACHE_CHILD, str(ROOT),
+         *(str(x) for x in CACHE_PENCIL), str(out_npy)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _child_result(proc, tag) -> dict:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"15d {tag} child failed ({proc.returncode}): "
+                             f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def checkpoint_mesh_phase(card, reset_counts, read_counts, sw_model, ss, data32,
+                  batch, sweep, smc_ref, peak4) -> dict:
+    """Phase 15 (15a-15d, see the module docstring).  ``ss``, ``data32``,
+    ``batch`` and ``sweep`` are phase 4's SW-2007 sweep configuration,
+    draws and ``"pallas"`` sweep; ``smc_ref`` phase 6's (result, seconds);
+    ``peak4`` phase 4's (max_memory_allocated, memory_allocated before) of
+    that sweep.  Returns the kernel launches of 15b's path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    scratch = pathlib.Path(tempfile.mkdtemp(prefix="phase15_",
+                                            dir=ROOT / "build"))
+    print(f"phase 15 budget: {PHASE15_BUDGET_S:.0f} s asked (15a checkpointed "
+          f"NUTS ~45 s, 15b ~5 s, 15c ~5 s, 15d's first child builds the "
+          f"kernels beside 15a-15c) [{card}]", flush=True)
+    # 15d's first process builds the kernels into a fresh cache while
+    # 15a-15c run
+    cache_dir = scratch / "cache"
+    first = _cache_child(cache_dir, scratch / "k4_first.npy")
+    try:
+        launches = _phase15_abc(card, reset_counts, read_counts, sw_model, ss,
+                                data32, batch, sweep, smc_ref, peak4, scratch)
+        # ---- 15d: the compile cache across two processes
+        t_step = time.perf_counter()
+        one = _child_result(first, "first")
+        log = next(cache_dir.glob("*/nvcc.log"))
+        stamp = (log.stat().st_mtime_ns, log.read_bytes())
+        two = _child_result(_cache_child(cache_dir,
+                                         scratch / "k4_second.npy"), "second")
+        same_log = (log.stat().st_mtime_ns, log.read_bytes()) == stamp
+        k4 = [np.load(scratch / f"k4_{w}.npy") for w in ("first", "second")]
+        if not (one["builds"] == 1 and two["builds"] == 0 and same_log
+                and one["launches"] == two["launches"] == 1
+                and one["ok"] and two["ok"]
+                and one["cache"] == two["cache"] == str(cache_dir)
+                and one["build_dir"] == two["build_dir"]
+                and pathlib.Path(one["build_dir"]).parent == cache_dir
+                and np.array_equal(k4[0], k4[1])):
+            raise AssertionError(f"15d compile cache: first {one}, second "
+                                 f"{two}, nvcc.log unchanged {same_log}, K4 "
+                                 f"equal {np.array_equal(k4[0], k4[1])}")
+        print(f"phase 15d compile cache (GECONPY_TORCH_CACHE_DIR, a fresh "
+              f"directory): the first process built the kernels there "
+              f"({one['builds']} nvcc build, {one['seconds']:.1f} s, started "
+              f"beside 15a-15c), the second loaded them ({two['builds']} "
+              f"builds, nvcc.log unchanged, {two['seconds']:.1f} s); both "
+              f"launched K4 once on a {CACHE_PENCIL[0]}-state pencil at batch "
+              f"{CACHE_PENCIL[2]}, bitwise equal; step "
+              f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    finally:
+        if first.poll() is None:
+            first.kill()
+            first.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 15: {wall:.1f} s (budget {PHASE15_BUDGET_S:.0f} s) "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def _phase15_abc(card, reset_counts, read_counts, sw_model, ss, data32, batch,
+                 sweep, smc_ref, peak4, scratch) -> dict:
+    """15a-15c (``scratch`` a directory for the checkpoints and the trace);
+    returns 15b's kernel launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.parallel import make_mesh
+    from geconpy_torch.stats import checkpoint as ckpt_mod
+    from geconpy_torch.stats.nuts import (_finite_grad, draw_transition,
+                                          nuts_kernel)
+    from geconpy_torch.stats.perturbation_diagnostics import \
+        prior_solvability_check
+    from geconpy_torch.stats.statespace import DSGEStateSpace
+    from geconpy_torch.utils.memory import format_bytes, program_memory
+    from geconpy_torch.utils.profiling import summarize_trace
+
+    def no_kernel(tag):
+        stray = {k_: n_ for k_, n_ in read_counts().items() if n_}
+        if stray:
+            raise AssertionError(f"{tag} launched {stray}")
+
+    # ---- 15a: checkpointed NUTS on 8a's configuration, float64
+    t_step = time.perf_counter()
+    rbc = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("rbc_estimation"), verbose=False)
+    kw = dict(observed_states=["Y"], constant_params=["alpha", "sigma_C"],
+              filter_type="sequential")
+    rss = DSGEStateSpace(rbc, device="cuda").configure(**kw)
+    rss_cpu = DSGEStateSpace(rbc, device="cpu").configure(**kw)
+    data, _draw = rss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=64)
+    fit_kw = dict(CKPT_FIT, checkpoint_every=CKPT_SEGMENT, dtype=torch.float64)
+    n_all = 2 * CKPT_SEGMENT
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    warm_dir = scratch / "warm"
+    _r, s_warm = timed(lambda: ckpt_mod.fit_with_checkpointing(
+        rss, data, warm_dir, num_samples=0, **fit_kw))
+    warm = ckpt_mod.load_checkpoint(warm_dir)
+    for name in ("whole", "stopped"):
+        shutil.copytree(warm_dir, scratch / name)
+    whole, s_whole = timed(lambda: ckpt_mod.fit_with_checkpointing(
+        rss, data, scratch / "whole", num_samples=n_all, **fit_kw))
+    first_seg, s_seg1 = timed(lambda: ckpt_mod.fit_with_checkpointing(
+        rss, data, scratch / "stopped", num_samples=CKPT_SEGMENT, **fit_kw))
+    stopped = ckpt_mod.load_checkpoint(scratch / "stopped")
+    resumed, s_seg2 = timed(lambda: ckpt_mod.fit_with_checkpointing(
+        rss, data, scratch / "stopped", num_samples=n_all, **fit_kw))
+    no_kernel("15a fit_with_checkpointing")
+    size = sum(f.stat().st_size for f in (scratch / "whole").iterdir())
+    gaps = {k_: float(np.max(np.abs(getattr(resumed, k_) - getattr(whole, k_))
+                             / np.maximum(np.abs(getattr(whole, k_)), 1e-300)))
+            for k_ in ("unconstrained", "logp")}
+    bitwise = all(np.array_equal(getattr(resumed, k_), getattr(whole, k_))
+                  for k_ in ("unconstrained", "logp", "accept_prob",
+                             "diverging"))
+    if stopped.n_completed != CKPT_SEGMENT or max(gaps.values()) > 1e-12 \
+            or not np.array_equal(first_seg.unconstrained,
+                                  whole.unconstrained[:, :CKPT_SEGMENT]):
+        raise AssertionError(f"15a resumed run off the unbroken run: {gaps}")
+    if not (np.isfinite(whole.unconstrained).all()
+            and np.isfinite(whole.logp).all()):
+        raise AssertionError("15a: a draw is not finite")
+    # the CPU replays the first segment on the card's random numbers
+    gen = torch.Generator(device="cuda")
+    gen.set_state(torch.from_numpy(warm.rng_state))
+    vag_cpu = _finite_grad(rss_cpu.build_logpost_and_grad(data))
+    q = torch.as_tensor(warm.positions)
+    eps = torch.as_tensor(warm.step_size)
+    inv_mass = torch.as_tensor(warm.inv_mass)
+    logp, grad = vag_cpu(q)
+    t0 = time.perf_counter()
+    cpu_draws = []
+    for _ in range(CKPT_SEGMENT):
+        draws = draw_transition(gen, q.shape[0], q.shape[1],
+                                CKPT_FIT["max_depth"], torch.float64,
+                                torch.device("cuda", 0))
+        q, logp, grad, _info = nuts_kernel(
+            vag_cpu, q, logp, grad, eps, inv_mass, CKPT_FIT["max_depth"],
+            draws={k_: v.cpu() for k_, v in draws.items()})
+        cpu_draws.append(q.numpy())
+    s_cpu = time.perf_counter() - t0
+    card_seg = whole.unconstrained[:, :CKPT_SEGMENT]
+    cpu_seg = np.stack(cpu_draws, axis=1)
+    gap_cpu = float(np.max(np.abs(cpu_seg - card_seg)
+                           / (1.0 + np.abs(card_seg))))
+    if not gap_cpu <= 1e-8:
+        raise AssertionError(f"15a CPU replay of the first segment off the "
+                             f"card by rel {gap_cpu:.3e}")
+    print(f"phase 15a fit_with_checkpointing on 8a's rbc_estimation "
+          f"(sequential filter, 64 periods, float64): {CKPT_FIT['num_chains']} "
+          f"chains, warmup {CKPT_FIT['num_warmup']} + 1, then 2 segments of "
+          f"{CKPT_SEGMENT} draws at max_depth {CKPT_FIT['max_depth']}; "
+          f"warmup {s_warm:.1f} s, unbroken 2 segments {s_whole:.1f} s, "
+          f"stopped after segment 1 {s_seg1:.1f} s, resumed segment 2 "
+          f"{s_seg2:.1f} s; resumed vs unbroken: "
+          f"{'bitwise equal' if bitwise else 'not bitwise'}, draws rel "
+          f"{gaps['unconstrained']:.3e}, logp rel {gaps['logp']:.3e}; the "
+          f"CPU's replay of segment 1 on the card's random numbers rel "
+          f"{gap_cpu:.3e} (bar 1e-8, {s_cpu:.1f} s); every draw finite, "
+          f"acceptance {whole.accept_prob.mean():.3f}, divergent "
+          f"{whole.diverging.mean():.3f}; checkpoint {size} B on disk "
+          f"({format_bytes(size)}); no kernel launched; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+
+    # ---- 15b: phase 6's SMC and 12d's sweep under a mesh of this card
+    t_step = time.perf_counter()
+    mesh = make_mesh()
+    smc6, wall6 = smc_ref
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smc = geconpy_torch.fit_smc(ss, data32, mesh=mesh, **SMC_KW)
+    torch.cuda.synchronize()
+    wall_mesh = time.perf_counter() - t0
+    launches = read_counts()
+    sweeps = 1 + len(smc.phi_schedule) * SMC_KW["n_mh"]
+    if launches["cycle_reduction_policy"] != sweeps \
+            or launches["settle_filter_loglik"] != sweeps \
+            or launches["settle_parts"] or launches["filter_tail"] \
+            or launches["cycle_reduction"] or launches["dare_settle"]:
+        raise AssertionError(f"15b SMC made {sweeps} sweeps but launched "
+                             f"{launches}")
+    if len(smc.phi_schedule) != len(smc6.phi_schedule) \
+            or smc.log_evidence != smc6.log_evidence \
+            or not np.array_equal(smc.samples, smc6.samples):
+        raise AssertionError(f"15b SMC under the mesh differs from phase 6: "
+                             f"stages {len(smc.phi_schedule)} vs "
+                             f"{len(smc6.phi_schedule)}, log evidence "
+                             f"{smc.log_evidence} vs {smc6.log_evidence}")
+    reset_counts()
+    solv, s_solv = timed(lambda: prior_solvability_check(
+        sw_model, n_samples=SWEEP_DRAWS, seed=0, device="cuda"))
+    solv_m, s_solv_m = timed(lambda: prior_solvability_check(
+        sw_model, n_samples=SWEEP_DRAWS, seed=0, mesh=mesh))
+    no_kernel("15b prior_solvability_check")
+    for field, a, b in zip(solv._fields, solv, solv_m):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        if not same:
+            raise AssertionError(f"15b prior_solvability_check under the "
+                                 f"mesh: {field} differs")
+    print(f"phase 15b mesh {mesh.devices} (axis {mesh.axis_name!r}; a mesh "
+          f"of several cards has run on the CPU only): fit_smc {SMC_KW} "
+          f"under it equals phase 6 bit for bit ({len(smc.phi_schedule)} "
+          f"stages, log evidence {smc.log_evidence:.3f}, samples equal); K1 "
+          f"{launches['cycle_reduction_policy']}, K5 "
+          f"{launches['settle_filter_loglik']} launches for {sweeps} sweeps; "
+          f"{wall_mesh:.3f} s (phase 6: {wall6:.3f} s); "
+          f"prior_solvability_check ({SWEEP_DRAWS} draws) equal with and "
+          f"without it, {1e3 * s_solv_m:.1f} / {1e3 * s_solv:.1f} ms; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    path = {"cycle_reduction_policy": launches["cycle_reduction_policy"],
+            "settle_filter_loglik": launches["settle_filter_loglik"]}
+
+    # ---- 15c: a profiler table and the memory of one sweep call
+    t_step = time.perf_counter()
+    sweep(batch)
+    torch.cuda.synchronize()
+    trace_dir = scratch / "trace"
+    trace_dir.mkdir()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sweep(batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_dir / "sweep.trace.json"))
+    table = summarize_trace(trace_dir, rounded=False)
+    names = list(table.index)
+    found = {label: [n for n in names if pat in n] for label, pat in
+             (("K1", "cr_kernel<float, true"),
+              ("K2", "settle_kernel<float, false>"),
+              ("K3", "filter_tail_kernel<float"))}
+    share_sum = float(table["share"].sum())
+    if not all(found.values()) or abs(share_sum - 1.0) > 1e-6 \
+            or any(n.startswith(("aten::", "cuda")) for n in names):
+        raise AssertionError(f"15c device table: kernels {found}, shares sum "
+                             f"{share_sum}, rows {names[:10]}")
+    top = "; ".join(f"{n[:48]} {c} x {t:.1f} us ({s:.3f})" for n, c, t, s in
+                    zip(names[:6], table["calls"], table["total_us"],
+                        table["share"]))
+    mem = program_memory(sweep, batch)
+    peak_all, base4 = peak4
+    own4 = peak_all - base4
+    own = mem["peak_bytes"] - mem["argument_bytes"]
+    gap_mem = abs(own - own4) / own4
+    if not gap_mem <= 0.01:
+        raise AssertionError(f"15c program_memory's peak above the arguments "
+                             f"{own} B vs phase 4's {own4} B")
+    print(f"phase 15c summarize_trace of one policy='pallas', "
+          f"settle='pallas' sweep at batch {batch.shape[0]}: {len(names)} "
+          f"device rows, {int(table['calls'].sum())} launches, "
+          f"{table['total_us'].sum() / 1e3:.2f} ms of device time, shares sum "
+          f"to 1 - {1.0 - share_sum:.1e}; K1, K2, K3 rows present; top: {top}; "
+          f"program_memory {mem}: {own} B above the arguments vs phase 4's "
+          f"max_memory_allocated less its start, {own4} B (rel "
+          f"{gap_mem:.2e}; phase 4's peak {peak_all} B); step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
+    return path
+
+
 def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                      k: int) -> str:
     """Registers and spills per kernel (``-Xptxas -v`` in ``nvcc.log``), and
@@ -3442,11 +3795,12 @@ def main() -> int:
     # the two settles are timed in turns within this one call (pallas,
     # fused, fused, pallas), N_REPS repetitions each in two halves
     turns = {"pallas": [], "fused": []}
-    peaks = {}
+    peaks, bases = {}, {}
     for settle, fn in (("pallas", sweep), ("fused", sweep_fused),
                        ("fused", sweep_fused), ("pallas", sweep)):
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
+        bases[settle] = torch.cuda.memory_allocated(dev)
         start = time.perf_counter()
         for _ in range(N_REPS // 2):
             fn(batch)
@@ -3579,6 +3933,7 @@ def main() -> int:
     res = fit_smc(ss, data32, **SMC_KW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
+    smc_ref = (res, wall)
     launches = read_counts()
     n_part = SMC_KW["n_particles"]
     stages = len(res.phi_schedule)
@@ -3647,6 +4002,13 @@ def main() -> int:
     # ---- phase 14: the other estimators and the deterministic paths
     estimators_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
                      vg_data)
+
+    # ---- phase 15: checkpointed NUTS, the mesh, profiler and memory
+    # tables, the compile cache
+    for name, n in checkpoint_mesh_phase(card, reset_counts, read_counts, model, ss,
+                                 data32, batch, sweep, smc_ref,
+                                 (peaks["pallas"], bases["pallas"])).items():
+        path_launches[name] += n
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
@@ -3967,7 +4329,7 @@ def stage_breakdown(ss, data, batch, card, hewer_settle, settled_gate,
             k_in = tuple(X.detach().contiguous() for X in (T_aug, RQR, Z, H))
             step("K6 + gate", lambda: settled_gate(*k_in, dare_settle(*k_in)))
             ll = step("forward scan", lambda: loglik_from_P(
-                y, T_aug, RQR, Z, H, sol["d"], P))
+                y, T_aug, RQR, Z, H, sol["d"], None, P))
             total = torch.where(torch.isfinite(ll), ll + sol["logprior"],
                                 torch.zeros_like(ll)).sum()
             step("backward", lambda: torch.autograd.grad(total, U))
@@ -4018,7 +4380,7 @@ def float32_io_effect(ss, data, batch, card, settled_gate, dare_settle,
             P = dare_settle(*d_in)
             ok = ok & sol["ss_success"] & sol["stable"] & settled_gate(*d_in, P)
             ll = loglik_from_P(y, T_aug, RQR, sol["Z"], sol["H"], sol["d"],
-                               P.double())
+                               None, P.double())
             vals[(k4, k6)] = torch.where(ok & torch.isfinite(ll),
                                          ll + sol["logprior"],
                                          torch.full_like(ll, -torch.inf))

@@ -36,9 +36,15 @@ eigenvalue sensitivities, the prior samplers and ``check_steady_state``,
 the other estimators (GMM, IRF matching, DSGE-VAR, Iskrev identification,
 the detrending filters) and the deterministic paths (nonlinear perfect
 foresight with its block-tridiagonal and Newton-Krylov solvers, OccBin),
-with hand-written CUDA kernels for cycle reduction, the
-Riccati settle, the filter tail, the fused settle + tail and the DARE
-settle: every TPU kernel of the reference has its counterpart.
+checkpointed NUTS (``stats/checkpoint.py``), device meshes for the
+chains, particles and sweeps (``parallel``), the persistent cache of the
+kernels' build (``utils/compile_cache.py``, ``GECONPY_TORCH_CACHE_DIR``),
+profiler and memory tables (``utils/profiling.py``, ``utils/memory.py``),
+the reports, the Dynare export and the plots (``utils/reporting.py``,
+``analysis/dynare.py``, ``analysis/plotting.py``), with hand-written CUDA
+kernels for cycle reduction, the Riccati settle, the filter tail, the
+fused settle + tail and the DARE settle: every TPU kernel of the reference
+has its counterpart.
 A ``DSGEStateSpace`` runs on the GPU unless it is built with
 ``device="cpu"``, and ``Model.steady_state``, ``Model.solve_model`` and
 ``statespace_from_gcn`` unless they are given ``device="cpu"``; results
@@ -47,13 +53,18 @@ with labels are tensors with name lists (no pandas).
 
 __version__ = "0.1.0"
 
+import os as _os
 import pathlib as _pathlib
 
+from . import parallel
+from .analysis.dynare import make_mod_file
 from .analysis.occbin import OccbinResult, solve_occbin
 from .analysis.perfect_foresight import (PerfectForesightResult,
                                          solve_perfect_foresight)
 from .analysis.simulate import impulse_response_function, simulate
+from .lang import parse_gcn, print_model
 from .models.model import Model, PolicySolution, model_from_gcn
+from .models.primitives import ModelPrimitives, load_gcn, load_gcn_file
 from .models.validation import check_steady_state
 from .stats.covariance import (autocorrelation_matrix, autocovariance_matrix,
                                build_Q_matrix, stationary_covariance_matrix)
@@ -72,16 +83,32 @@ from .stats.sampling import (bounds_from_priors, sample_from_priors,
 from .stats.smc import SMCResult, fit_smc
 from .stats.statespace import (DSGEStateSpace, data_from_prior,
                                statespace_from_gcn)
+from .symbolic import SteadyStateResults, SymbolDictionary, TimeAwareSymbol
+from .utils.compile_cache import (enable_persistent_cache,
+                                  persistent_cache_enabled)
+from .utils.formatting import matrix_to_dataframe
+from .utils.reporting import print_gcn_file, print_steady_state
 
-__all__ = ["DSGEStateSpace", "Model", "OccbinResult", "PerfectForesightResult",
-           "PolicySolution", "PosteriorResult", "SMCResult", "autocorrelation_matrix", "autocovariance_matrix",
-           "bk_condition_sweep", "bounds_from_priors", "build_Q_matrix",
-           "check_bk_condition", "check_steady_state", "conditional_forecast",
-           "data_from_prior", "eigenvalue_sensitivity", "fit", "fit_smc",
-           "get_example_gcn", "impulse_response_function", "model_from_gcn",
-           "posterior_forecast", "prepare_mixed_frequency_data",
-           "prior_solvability_check", "sample_from_priors",
-           "sample_from_priors_qmc", "sample_uniform",
+# GECONPY_TORCH_CACHE_DIR set before import turns on the persistent cache of
+# the CUDA kernels' build there (the reference's env tier)
+if _os.environ.get("GECONPY_TORCH_CACHE_DIR"):
+    enable_persistent_cache()
+
+__all__ = ["DSGEStateSpace", "Model", "ModelPrimitives", "OccbinResult",
+           "PerfectForesightResult", "PolicySolution", "PosteriorResult",
+           "SMCResult", "SteadyStateResults", "SymbolDictionary",
+           "TimeAwareSymbol", "autocorrelation_matrix",
+           "autocovariance_matrix", "bk_condition_sweep",
+           "bounds_from_priors", "build_Q_matrix", "check_bk_condition",
+           "check_steady_state", "conditional_forecast", "data_from_prior",
+           "eigenvalue_sensitivity", "enable_persistent_cache", "fit",
+           "fit_smc", "get_example_gcn", "impulse_response_function",
+           "load_gcn", "load_gcn_file", "make_mod_file",
+           "matrix_to_dataframe", "model_from_gcn", "parallel", "parse_gcn",
+           "persistent_cache_enabled", "posterior_forecast",
+           "prepare_mixed_frequency_data", "print_gcn_file", "print_model",
+           "print_steady_state", "prior_solvability_check",
+           "sample_from_priors", "sample_from_priors_qmc", "sample_uniform",
            "sample_uniform_from_priors", "simulate", "solvability_check",
            "solve_occbin", "solve_perfect_foresight",
            "stationary_covariance_matrix", "statespace_from_gcn",

@@ -90,6 +90,11 @@ class ModelFunctions:
         return [s.base_name for s in self.shocks]
 
     @property
+    def has_full_analytic_ss(self) -> bool:
+        """True when the GCN steady-state block pins every variable (no Newton)."""
+        return len(self.unknown_idx) == 0
+
+    @property
     def n_unknowns(self) -> int:
         """Numeric steady-state unknowns (variables + calibrated params)."""
         return len(self.unknown_idx) + len(self.calibrated_params)

@@ -1,8 +1,7 @@
 """Agent optimization blocks and first-order-condition derivation.
 
 Copied from ``geconpy_tpu/models/block.py`` so that the port needs nothing of
-the JAX package; only package names in text differ, and ``_repr_html_``
-(HTML reporting, not ported) is left out.
+the JAX package; only package names in text differ.
 
 Role parity with ``gEconpy/model/block/basic.py`` (Block:71,
 _build_lagrangian:519, _get_discount_factor:553, solve_optimization:644,
@@ -300,6 +299,11 @@ class Block:
                 if not isinstance(atom, TimeAwareSymbol):
                     out.add(atom)
         return sorted(out, key=lambda s: s.name)
+
+    def _repr_html_(self) -> str:
+        from ..utils.reporting import block_to_html
+
+        return block_to_html(self)
 
     def __repr__(self):
         n_eq = len(self.system_equations) if self._solved else "unsolved"

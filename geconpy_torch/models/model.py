@@ -15,8 +15,8 @@ DataFrame the port returns tensors with name lists (``linearize_model``,
 ``summary`` returns the P/Q/R/S tables of
 ``stats/perturbation_diagnostics.py``; ``solve_model_second_order``
 (:400) returns the first-order solution with the second-order blocks
-(``models/second_order.py``); ``build_report`` and
-``_repr_html_`` (HTML reporting) are not ported.  ``steady_state``,
+(``models/second_order.py``); ``build_report`` (:476) and ``_repr_html_``
+(:485) render through ``utils/reporting.py``.  ``steady_state``,
 ``linearize_model``, ``solve_model`` and ``check_bk_condition`` run on the
 GPU unless they are given ``device="cpu"``.
 """
@@ -500,6 +500,20 @@ class Model:
         return {"real": np.real(lam)[order], "imag": np.imag(lam)[order],
                 "modulus": moduli[order], "bk_satisfied": satisfied,
                 "n_unstable": n_unstable, "n_forward": n_forward}
+
+    def build_report(self) -> str:
+        """Human-readable summary of the compiled model
+        (role parity with gEconpy/model/build.py:748)."""
+        from ..utils.reporting import build_report
+
+        report = build_report(self)
+        print(report)
+        return report
+
+    def _repr_html_(self) -> str:
+        from ..utils.reporting import model_to_html
+
+        return model_to_html(self)
 
     def __repr__(self):
         mf = self.functions

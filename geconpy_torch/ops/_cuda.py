@@ -4,10 +4,15 @@ The sources compile with ``nvcc`` for ``sm_90a`` (one process per source,
 all started together) into one shared library with a plain C interface,
 bound with :mod:`ctypes`.  The build runs at
 first use and again whenever the sources change: the library lives under
-``build/geconpy_torch/<hash of the sources>/`` beside the package, and the
-compiler's output (including ``-Xptxas -v`` register and spill counts) is
-kept there as ``nvcc.log``.  Nothing here runs at import, so the CPU tests
-import every module without ``nvcc``.
+``build/geconpy_torch/<hash of the sources>/`` beside the package, or under
+the persistent cache's directory once
+:func:`~geconpy_torch.utils.compile_cache.enable_persistent_cache` has
+named one (:func:`build_root`), and the compiler's output (including
+``-Xptxas -v`` register and spill counts) is kept there as ``nvcc.log``.
+A process that finds the library of its sources' hash loads it without
+running ``nvcc``; ``BUILDS`` counts the builds this process ran.  Nothing
+here runs at import, so the CPU tests import every module without
+``nvcc``.
 
 Each C entry point returns ``cudaGetLastError()`` right after its launch;
 :func:`check` raises on anything but 0.  Kernels launch on PyTorch's
@@ -27,7 +32,8 @@ import tempfile
 import torch
 
 __all__ = ["library", "check", "stream_handle", "dtype_code",
-           "smem_limit", "require_cuda_inputs", "CSRC", "BUILD_ROOT"]
+           "smem_limit", "require_cuda_inputs", "build_root", "CSRC",
+           "BUILD_ROOT"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "geconpy_torch"
@@ -36,6 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIB_NAME = "libgeconpy_torch_kernels.so"
 
 _LIB: ctypes.CDLL | None = None
+# the persistent cache's directory (utils/compile_cache.py), or None
+CACHE_ROOT: pathlib.Path | None = None
+BUILDS = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,16 +93,24 @@ def _nvcc() -> str:
     return found
 
 
+def build_root() -> pathlib.Path:
+    """Where the library of each source hash is built: the persistent
+    cache's directory when one is enabled, else ``BUILD_ROOT``."""
+    return BUILD_ROOT if CACHE_ROOT is None else CACHE_ROOT
+
+
 def _build_dir() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return build_root() / h.hexdigest()[:16]
 
 
 def _build(out_dir: pathlib.Path) -> None:
     """Compile every source on its own, all at once, then link them."""
+    global BUILDS
+    BUILDS += 1
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     flags = [f for f in NVCC_FLAGS if f != "-shared"]

@@ -182,13 +182,14 @@ def _cyclic_settle(Ts, RQRs, Zs, Hs, n_settle: int):
 
 
 @highest_precision()
-def cyclostationary_kalman_loglik(y, T, R, Q, Z, H, d=None, mask_pattern=None,
-                                  n_settle: int = 16):
+def cyclostationary_kalman_loglik(y, T, R, Q, Z, H, d=None, x0=None,
+                                  mask_pattern=None, n_settle: int = 16):
     """Kalman log-likelihood under a periodic missingness pattern.
 
     ``y`` (periods, k) is shared, NaN where missing (the pattern decides
     what is observed); T (..., n, n), R (..., n, m), Q (..., m, m),
-    Z (..., k, n), H (..., k, k), d (..., k).  ``mask_pattern`` (p, k)
+    Z (..., k, n), H (..., k, k), d (..., k); ``x0`` (..., n) is the
+    predicted state of the first period (None: zero).  ``mask_pattern`` (p, k)
     bool: series i is observed at t when ``mask_pattern[t % p, i]``;
     p = 1 with every series observed is the stationary filter.  Use
     :func:`detect_mask_period` on ``np.isfinite(data)`` to find it.
@@ -245,6 +246,8 @@ def cyclostationary_kalman_loglik(y, T, R, Q, Z, H, d=None, mask_pattern=None,
     gains = [(yd[..., j::p, :] @ TKs[j].mT) for j in range(p)]
     x = T.new_zeros(torch.broadcast_shapes(batch, yd.shape[:-2])
                     + T.shape[-1:])
+    if x0 is not None:
+        x = x + x0.to(dtype)
     xs = []
     for t in range(periods):
         j = phase[t]

@@ -338,10 +338,10 @@ def _auto_settle(Ts, RQRs, Zs, Hs, n_settle: int):
 
 
 @highest_precision()
-def stationary_loglik_from_P(y, T, RQR, Z, H, d, P):
+def stationary_loglik_from_P(y, T, RQR, Z, H, d, x0, P):
     """Constant-gain log-likelihood given a (primal) DARE fixed point P,
-    from the predicted state 0 (the reference's ``x0``, which every caller
-    leaves at zero); gradients re-attach through :class:`_ImplicitDareP`.
+    from the predicted state ``x0`` (..., n) (None: zero); gradients
+    re-attach through :class:`_ImplicitDareP`.
 
     ``y`` (periods, k) is shared; T, RQR (..., n, n), Z (..., k, n),
     H (..., k, k), d (..., k).  The scan's backward pass is
@@ -360,7 +360,7 @@ def stationary_loglik_from_P(y, T, RQR, Z, H, d, P):
     # y - d for every period at once, and its gain term TK (y_t - d)
     yd = y.to(T.dtype) - d[..., None, :]  # (..., periods, k)
     gain = yd @ TK.mT  # (..., periods, n)
-    x = T.new_zeros(T.shape[:-1])
+    x = T.new_zeros(T.shape[:-1]) if x0 is None else x0.to(T.dtype)
     vs = []
     for t in range(y.shape[0]):
         vs.append(yd[..., t, :] - (Z @ x[..., None])[..., 0])
@@ -372,9 +372,11 @@ def stationary_loglik_from_P(y, T, RQR, Z, H, d, P):
 
 
 @highest_precision()
-def stationary_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 32,
+def stationary_kalman_loglik(y, T, R, Q, Z, H, d=None, x0=None,
+                             n_settle: int = 32,
                              settle_method: str = "hewer"):
-    """Stationary (constant gain from t = 0) Kalman log-likelihood.
+    """Stationary (constant gain from t = 0) Kalman log-likelihood, from
+    the predicted state ``x0`` (..., n) (None: zero).
 
     The predictive covariance is pinned at the DARE fixed point, reached by
     a primal settle on detached (T, RQR, Z, H): ``settle_method="hewer"``
@@ -396,7 +398,7 @@ def stationary_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 32,
         P, settled = _sda_settle(*primal)
     else:
         P, settled = _hewer_settle(*primal, n_settle)
-    ll = stationary_loglik_from_P(y, T, RQR, Z, H, d, P)
+    ll = stationary_loglik_from_P(y, T, RQR, Z, H, d, x0, P)
     return torch.where(settled, ll, torch.full_like(ll, -torch.inf))
 
 
@@ -521,10 +523,12 @@ def kalman_loglik(y, T, R, Q, Z, H, d=None, x0=None, P0=None):
     return torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -torch.inf))
 
 
-def _settle_exact(y_head, T, R, Q, Z, H, d):
-    """The exact filter over ``y_head`` from the zero state and the
-    unconditional covariance (differentiable through its Lyapunov
-    adjoint): (ll_head, x_filt, P_filt, RQR, d).  Where ``y_head`` misses
+def _settle_exact(y_head, T, R, Q, Z, H, d, x0=None, P0=None):
+    """The exact filter over ``y_head`` from the state ``x0`` (None: zero)
+    and the covariance ``P0`` (None: the unconditional one, differentiable
+    through its Lyapunov adjoint): (ll_head, x_filt, P_filt, RQR, d).
+    ``x0`` and ``P0`` are the filtered moments before the first period,
+    which the first step predicts from.  Where ``y_head`` misses
     values it runs the masked step, as the reference's head always does;
     on fully observed data the plain step, which gives the same numbers
     with fewer operations."""
@@ -532,8 +536,8 @@ def _settle_exact(y_head, T, R, Q, Z, H, d):
     if d is None:
         d = T.new_zeros(T.shape[:-2] + Z.shape[-2:-1])
     RQR = R @ Q @ R.mT
-    P = solve_discrete_lyapunov(T, RQR)
-    x = T.new_zeros(T.shape[:-1])
+    P = solve_discrete_lyapunov(T, RQR) if P0 is None else P0.to(T.dtype)
+    x = T.new_zeros(T.shape[:-1]) if x0 is None else x0.to(T.dtype)
     ll = T.new_zeros(T.shape[:-2])
     for t in range(y_head.shape[0]):
         y_t = y_head[t].to(T.dtype)
@@ -561,33 +565,40 @@ def _frozen_gain(T, RQR, Z, H, P_filt):
 
 
 @highest_precision()
-def steady_state_filter_parts(y_head, T, R, Q, Z, H, d=None):
+def steady_state_filter_parts(y_head, T, R, Q, Z, H, d=None, x0=None,
+                              P0=None):
     """Settle phase + frozen-gain quantities for the constant-gain tail:
     the exact filter over ``y_head`` (n_settle, k), shared and fully
     observed, then (ll_head, x_pred0, M, TK, Finv, const) per draw, the
     inputs of :func:`~geconpy_torch.ops.batched_filter.filter_tail`.
 
     T (..., n, n), R (..., n, m), Q (..., m, m), Z (..., k, n),
-    H (..., k, k), d (..., k).  Plain batched PyTorch: the sweep's
-    ``settle="xla"`` and the oracle of the settle kernel.
+    H (..., k, k), d (..., k); ``x0`` (..., n) and ``P0`` (..., n, n) start
+    the filter (None: zero and the unconditional covariance).  Plain
+    batched PyTorch: the sweep's ``settle="xla"`` and the oracle of the
+    settle kernel.
     """
-    ll_head, x_filt, P_filt, RQR, _d = _settle_exact(y_head, T, R, Q, Z, H, d)
+    ll_head, x_filt, P_filt, RQR, _d = _settle_exact(y_head, T, R, Q, Z, H, d,
+                                                     x0, P0)
     M, TK, Finv, const = _frozen_gain(T, RQR, Z, H, P_filt)
     return ll_head, (T @ x_filt[..., None])[..., 0], M, TK, Finv, const
 
 
 @highest_precision()
-def steady_state_kalman_loglik(y, T, R, Q, Z, H, d=None, n_settle: int = 48):
+def steady_state_kalman_loglik(y, T, R, Q, Z, H, d=None, x0=None, P0=None,
+                               n_settle: int = 48):
     """Constant-gain (steady-state) Kalman log-likelihood, batched.
 
     ``n_settle`` exact steps (at most the sample) while the covariance
     settles, then the gain, F^{-1} and log det F are frozen and each
     remaining period costs one n x n matrix-vector product.  ``y``
-    (periods, k) is shared and fully observed.  A non-finite total is
-    -inf.  The oracle of the fused settle + tail kernel.
+    (periods, k) is shared and fully observed.  ``x0`` and ``P0`` start
+    the filter, as in :func:`steady_state_filter_parts`.  A non-finite
+    total is -inf.  The oracle of the fused settle + tail kernel.
     """
     n_settle = min(int(n_settle), y.shape[0])
-    ll, x_filt, P_filt, RQR, d = _settle_exact(y[:n_settle], T, R, Q, Z, H, d)
+    ll, x_filt, P_filt, RQR, d = _settle_exact(y[:n_settle], T, R, Q, Z, H, d,
+                                               x0, P0)
     if n_settle < y.shape[0]:
         M, TK, Finv, const = _frozen_gain(T, RQR, Z, H, P_filt)
         x = (T @ x_filt[..., None])[..., 0]

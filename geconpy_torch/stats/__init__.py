@@ -4,9 +4,11 @@ SMC sampler on the sweep, NUTS (``fit``, first or second order) with its
 mode search and diagnostics, the second-order likelihoods and PMMH, maximum likelihood and the model evidence, the posterior
 tools and forecasts, the solvability, BK and prior predictive sweeps, the
 prior samplers, the minimum-distance estimators (GMM, IRF matching), the
-DSGE-VAR, Iskrev identification and the detrending filters
-(``stats.detrend``)."""
+DSGE-VAR, Iskrev identification, the detrending filters
+(``stats.detrend``) and resumable NUTS (``stats.checkpoint``)."""
 
+from .checkpoint import (fit_with_checkpointing, load_checkpoint,
+                         save_checkpoint)
 from .covariance import (autocorrelation, autocovariance,
                          autocovariance_matrix, fevd, stationary_covariance,
                          stationary_covariance_matrix)
@@ -22,6 +24,7 @@ from .moment_matching import (MomentMatchResult, fit_moment_matching,
                               model_moments)
 from .model_comparison import (compare_models, find_map, laplace_evidence,
                                marginal_likelihood, modified_harmonic_mean)
+from .nuts import NUTSResult, nuts_kernel, sample_nuts
 from .nonlinear import (build_logpost_second_order,
                         build_pf_loglik_second_order,
                         build_second_order_solution_fn,
@@ -46,7 +49,10 @@ from .statespace import DSGEStateSpace, EstimatedParameter, LogPostExtras
 
 __all__ = [
     "DSGEStateSpace", "EstimatedParameter", "LogPostExtras",
-    "PosteriorResult", "fit", "fit_pmmh", "PMMHResult", "sample_pmmh",
+    "PosteriorResult", "fit", "fit_with_checkpointing",
+    "load_checkpoint", "save_checkpoint",
+    "NUTSResult", "nuts_kernel", "sample_nuts",
+    "fit_pmmh", "PMMHResult", "sample_pmmh",
     "build_logpost_second_order", "build_pf_loglik_second_order",
     "build_second_order_solution_fn", "filter_data_second_order",
     "quadratic_drive_covariance",

@@ -33,8 +33,6 @@ _log = logging.getLogger(__name__)
 
 __all__ = ["fit", "fit_pmmh", "PosteriorResult", "posterior_mode"]
 
-_ROADMAP = "ROADMAP Queue 1"
-
 # the mode per (value+grad function, start point): DSGEStateSpace caches
 # its built functions, so it returns the same one for the same model and
 # data, and a repeat fit skips the search (reference ``estimation.py:31,
@@ -139,9 +137,13 @@ def fit(
     samples the posterior of the pruned second-order solution on the
     value+grad of ``ss_mod.build_logpost_second_order(data)`` (the
     marginalized unscented filter, ``stats/nonlinear.py``) and requires
-    ``policy="xla"``.  Not ported yet, and refused with
-    ``NotImplementedError``: ``mesh`` and ``cache_dir`` (ROADMAP Queue 1
-    item 8).
+    ``policy="xla"``.  ``mesh`` (a :class:`~geconpy_torch.parallel.Mesh`
+    whose first device is the state space's) splits the chains of every
+    value+grad call over its devices, the function built once per distinct
+    device; the result equals the run without a mesh.  ``num_chains`` must
+    divide by the mesh size.  ``cache_dir`` turns on the persistent cache
+    of the CUDA kernels' build there
+    (:func:`~geconpy_torch.utils.compile_cache.enable_persistent_cache`).
 
     ``seed`` seeds one ``torch.Generator`` on the state space's device,
     which draws the starts and every random number of the sampler.
@@ -164,13 +166,9 @@ def fit(
     returns to the host).  ``summary()`` of the result is a plain dict.
     """
     if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir= (XLA's persistent compilation cache) has no "
-            f"counterpart in the port ({_ROADMAP} item 8)")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh= (chains sharded over several devices) is not ported yet "
-            f"({_ROADMAP} item 8)")
+        from ..utils.compile_cache import enable_persistent_cache
+
+        enable_persistent_cache(cache_dir)
     if order == 2 and policy != "xla":
         raise ValueError("order=2 estimation requires policy='xla' "
                          "(the Pallas batch kernels are first-order)")
@@ -189,7 +187,11 @@ def fit(
         raise ValueError(f"mass_matrix must be 'diag' or 'dense', "
                          f"got {mass_matrix!r}")
 
-    vag = _value_and_grad(ss_mod, data, policy, order)
+    if mesh is None:
+        vag = _value_and_grad(ss_mod, data, policy, order)
+    else:
+        vag = ss_mod._built_on_mesh(mesh, lambda ss: _value_and_grad(
+            ss, data, policy, order))
     if order == 2:
         logpost = ss_mod.build_logpost_second_order(data)
     elif policy == "xla":
@@ -232,7 +234,7 @@ def fit(
         num_samples=num_samples, max_depth=max_depth,
         target_accept=target_accept, pooled=pooled_adaptation,
         mass_init=mass_init, mass_matrix=mass_matrix,
-        segment_size=segment_size)
+        segment_size=segment_size, mesh=mesh)
 
     # one transfer of each result to the host
     constrained = ss_mod.constrain(res.samples.to(torch.float64))

@@ -30,8 +30,11 @@ state stays on the value+grad's device.
 Random numbers come from an explicit ``torch.Generator`` on that device
 (the reference splits a JAX key), or are handed in (``draws``): momentum
 normals, one direction bit and one acceptance uniform per level, and one
-uniform per leaf.  ``mesh`` (chains sharded over several devices) is not
-ported.
+uniform per leaf.  ``mesh`` (a :class:`~geconpy_torch.parallel.Mesh`)
+splits the chain axis of every value+grad call over its devices
+(:func:`~geconpy_torch.parallel.pvmap`); the host loop, the adaptation and
+the random numbers stay on the chains' device, so a run under a mesh gives
+the result of the same run without one.
 """
 
 from __future__ import annotations
@@ -556,12 +559,20 @@ def sample_nuts(
 
     ``segment_size`` is accepted and changes nothing: every transition
     already returns to the host (the reference uses it to bound the length
-    of one device program).  ``mesh`` is not ported.
+    of one device program).  ``mesh`` splits the chains of every
+    value+grad call over its devices (``value_and_grad`` may then be a
+    mapping from each distinct device to its function,
+    :func:`~geconpy_torch.parallel.functions_per_device`); the number of
+    chains must divide by the mesh size.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (chains sharded over several devices) is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        from ..parallel.mesh import pvmap
+
+        if initial_position.shape[0] % mesh.size:
+            raise ValueError(
+                f"num_chains={initial_position.shape[0]} must be divisible "
+                f"by the mesh size {mesh.size}")
+        value_and_grad = pvmap(value_and_grad, mesh, mesh.axis_name)
     if mass_init not in ("unit", "hessian"):
         raise ValueError(f"mass_init must be 'unit' or 'hessian', "
                          f"got {mass_init!r}")

@@ -10,8 +10,11 @@ Mirrors ``geconpy_tpu/stats/perturbation_diagnostics.py``:
 -> linearization -> cycle reduction -> norms, or -> the Sims pencil -> the
 disk-split count of its roots) runs once, batched over the draws, on the
 chosen device (the reference ``vmap``s it).  Where the reference returns a
-DataFrame, these return tensors with name lists.  The ``mesh`` argument
-of the sweeps (the reference's sharding over TPU devices) is refused.
+DataFrame, these return tensors with name lists.  The sweeps' ``mesh``
+(a :class:`~geconpy_torch.parallel.Mesh`) splits the draws over its
+devices (:func:`~geconpy_torch.parallel.sharded_prior_sweep`, padded to a
+multiple of the mesh size); the draws are made on, and the results
+returned to, the mesh's first device, in place of ``device``.
 """
 
 from __future__ import annotations
@@ -38,9 +41,6 @@ __all__ = ["check_bk_condition", "solvability_check", "prior_solvability_check",
 
 _STAGES = ["steady_state", "linearization", "policy_solve", "stability",
            "residual_norms"]
-
-_ROADMAP = "ROADMAP Queue 1"
-
 
 class SolvabilityTable(NamedTuple):
     """What :func:`solvability_check` returns, one entry per draw: the
@@ -104,11 +104,17 @@ class EigenvalueSensitivity(NamedTuple):
     param_names: list[str]
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a sweep sharded over several devices) is not ported "
-            f"({_ROADMAP} item 8)")
+def _sweep(per_draw, thetas: torch.Tensor, mesh):
+    """``per_draw(thetas)``, split over ``mesh`` when one is given."""
+    if mesh is None:
+        return per_draw(thetas)
+    from ..parallel.mesh import sharded_prior_sweep
+
+    return sharded_prior_sweep(per_draw, thetas, mesh, mesh.axis_name)
+
+
+def _sweep_device(mesh, device):
+    return device if mesh is None else mesh.devices[0]
 
 
 def _sweep_thetas(model, param_draws: dict, device):
@@ -177,11 +183,12 @@ def solvability_check(model, param_draws: dict, loglin_variables=True,
     ``param_draws`` maps parameter names to 1-D arrays (or tensors) of
     equal length; unspecified parameters stay at calibration.  Runs on
     ``device``; returns the draws, per-stage success flags, the first
-    stage that failed and the norms, one entry per draw.
+    stage that failed and the norms, one entry per draw.  ``mesh`` splits
+    the draws over its devices.
     """
-    _refuse_mesh(mesh)
-    names, values, thetas = _sweep_thetas(model, param_draws, device)
-    out = _make_per_draw(model, loglin_variables)(thetas)
+    names, values, thetas = _sweep_thetas(model, param_draws,
+                                          _sweep_device(mesh, device))
+    out = _sweep(_make_per_draw(model, loglin_variables), thetas, mesh)
     flags = torch.stack([out[s] for s in _STAGES], dim=1)
     success = flags.all(dim=1)
     # the first stage that failed
@@ -204,9 +211,10 @@ def prior_solvability_check(model, n_samples: int = 1000, how: str = "mc",
     ``how``: ``'mc'`` (prior draws from a ``torch.Generator`` on
     ``device``), ``'qmc'`` (Sobol through the prior inverse CDF),
     ``'uniform'``/``'lhs'``/``'sobol'``/``'halton'`` (space-filling over
-    prior HDI boxes); every one is seeded with ``seed``.
+    prior HDI boxes); every one is seeded with ``seed``.  ``mesh``
+    splits the draws over its devices.
     """
-    _refuse_mesh(mesh)
+    device = _sweep_device(mesh, device)
     param_priors, _ = resolve_priors(model.primitives.priors,
                                      model.primitives.shock_priors)
     free_names = {p.name for p in model.functions.free_params}
@@ -223,7 +231,7 @@ def prior_solvability_check(model, n_samples: int = 1000, how: str = "mc",
     else:
         draws = sample_uniform_from_priors(priors, n_samples, method=how,
                                            seed=seed)
-    return solvability_check(model, draws, device=device)
+    return solvability_check(model, draws, mesh=mesh, device=device)
 
 
 def _bk_pencil(A, B, C, lead_idx):
@@ -307,11 +315,11 @@ def bk_condition_sweep(model, param_draws: dict, loglin_variables=True,
     ``n_unstable``, ``n_forward``, ``bk_satisfied`` and an ``ok`` flag
     (False when the steady state failed or a root sits on the unit circle,
     where the count is ill-defined).  Each draw runs 30 complete QRs of
-    its pencil.
+    its pencil.  ``mesh`` splits the draws over its devices.
     """
-    _refuse_mesh(mesh)
-    names, values, thetas = _sweep_thetas(model, param_draws, device)
-    out = make_bk_count_fn(model, loglin_variables)(thetas)
+    names, values, thetas = _sweep_thetas(model, param_draws,
+                                          _sweep_device(mesh, device))
+    out = _sweep(make_bk_count_fn(model, loglin_variables), thetas, mesh)
     return BKSweep(names, values, out["n_unstable"], out["n_forward"],
                    out["bk_satisfied"], out["ok"])
 

@@ -4,9 +4,10 @@ Mirrors ``geconpy_tpu/stats/prior_predictive.py``
 (``prior_predictive_sweep`` :24): for every prior draw, solve the model
 and compute its IRFs, FEVD and stationary standard deviations, batched
 over the draws on the state space's device (the reference ``vmap``s a
-per-draw function, optionally sharded over a TPU mesh, which the port
-refuses).  The prior draws come from a ``torch.Generator``, parameter by
-parameter (the reference splits a JAX key).
+per-draw function, optionally sharded over a mesh; here ``mesh`` splits
+the batched solve over its devices).  The prior draws come from a
+``torch.Generator``, parameter by parameter (the reference splits a JAX
+key).
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import torch
 from ..ops.lyapunov import solve_discrete_lyapunov
 from ..ops.precision import highest_precision
 from .covariance import fevd as _fevd
-from .perturbation_diagnostics import _refuse_mesh
 from .posterior import Bands, ShareTable, _bands, _irf_paths
 from .statespace import DSGEStateSpace
 
@@ -37,10 +37,18 @@ class PriorPredictive(NamedTuple):
 
 @torch.no_grad()
 def _sweep_core(ss_mod: DSGEStateSpace, U: torch.Tensor, periods: int,
-                fevd_horizon: int, quantiles) -> PriorPredictive:
-    """The sweep over the unconstrained draws ``U`` (N, n_estimated)."""
+                fevd_horizon: int, quantiles, mesh=None) -> PriorPredictive:
+    """The sweep over the unconstrained draws ``U`` (N, n_estimated), the
+    solve split over ``mesh`` when one is given."""
     mf = ss_mod.model.functions
-    sol = ss_mod.build_solution_fn()(U)
+    if mesh is None:
+        sol = ss_mod.build_solution_fn()(U)
+    else:
+        from ..parallel.mesh import sharded_prior_sweep
+
+        sol = sharded_prior_sweep(
+            ss_mod._built_on_mesh(mesh, lambda ss: ss.build_solution_fn()),
+            U, mesh, mesh.axis_name)
     T, R, Q = sol["T"], sol["R"], sol["Q"]
     ok = sol["ss_success"] & sol["solver_success"] & sol["stable"]
     with highest_precision():
@@ -75,12 +83,12 @@ def prior_predictive_sweep(
     mapped to the unconstrained space.  Returns the IRF
     bands over the solvable draws, their mean FEVD shares at
     ``fevd_horizon``, the bands of their stationary standard deviations
-    and the share of solvable draws.
+    and the share of solvable draws.  ``mesh`` (whose first device is the
+    state space's) splits the solve over its devices.
     """
-    _refuse_mesh(mesh)
     generator = torch.Generator(device=ss_mod._device()).manual_seed(seed)
     return _sweep_core(ss_mod, _prior_draws(ss_mod, n_draws, generator),
-                       periods, fevd_horizon, quantiles)
+                       periods, fevd_horizon, quantiles, mesh)
 
 
 def _prior_draws(ss_mod: DSGEStateSpace, n_draws: int,

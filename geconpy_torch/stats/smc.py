@@ -19,9 +19,12 @@ Where things run: the particles, the proposals, the accept draws and the
 sweep live on the state space's device, drawn from one ``torch.Generator``
 there; the tempering bisection, the evidence increment, the weighted
 covariance and its Cholesky factor stay on the host in numpy float64, as in
-the reference, at one transfer of the log-likelihoods per stage.  The
-reference's ``interpret``, ``mesh`` and ``mesh_axis`` (TPU and multi-device
-only) are gone; ``policy`` goes to the sweep as in the reference (default
+the reference, at one transfer of the log-likelihoods per stage.  ``mesh``
+splits the particle axis of every sweep over its devices
+(:func:`~geconpy_torch.parallel.pvmap`, the sweep built once per distinct
+device); the tempering stays where it is, so the result equals the run
+without a mesh.  ``interpret`` (the reference's Pallas interpret mode) is
+accepted and changes nothing.  ``policy`` goes to the sweep as in the reference (default
 ``"xla"``, the adaptive float64 solve; ``"pallas"`` the cycle-reduction
 kernel K1), the keyword-only ``settle`` picks the sweep's settle (default
 ``"xla"``, the reference's), and ``dtype`` is explicit where JAX reads its
@@ -114,6 +117,9 @@ def fit_smc(
     policy: str = "xla",
     max_stages: int = 200,
     kalman_settle: int = 32,
+    interpret: bool = False,
+    mesh=None,
+    mesh_axis: str = "batch",
     *,
     settle: str = "xla",
     dtype: torch.dtype = torch.float32,
@@ -126,20 +132,36 @@ def fit_smc(
     cycle-reduction kernel K1), on ``ss_mod``'s device in ``dtype``: 1 for the prior cloud, then ``n_mh``
     per stage.  ``target_ess`` and ``resample_ess``
     are fractions of ``n_particles``.  The same ``seed`` gives the same
-    result on the same device.
+    result on the same device.  ``mesh`` (a
+    :class:`~geconpy_torch.parallel.Mesh` whose first device is the state
+    space's, axis ``mesh_axis``) splits every sweep's particles over its
+    devices; ``n_particles`` must divide by the mesh size.
 
     Returns equal-weight posterior particles plus the log marginal data
     density (the tempering's by-product).
     """
+    del interpret
     if not 0 < target_ess < 1:
         raise ValueError("target_ess must be in (0, 1)")
+    if mesh is not None and n_particles % mesh.size:
+        raise ValueError(f"n_particles ({n_particles}) must be divisible "
+                         f"by the mesh size ({mesh.size})")
     dim = len(ss_mod.estimated)
     names = ss_mod.param_labels
     device = ss_mod._device()
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
-    loglik = _build_loglik(ss_mod, ss_mod.build_batched_loglik(
-        data, n_settle=kalman_settle, policy=policy, settle=settle))
+    def sweep(ss):
+        return ss.build_batched_loglik(data, n_settle=kalman_settle,
+                                       policy=policy, settle=settle)
+
+    if mesh is None:
+        f_post = sweep(ss_mod)
+    else:
+        from ..parallel.mesh import pvmap
+
+        f_post = pvmap(ss_mod._built_on_mesh(mesh, sweep), mesh, mesh_axis)
+    loglik = _build_loglik(ss_mod, f_post)
 
     def mh_sweep(U, ll, lp, phi, L_prop, scale):
         """One RW-Metropolis sweep over all particles."""

@@ -60,6 +60,7 @@ never exceptions.  The TPU-only knobs (``cr_tile``, ``pallas_tile``,
 
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
 import logging
@@ -229,6 +230,34 @@ class DSGEStateSpace:
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
         return dev
+
+    def _on_device(self, device) -> "DSGEStateSpace":
+        """This state space on ``device``: itself there, else a twin with
+        the same model and configuration and its own built functions
+        (made once, kept)."""
+        device = torch.device(device)
+        if device == self._device():
+            return self
+        twins = self.__dict__.setdefault("_twins", {})
+        if device not in twins:
+            twin = copy.copy(self)
+            twin.__dict__.pop("_build_cache", None)
+            twin.__dict__.pop("_twins", None)
+            twin.device = device
+            twins[device] = twin
+        return twins[device]
+
+    def _built_on_mesh(self, mesh, build) -> dict:
+        """``build(state space)`` once per distinct device of ``mesh``:
+        on this state space on its own device, on its twin elsewhere.  The
+        mesh's first device must be this state space's."""
+        from ..parallel.mesh import functions_per_device
+
+        if mesh.devices[0] != self._device():
+            raise ValueError(f"the mesh starts on {mesh.devices[0]}, but the "
+                             f"state space is on {self._device()}")
+        return functions_per_device(
+            lambda dev: build(self._on_device(dev)), mesh)
 
     def _check_device(self, t: torch.Tensor, name: str) -> None:
         dev = self._device()
@@ -443,6 +472,7 @@ class DSGEStateSpace:
             self._filter_core = np.arange(mf.n_variables)
         self._pivot_order = None
         self.__dict__.pop("_build_cache", None)   # built fns are now stale
+        self.__dict__.pop("_twins", None)
         self._configured = True
         _log.info("configured: %d observables, %d estimated parameters "
                   "(%d model + %d meas. error)", len(self.observed_states),
@@ -1129,7 +1159,7 @@ class DSGEStateSpace:
                 # draws are rejected, never returned biased
                 ok = ok & dare_residual_settled(*dare_in, P)
                 loglik = stationary_loglik_from_P(
-                    y, T_aug, RQR, sol["Z"], sol["H"], sol["d"], P)
+                    y, T_aug, RQR, sol["Z"], sol["H"], sol["d"], None, P)
             else:
                 loglik = _loglik(y, sol["T_aug"], sol["R_aug"], sol["Q"],
                                  sol["Z"], sol["H"], d=sol["d"])

@@ -160,8 +160,6 @@ def test_fit_with_the_xla_policy(setup):
 
 @pytest.mark.parametrize("kwargs, error, match", [
     (dict(order=2, policy="pallas"), ValueError, "order=2"),
-    (dict(mesh=object()), NotImplementedError, "item 8"),
-    (dict(cache_dir="cache"), NotImplementedError, "item 8"),
     (dict(order=3), ValueError, "order"),
     (dict(policy="mosaic"), ValueError, "policy"),
     (dict(init="mode"), ValueError, "init"),
@@ -173,6 +171,26 @@ def test_refusals_raise(setup, kwargs, error, match):
     call = dict(TINY, **kwargs)
     with pytest.raises(error, match=match):
         geconpy_torch.fit(port_ss, data, **call)
+
+
+@pytest.mark.parametrize("keyword", ["mesh", "cache_dir"])
+def test_mesh_and_cache_dir_are_accepted(setup, tiny, keyword, tmp_path,
+                                         monkeypatch):
+    """A one-device CPU mesh and a compile-cache directory change nothing
+    of the result; the cache directory becomes the kernels' build root."""
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.parallel import make_mesh
+
+    _ref_ss, port_ss, data = setup
+    monkeypatch.setattr(_cuda, "CACHE_ROOT", None)
+    extra = {"mesh": make_mesh(devices=("cpu",) * 3),
+             "cache_dir": str(tmp_path / "cache")}[keyword]
+    got = geconpy_torch.fit(port_ss, data, seed=3, **{keyword: extra}, **TINY)
+    for key in ("samples", "logp", "accept_prob", "n_calls"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(tiny, key))
+    if keyword == "cache_dir":
+        assert geconpy_torch.persistent_cache_enabled() == str(tmp_path / "cache")
+        assert _cuda.build_root() == tmp_path / "cache"
 
 
 def test_initial_position_jitter(setup):

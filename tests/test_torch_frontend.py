@@ -50,7 +50,8 @@ COPIED = ([f"lang/{p.name}" for p in sorted((REFERENCE / "lang").glob("*.py"))]
              for p in sorted((REFERENCE / "symbolic").glob("*.py"))]
           + [f"models/{m}.py" for m in ("primitives", "block", "special_blocks",
                                          "registry", "simplify", "timing")]
-          + ["dists/from_ast.py", "ops/gensys_np.py", "stats/detrend.py"])
+          + ["dists/from_ast.py", "ops/gensys_np.py", "stats/detrend.py",
+             "utils/reporting.py"])
 
 _CHILD = f"""
 import json, sys
@@ -201,14 +202,9 @@ def test_no_code_of_the_port_names_the_reference_package():
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_is_the_reference_code(rel):
     """Docstrings and the package name in text aside, each copied module is
-    the reference's code; ``models/block.py`` leaves out ``_repr_html_``,
-    whose HTML reporting (``utils/reporting.py``) is not ported."""
+    the reference's code (``models/block.py`` with its ``_repr_html_``)."""
     def dump(path):
         tree = _strip_docstrings(ast.parse(path.read_text()))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.ClassDef):
-                node.body = [b for b in node.body
-                             if getattr(b, "name", None) != "_repr_html_"]
         return ast.dump(tree).replace("geconpy_tpu", "geconpy_torch")
 
     port, ref = PACKAGE / rel, REFERENCE / rel

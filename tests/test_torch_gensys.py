@@ -31,12 +31,12 @@ import torch
 
 import geconpy_torch
 import geconpy_tpu
-from geconpy_torch.ops import gensys_jax as port_gs
 from geconpy_torch.ops import qz_disk as port_qz
 from geconpy_tpu.ops import qz_disk as ref_qz
 
-# the package re-exports the function gensys_jax under the module's name
+# both packages re-export the function gensys_jax under the module's name
 ref_gs = importlib.import_module("geconpy_tpu.ops.gensys_jax")
+port_gs = importlib.import_module("geconpy_torch.ops.gensys_jax")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -253,7 +253,8 @@ def test_settle_unbiased_tiny_innovations():
         P_ref = port._dare_step(P_ref, T, RQR, Z, H)
     resid = float((port._dare_step(P_ref, T, RQR, Z, H) - P_ref).abs().max())
     assert resid < 1e-8 * float(P_ref.abs().max())
-    ll_ref = float(port.stationary_loglik_from_P(y, T, RQR, Z, H, d, P_ref))
+    ll_ref = float(port.stationary_loglik_from_P(y, T, RQR, Z, H, d, None,
+                                                   P_ref))
     ll_settle = float(port.stationary_kalman_loglik(y, T, R, Q, Z, H, d=d))
     assert np.isfinite(ll_ref)
     np.testing.assert_allclose(ll_settle, ll_ref,
@@ -265,5 +266,5 @@ def test_settle_unbiased_tiny_innovations():
         Kp = T @ (PZt @ port._spd_inverse(Z @ PZt + H))
         P4 = _doubling(T - Kp @ Z, RQR, 1e-14, 60)
         P4 = 0.5 * (P4 + P4.mT)
-    ll_4 = float(port.stationary_loglik_from_P(y, T, RQR, Z, H, d, P4))
+    ll_4 = float(port.stationary_loglik_from_P(y, T, RQR, Z, H, d, None, P4))
     assert abs(ll_4 - ll_ref) > 0.1

@@ -508,8 +508,12 @@ def test_sample_nuts_validation():
         port.sample_nuts(_std_normal_vag, init, gen, mass_matrix="full")
     with pytest.raises(ValueError, match="mass_init"):
         port.sample_nuts(_std_normal_vag, init, gen, mass_init="auto")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.sample_nuts(_std_normal_vag, init, gen, mesh=object())
+    # the reference's divisibility error: 2 chains over a 3-device mesh
+    from geconpy_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="divisible by the mesh size"):
+        port.sample_nuts(_std_normal_vag, init, gen,
+                         mesh=make_mesh(devices=("cpu",) * 3))
 
 
 def test_segment_size_changes_nothing():

@@ -237,11 +237,23 @@ def test_eig_vals_and_their_gradient_match_reference():
                                rtol=1e-10, atol=1e-12)
 
 
-def test_mesh_is_refused(rbc):
+def test_mesh_is_accepted(rbc):
+    """The sweeps under a mesh of 3 CPU devices (5 draws, padded to 6)
+    give the flags and counts of the unsplit sweep (tests/test_torch_mesh.py
+    holds them on 8 devices)."""
+    from geconpy_torch.parallel import make_mesh
+
     _, port_model = rbc
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.solvability_check(port_model, {"alpha": [0.3]}, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.bk_condition_sweep(port_model, {"alpha": [0.3]}, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.prior_solvability_check(port_model, mesh=object())
+    mesh = make_mesh(devices=("cpu",) * 3)
+    draws = {"alpha": [0.25, 0.3, 0.35, 0.4, 0.45]}
+    a = port.solvability_check(port_model, draws, device="cpu")
+    b = port.solvability_check(port_model, draws, mesh=mesh)
+    assert torch.equal(a.success, b.success) and b.success.all()
+    a = port.bk_condition_sweep(port_model, draws, device="cpu")
+    b = port.bk_condition_sweep(port_model, draws, mesh=mesh)
+    assert torch.equal(a.n_unstable, b.n_unstable)
+    assert torch.equal(a.bk_satisfied, b.bk_satisfied)
+    est_model = _models("rbc_estimation")[1]
+    a = port.prior_solvability_check(est_model, n_samples=20, device="cpu")
+    b = port.prior_solvability_check(est_model, n_samples=20, mesh=mesh)
+    assert torch.equal(a.draws, b.draws) and torch.equal(a.success, b.success)

@@ -31,7 +31,6 @@ import pytest
 import torch
 
 import geconpy_torch
-from geconpy_torch.ops import cycle_reduction as port_cr
 from geconpy_torch.ops import linalg as port_linalg
 from geconpy_torch.ops import static_reduction as port_sr
 from geconpy_torch.ops.batched_cycle_reduction import cycle_reduction
@@ -40,8 +39,9 @@ from geconpy_tpu.ops import linalg as ref_linalg
 from geconpy_tpu.ops import static_reduction as ref_sr
 from geconpy_tpu.ops.pallas_cycle_reduction import pallas_cycle_reduction
 
-# the module, not the function of the same name that geconpy_tpu.ops exports
+# the modules, not the functions of the same names that both ops packages export
 ref_cr = importlib.import_module("geconpy_tpu.ops.cycle_reduction")
+port_cr = importlib.import_module("geconpy_torch.ops.cycle_reduction")
 
 N_ITER = 14
 SW_EST = ["crhoa", "sigma_ea", "crr", "crpi", "chabb"]

@@ -122,5 +122,14 @@ def test_sweep_by_distribution(spaces):
     assert abs(float(impact) - 0.01) < 5 * se
     np.testing.assert_allclose(a.fevd.values.sum(dim=1).numpy(), 1.0,
                                rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.prior_predictive_sweep(port_ss, mesh=object())
+    from geconpy_torch.parallel import make_mesh
+
+    # under a mesh of 8 CPU devices: the same draws and solvable set; the
+    # bands at rel 1e-12 (a chunk's elementwise exp or pow may round in
+    # its last bit unlike the whole batch's, tests/test_torch_mesh.py)
+    c = port.prior_predictive_sweep(port_ss, seed=3,
+                                    mesh=make_mesh(devices=("cpu",) * 8), **kw)
+    assert c.success_rate == a.success_rate
+    np.testing.assert_allclose(c.irf.quantiles.numpy(),
+                               a.irf.quantiles.numpy(), rtol=1e-12,
+                               atol=1e-15)

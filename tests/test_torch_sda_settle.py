@@ -309,7 +309,7 @@ def test_sda_and_auto_unbiased_tiny_innovations():
     for _ in range(4000):
         P_ref = port._dare_step(P_ref, Tt, RQRt, Zt, Ht)
     ll_ref = float(port.stationary_loglik_from_P(
-        *_t(y, T, RQR, Z, H, d), P_ref))
+        *_t(y, T, RQR, Z, H, d), None, P_ref))
     for method in ("sda", "auto"):
         ll = float(port.stationary_kalman_loglik(
             *_t(y, T, R, Q, Z, H), d=torch.as_tensor(d), settle_method=method))
