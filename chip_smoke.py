@@ -94,7 +94,7 @@ Phases, one line each (plus one line per kernel in phase 3):
    finite, within rel 5e-4 of the ``policy="pallas"`` sweep on the draws
    both accept; one timed call after a warm-up.  8d ``fit(policy="xla")``
    on 8a's configuration: 16 chains, ``init="prior"``, ``max_depth=4``,
-   seed 0, 5 warmup and 5 sampling transitions (``SEQ_FIT``, cut from 10 +
+   seed 0, 3 warmup and 3 sampling transitions (``SEQ_FIT``, cut from 10 +
    10; printed on the line); every chain finite, no kernel launched;
    seconds and value+grad calls.  Each line ends with its seconds;
 9. ``open_rbc``, whose steady state is numeric (10 unknowns), through the
@@ -313,6 +313,30 @@ Phases, one line each (plus one line per kernel in phase 3):
    at one fresh directory: the first builds the kernels there, the second
    loads them (no build, ``nvcc.log`` unchanged), both launch K4 once on
    a synthetic pencil, bitwise equal; both processes' seconds.
+16. the large-state kernels (``large_state_phase``;
+   ``tools/large_state_probe.py`` runs it alone; budget 90 s, printed
+   first): SW-2007 with the published first-difference observables
+   ``dy``, ``dc``, ``dinve``, ``dw``, with ``r``, ``lab`` and year-on-year
+   inflation ``pinf4 = pinf[] + pinf[-1] + pinf[-2] + pinf[-3]``, whose
+   lags make the filter state 4 x 26 = 104 (22 estimated parameters, 200
+   periods of ``data_from_prior``, CUDA seed 0, draws that draw + 0.05
+   N(0, 1) in float32).  16a ``build_batched_loglik(policy="pallas")`` at
+   batch 4096 under each settle: ``"pallas"`` K1 + K2 + K3, ``"fused"``
+   K1 + K5, ``"xla"`` K1 + K3, every K2, K3 and K5 launch the large-state
+   variant; >= 99% finite, the first 512 draws within rel 5e-4 of the
+   float64 CPU path; evals/s.  16b ``build_batched_logpost_and_grad(
+   settle="pallas")`` at batch 512 with a fixed measurement-error std of
+   0.002 on each observable: K4 and the large-state K6, >= 99% finite,
+   every gradient finite; of 64 draws the card rejects those the CPU
+   rejects, and the rest are within 5e-4 / 1e-3 of the float64 CPU path;
+   us/draw; then once without measurement error, where the
+   reference's fixed DARE schedule leaves draws unsettled: the share it
+   accepts.  16c each large-state kernel against its plain version
+   (``hold_to_plain``, rel 1e-9, flags equal) in float64 at batch 256:
+   K2, K5 and K6 at n = 66, 104 and the first n above each one's
+   small-state plan, K3 at n = 65, 104, 130 and at n = 40, k = 33 (k = 7
+   otherwise; n = 104 on the sweep's and value+grad's own inputs, the
+   rest synthetic from a seed), each with its time, bound and share.
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -320,7 +344,9 @@ line is ``{"ok": true, "device": {...}}``; the line before the ``nvidia-smi``
 line is one JSON object with each kernel's launches (on the path that runs
 it: K1 and K5 the sweep's plus 15b's SMC under a mesh, K2 and K3 the
 ``"pallas"`` sweep's, K6 the ``"pallas"`` value+grad's, K4 the NUTS
-fit's), error, times and bound.
+fit's), error, times and bound; the large-state variants of K2, K3, K5
+and K6 are rows of their own (``*_large``: launches on 16a and 16b, error,
+times and bound at 16c's n = 104).
 """
 
 from __future__ import annotations
@@ -379,8 +405,10 @@ NUTS_FULL = {"num_warmup": 384, "num_samples": 256, "adam_steps": 500}
 NUTS_CUT = {"num_warmup": 2, "num_samples": 4, "adam_steps": 20}
 # phase 8d: fit(policy="xla") on the entry() twin.  10 + 10 transitions
 # took 109 s on the card (270 value+grad calls of ~0.4 s, launch-bound), so
-# the transitions are cut to 5 + 5 to keep phase 8 near 120 s
-SEQ_FIT = dict(num_chains=16, num_warmup=5, num_samples=5, max_depth=4,
+# the transitions were cut to 5 + 5 (120 calls, 48.5 s on a slow host in a
+# run of 1,250 s for the script) and then to 3 + 3, to keep the script
+# under its 1,200 s limit with phase 16
+SEQ_FIT = dict(num_chains=16, num_warmup=3, num_samples=3, max_depth=4,
                init="prior", seed=0, policy="xla")
 SEQ_FIT_FULL = {"num_warmup": 10, "num_samples": 10}
 SW_TRUTH = {
@@ -426,11 +454,11 @@ SO_BATCHES, SO_FULL_BATCH, SO_CHECK = (128, 512), 128, 8
 SO_PROFILE_PERIODS = 2
 SO_SIM, SO_GIRF_DRAWS = (4096, 200), 256
 SO_PF = {"rbc_estimation": (8192, 3), "nk_sw": (4096, 8)}
-SO_FIT = dict(num_chains=16, num_warmup=3, num_samples=1, max_depth=2,
+SO_FIT = dict(num_chains=16, num_warmup=2, num_samples=1, max_depth=2,
               init="prior", seed=0, order=2)
 SO_FIT_FULL = {"num_warmup": 500, "num_samples": 500, "max_depth": 8}
-SO_PMMH = dict(num_chains=4, n_particles=4096, num_warmup=25,
-               num_samples=25, seed=0)
+SO_PMMH = dict(num_chains=4, n_particles=4096, num_warmup=15,
+               num_samples=15, seed=0)
 SO_PMMH_FULL = {"num_warmup": 1000, "num_samples": 2000}
 GIRF_KW = dict(periods=40, n_mc=128, max_draws=100)
 
@@ -440,7 +468,7 @@ GIRF_KW = dict(periods=40, n_mc=128, max_draws=100)
 # calibration); nk_sw's perfect-foresight runs (a temporary preference
 # shock, a permanent change, a 20-period path of beta) and its zero lower
 # bound (a preference shock that keeps the floor binding for 4 periods)
-EST_CUT = {"adam_steps": 10, "newton_steps": 2}
+EST_CUT = {"adam_steps": 5, "newton_steps": 2}
 EST_FULL = {"adam_steps": 400, "newton_steps": 6}
 IRF_MOVED = {"crhoa": 0.9, "chabb": 0.6, "crpi": 1.8}
 PF_PERIODS, OCC_PERIODS = 200, 40
@@ -493,6 +521,30 @@ def zlb_regimes(src: str) -> tuple[str, str]:
     return slack, slack.replace("        R[] = Rnot[];\n",
                                 "        R[] = 1;\n")
 
+
+# phase 16: SW-2007 with the published first-difference observables, the
+# nominal rate, hours and year-on-year inflation, whose lags make the filter
+# state 4 x 26 = 104 (above every small-state kernel's plan); 16c's shapes
+# (k = 7 unless given) at batch LARGE_BATCH in float64, each kernel timed
+# LARGE_REPS times; the phase's budget in seconds
+SW_YOY_OBS = ["dy", "dc", "dinve", "dw", "pinf4", "r", "lab"]
+SW_YOY_EQS = {"dy": "y[] - y[-1]", "dc": "c[] - c[-1]",
+              "dinve": "inve[] - inve[-1]", "dw": "w[] - w[-1]",
+              "pinf4": "pinf[] + pinf[-1] + pinf[-2] + pinf[-3]"}
+# 16b's fixed measurement-error std on each observable (about a tenth of
+# each series' standard deviation in the phase's data): without it the
+# reference's fixed DARE schedule (8 Hewer polishes) leaves this system's
+# residual at ~1e-5 relative, over the sqrt(eps) gate, so every draw is
+# rejected, as the reference rejects it
+LARGE_ME_STD = 0.002
+LARGE_SETTLE_N = (66, 104)
+LARGE_TAIL_NK = ((65, 7), (104, 7), (130, 7), (40, 33))
+LARGE_BATCH, LARGE_REPS, LARGE_BUDGET_S = 256, 3, 90
+# the large-state variants in the kernels' JSON line: wrapper name -> entry
+LARGE_KERNELS = {"settle_parts": "settle_parts_large",
+                 "filter_tail": "filter_tail_large",
+                 "settle_filter_loglik": "settle_filter_loglik_large",
+                 "dare_settle": "dare_settle_large"}
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -688,11 +740,19 @@ def bound(name, args, n_iter, lyap_iters) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def trace_events(prof):
+    """A profiler run's events as recorded, one per op or kernel.  Reading
+    them costs a few ms a thousand; ``prof.key_averages()``, which builds
+    the event tree first, cost ~1 s a thousand kernel launches on the
+    card's host, most of a profiled call's time."""
+    return prof.profiler.kineto_results.events()
+
+
 def host_reads(prof) -> int:
     """Device-to-host reads of scalars (``aten::_local_scalar_dense``: a
     ``bool()`` or ``float()`` of a tensor on the card) in a profiler run."""
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.key == "aten::_local_scalar_dense")
+    return sum(1 for ev in trace_events(prof)
+               if ev.name() == "aten::_local_scalar_dense")
 
 
 def profile_call(fn) -> tuple[float, float, int, int]:
@@ -913,11 +973,12 @@ def sequential_phase(card, reset_counts, read_counts, sw_model, constant,
     print(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
-def hold_to_plain(name: str, args, accepted=None) -> str:
+def hold_to_plain(name: str, args, accepted=None, phase: str = "9") -> str:
     """One kernel against its plain version on the same float64 inputs
-    (phase 9): every output within rel 1e-9 on the draws both keep, and
-    equal flags (K1 and K4 success, K6 settled, the others' finiteness on
-    the ``accepted`` draws); raises otherwise.  Returns the line's part."""
+    (phases 9 and 16c): every output within rel 1e-9 on the draws both
+    keep, and equal flags (K1 and K4 success, K6 settled, the others'
+    finiteness on the ``accepted`` draws); raises otherwise.  Returns the
+    line's part."""
     import torch
 
     from geconpy_torch.ops.kalman import dare_residual_settled
@@ -946,7 +1007,7 @@ def hold_to_plain(name: str, args, accepted=None) -> str:
     rel = max(compare(got[k_][keep], ref[k_][keep])[0] for k_ in got)
     label = KERNELS[name][0]
     if not agree or rel > 1e-9:
-        raise AssertionError(f"phase 9 {label} {name} against its plain "
+        raise AssertionError(f"phase {phase} {label} {name} against its plain "
                              f"version: flags agree {agree}, rel {rel:.3e}")
     return f"{label} rel {rel:.2e} ({what}, flags equal)"
 
@@ -1129,7 +1190,8 @@ def open_rbc_phase(card, reset_counts, read_counts) -> None:
     frac = float(torch.isfinite(vals).float().mean())
     v_ref, g_ref = ss_vg_cpu.build_batched_logpost_and_grad(
         data, settle="pallas")(Ub[:VG_CHECK].double().cpu())
-    v_got, g_got = vals[:VG_CHECK].double().cpu(), grads[:VG_CHECK].double().cpu()
+    v_got = vals[:VG_CHECK].double().cpu()
+    g_got = grads[:VG_CHECK].double().cpu()
     both = torch.isfinite(v_ref) & torch.isfinite(v_got)
     rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
     rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
@@ -1440,20 +1502,24 @@ def solved_model_phase(card, reset_counts, read_counts, sw_model, constant,
     call_s = time.perf_counter() - t0
     # the batched float64 QRs and SVDs loop over the batch inside cuSOLVER:
     # a call at batch 512 is ~643,000 launches, whose trace alone took the
-    # profiler minutes, so the call is profiled at two small batches
-    profiles = {b: profile_call(lambda b=b: sweeps["gensys"](sweep_batch[:b]))
-                for b in (8, 16)}
-    (w8, d8, n8, r8), (w16, d16, n16, r16) = profiles[8], profiles[16]
+    # profiler minutes, so the call is profiled at two small batches (not
+    # 4 and 8: cuSOLVER's launches are not linear in the batch there, 106
+    # a draw against 1,269 from 8 to 16)
+    lo, hi = 8, 16
+    (w_lo, d_lo, n_lo, r_lo), (w_hi, d_hi, n_hi, r_hi) = (
+        profile_call(lambda b=b: sweeps["gensys"](sweep_batch[:b]))
+        for b in (lo, hi))
     print(f"phase 10c sweep solver=gensys policy=xla settle=pallas (SW-2007, "
           f"batch {sweep_batch.shape[0]}, float32, filter over all "
           f"{sw_model.n_variables} variables): launches {launches}; finite "
           f"{frac:.4f}; vs the cycle-reduction policy=xla sweep rel "
           f"{rel:.3e} on {int(both.sum())}/{sweep_batch.shape[0]}; one call "
           f"{call_s * 1e3:.1f} ms, {sweep_batch.shape[0] / call_s:.1f} "
-          f"evals/s; one call profiled at batch 8 / 16: wall {w8:.1f} / "
-          f"{w16:.1f} ms, device {d8:.1f} / {d16:.1f} ms, {n8} / {n16} "
-          f"kernel launches ({(n16 - n8) / 8:.1f} a draw), {r8} / {r16} host "
-          f"reads; step {time.perf_counter() - t_step:.1f} s [{card}]",
+          f"evals/s; one call profiled at batch {lo} / {hi}: wall "
+          f"{w_lo:.1f} / {w_hi:.1f} ms, device {d_lo:.1f} / {d_hi:.1f} ms, "
+          f"{n_lo} / {n_hi} kernel launches ({(n_hi - n_lo) / (hi - lo):.1f} "
+          f"a draw), {r_lo} / {r_hi} host reads; step "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]",
           flush=True)
 
     # ---- 10d: the entry() twin with the device gensys
@@ -3001,12 +3067,13 @@ def estimators_phase(card, reset_counts, read_counts, sw_ss, sw_ss_cpu,
 
 
 # phase 15: fit_with_checkpointing on 8a's configuration (8 chains, the
-# warmup once, then two segments of CKPT_SEGMENT draws at max_depth 4:
+# warmup once, then two segments of CKPT_SEGMENT draws at max_depth 4 (2
+# each until the script neared its time limit):
 # 8d's value+grad calls take ~280 ms, a transition ~12 calls); the CPU
 # replays the first segment on the card's random numbers; 15d's child
 # processes and the K4 pencil they launch on
 CKPT_FIT = dict(num_chains=8, num_warmup=3, max_depth=4, seed=0)
-CKPT_SEGMENT = 2
+CKPT_SEGMENT = 1
 CACHE_PENCIL = (20, 4, 64)          # n, m, batch of 15d's K4 launch
 PHASE15_BUDGET_S = 90.0
 
@@ -3339,8 +3406,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
     draws per block and shared memory are the library's own answer for the
     path's launch: four warps a draw for K1, K2, K4, K5 and K6, one for K3.
     Instances that the path does not launch (K1/K4 for n > 32, K3 for other
-    n and k) get their registers and spills only.  Spills of functions that
-    are not kernels are listed last."""
+    n and k, the large-state kernels) get their registers and spills only.
+    Spills of functions that are not kernels are listed last."""
     import re
 
     import torch
@@ -3361,15 +3428,20 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
             # lane and observables held
             switches = re.findall(r"Lb([01])E", template)
             ints = [int(v) for v in re.findall(r"Li(\d+)E", template)]
-            tag = {"cr_kernel": "+sel", "settle_kernel": "+tail"}.get(
+            tag = {"cr_kernel": "+sel", "settle_kernel": "+tail",
+                   "settle_large_kernel": "+tail"}.get(
                 name, "") if switches[:1] == ["1"] else ""
             extra = ", n > 32" if switches[1:] == ["0"] else ""
             if name == "filter_tail_kernel":
                 extra = (f", {ints[0]} row{'s' if ints[0] > 1 else ''} a "
                          f"lane, k <= {ints[1]}")
+            if name == "filter_tail_large_kernel":
+                extra = ", matrices in " + (
+                    "shared" if switches[:1] == ["1"] else "device") \
+                    + " memory"
             current = f"{name}{tag}<{io}{extra}>"
-            if extra and current != f"filter_tail_kernel<{io}, 1 row a " \
-                    f"lane, k <= 8>":
+            if (extra and current != f"filter_tail_kernel<{io}, 1 row a "
+                    f"lane, k <= 8>") or name.endswith("_large_kernel"):
                 off_path.add(current)
             labels[found.group(1)] = current
         owner = re.search(r"Function properties for (\S+)", line)
@@ -3466,6 +3538,8 @@ def main() -> int:
     def reset_counts():
         for fn in counted.values():
             fn.launches = 0
+            if hasattr(fn, "large_launches"):
+                fn.large_launches = 0
 
     def read_counts() -> dict:
         return {name: fn.launches for name, fn in counted.items()}
@@ -4010,20 +4084,307 @@ def main() -> int:
                                  (peaks["pallas"], bases["pallas"])).items():
         path_launches[name] += n
 
+    # ---- phase 16: the large-state kernels at a filter state of 104
+    large_launches, large_report = large_state_phase(
+        card, reset_counts, read_counts, model, constant)
+
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
-        entry = report[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": path_launches[name], "max_abs_err": entry["abs_f64"],
-            "ms": entry["ms"], "plain_ms": entry["plain_ms"],
-            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
-            "library_ms": None})
+        rows = [(name, report[name], path_launches[name])]
+        if name in LARGE_KERNELS:
+            rows.append((LARGE_KERNELS[name], large_report[name],
+                         large_launches[name]))
+        for row_name, entry, launches in rows:
+            kernels.append({
+                "name": row_name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches,
+                "max_abs_err": entry["abs_f64"], "ms": entry["ms"],
+                "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+                "bound_by": entry["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def large_state_phase(card, reset_counts, read_counts, sw_model,
+                      constant) -> tuple[dict, dict]:
+    """Phase 16: the four kernels with a large-state variant (K2, K3, K5,
+    K6) at the filter state of 104 of SW-2007 with year-on-year inflation
+    (16a the sweep with each settle, 16b the value+grad), and each of them
+    against its plain version at 16c's shapes (see the module docstring).
+    Returns ({wrapper name: large-state launches on 16a/16b}, {wrapper
+    name: its JSON entry's numbers at 16c's n = 104}); raises on a failure.
+    """
+    import torch
+
+    from geconpy_torch.ops.batched_dare import dare_settle
+    from geconpy_torch.ops.batched_filter import filter_tail
+    from geconpy_torch.ops.batched_settle import (LYAP_ITERS,
+                                                  settle_filter_loglik,
+                                                  settle_parts)
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from settle_variants import stable_system
+    from tail_dare_variants import dare_inputs, tail_inputs
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    print(f"phase 16 budget: {LARGE_BUDGET_S} s (SW-2007 with year-on-year "
+          f"inflation, filter state 104)", flush=True)
+    wrappers = {"settle_parts": settle_parts, "filter_tail": filter_tail,
+                "settle_filter_loglik": settle_filter_loglik,
+                "dare_settle": dare_settle}
+
+    def large_counts() -> dict:
+        return {k_: fn.large_launches for k_, fn in wrappers.items()}
+
+    kw = dict(observed_states=SW_YOY_OBS, observation_equations=SW_YOY_EQS,
+              constant_params=constant, kalman_settle=N_SETTLE)
+    ss = DSGEStateSpace(sw_model, device="cuda").configure(
+        filter_type="steady_state", **kw)
+    ss_cpu = DSGEStateSpace(sw_model, device="cpu").configure(
+        filter_type="steady_state", **kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+    data32 = data.astype("float32")
+    u0 = ss.unconstrain(draw).to(torch.float32)
+    if u0.shape[0] != len(SW_ESTIMATED):
+        raise AssertionError(f"16: {u0.shape[0]} estimated parameters")
+    batch = u0[None, :] + 0.05 * torch.randn(
+        (BATCH, u0.shape[0]), device=dev, dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    ref = ss_cpu.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                      policy="pallas", settle="pallas")(
+        batch[:N_CHECK].double().cpu())
+    cpu_s = time.perf_counter() - t0
+
+    # ---- 16a: the sweep with each settle, K1 and the large-state kernels
+    path_large, recs = {}, {}
+    paths = {"pallas": ("cycle_reduction_policy", "settle_parts",
+                        "filter_tail"),
+             "fused": ("cycle_reduction_policy", "settle_filter_loglik"),
+             "xla": ("cycle_reduction_policy", "filter_tail")}
+    for settle, path in paths.items():
+        sweep = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                        policy="pallas", settle=settle)
+        reset_counts()
+        torch.cuda.synchronize()
+        out = sweep(batch)
+        torch.cuda.synchronize()
+        launches, large = read_counts(), large_counts()
+        if any(launches[k_] < 1 for k_ in path) or any(
+                launches[k_] for k_ in launches if k_ not in path) or any(
+                large[k_] != launches[k_] for k_ in path if k_ in large):
+            raise AssertionError(f"16a settle={settle}: expected {path}, the "
+                                 f"large-state variants, got {launches}, "
+                                 f"large {large}")
+        for k_ in path:
+            if k_ in large:
+                path_large[k_] = path_large.get(k_, 0) + large[k_]
+        if out.shape != (BATCH,) or out.dtype != torch.float32:
+            raise AssertionError(f"16a output {tuple(out.shape)} {out.dtype}")
+        frac = float(torch.isfinite(out).float().mean())
+        got = out[:N_CHECK].double().cpu()
+        both = torch.isfinite(ref) & torch.isfinite(got)
+        if frac < 0.99 or float(both.double().mean()) < 0.99:
+            raise AssertionError(f"16a settle={settle}: {frac:.4f} finite, "
+                                 f"{int(both.sum())}/{N_CHECK} in both")
+        rel = float(((got - ref).abs() / (1.0 + ref.abs()))[both].max())
+        if rel >= 5e-4:
+            raise AssertionError(f"16a settle={settle} off the float64 CPU "
+                                 f"path by rel {rel:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            sweep(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2
+        rec: dict = {}
+        sweep(batch[:LARGE_BATCH].double(), record=rec)
+        recs.update({k_: v for k_, v in rec.items() if k_ in wrappers
+                     or k_ == "accepted"} if settle != "xla" else {})
+        names = ", ".join(
+            f"{KERNELS[k_][0]} {launches[k_]}"
+            + (" (large-state variant)" if k_ in large else "")
+            for k_ in path)
+        print(f"phase 16a sweep settle={settle}: launches {names}; finite "
+              f"{frac:.4f}; rel vs float64 CPU path {rel:.3e} on "
+              f"{int(both.sum())}/{N_CHECK} (CPU {cpu_s:.1f} s); "
+              f"{BATCH / wall:.1f} evals/s (2 calls of batch {BATCH}, "
+              f"{wall * 1e3:.1f} ms a call) [{card}]", flush=True)
+
+    # ---- 16b: value+grad on the stationary filter, K4 and the large K6,
+    # with measurement error (LARGE_ME_STD), then without
+    me = {o: LARGE_ME_STD for o in SW_YOY_OBS}
+    ss_vg = DSGEStateSpace(sw_model, device="cuda").configure(
+        filter_type="stationary", measurement_error=me, **kw)
+    ss_vg_cpu = DSGEStateSpace(sw_model, device="cpu").configure(
+        filter_type="stationary", measurement_error=me, **kw)
+    vg_batch = batch[:VG_BATCH]
+    vag = ss_vg.build_batched_logpost_and_grad(data, settle="pallas")
+    reset_counts()
+    torch.cuda.synchronize()
+    vals, grads = vag(vg_batch)
+    torch.cuda.synchronize()
+    launches, large = read_counts(), large_counts()
+    if launches["cycle_reduction"] < 1 or launches["dare_settle"] < 1 \
+            or large["dare_settle"] != launches["dare_settle"]:
+        raise AssertionError(f"16b: expected K4 and the large K6, got "
+                             f"{launches}, large {large}")
+    path_large["dare_settle"] = large["dare_settle"]
+    frac = float(torch.isfinite(vals).float().mean())
+    if vals.shape != (VG_BATCH,) or frac < 0.99 \
+            or not bool(torch.isfinite(grads).all()):
+        raise AssertionError(f"16b: {tuple(vals.shape)}, {frac:.4f} finite, "
+                             f"gradients finite "
+                             f"{bool(torch.isfinite(grads).all())}")
+    t0 = time.perf_counter()
+    v_ref, g_ref = ss_vg_cpu.build_batched_logpost_and_grad(
+        data, settle="pallas")(vg_batch[:VG_CHECK].double().cpu())
+    cpu_s = time.perf_counter() - t0
+    v_got = vals[:VG_CHECK].double().cpu()
+    g_got = grads[:VG_CHECK].double().cpu()
+    both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+    rejected = (int((~torch.isfinite(v_got)).sum()),
+                int((~torch.isfinite(v_ref)).sum()))
+    # the card rejects exactly the draws the CPU rejects
+    if not torch.equal(torch.isfinite(v_ref), torch.isfinite(v_got)):
+        raise AssertionError(f"16b: rejected on the card / the CPU "
+                             f"{rejected}, not the same draws")
+    rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
+    rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                   / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+    if rel_v > 5e-4 or rel_g > 1e-3:
+        raise AssertionError(f"16b off the float64 CPU path: value rel "
+                             f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        vag(vg_batch)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / (2 * VG_BATCH) * 1e6
+    vg_rec: dict = {}
+    ss_vg.build_batched_logpost(data, settle="pallas")(
+        vg_batch[:LARGE_BATCH].double(), record=vg_rec)
+    print(f"phase 16b value+grad settle=pallas, measurement error std "
+          f"{LARGE_ME_STD} on each observable: launches K4 "
+          f"{launches['cycle_reduction']}, K6 {launches['dare_settle']} "
+          f"(large-state variant); finite {frac:.4f}, every "
+          f"gradient finite; vs float64 CPU path on {int(both.sum())}/"
+          f"{VG_CHECK} (the same {rejected[0]} rejected on both): value rel "
+          f"{rel_v:.3e}, gradient rel {rel_g:.3e} (CPU {cpu_s:.1f} s); "
+          f"{us:.2f} us/draw (2 calls of batch {VG_BATCH}) [{card}]",
+          flush=True)
+    ss_h0 = DSGEStateSpace(sw_model, device="cuda").configure(
+        filter_type="stationary", **kw)
+    reset_counts()
+    vals0, grads0 = ss_h0.build_batched_logpost_and_grad(
+        data, settle="pallas")(vg_batch)
+    torch.cuda.synchronize()
+    large = large_counts()
+    path_large["dare_settle"] += large["dare_settle"]
+    if large["dare_settle"] < 1 or not bool(torch.isfinite(grads0).all()):
+        raise AssertionError(f"16b without measurement error: large K6 "
+                             f"{large['dare_settle']}, gradients finite "
+                             f"{bool(torch.isfinite(grads0).all())}")
+    print(f"phase 16b the same without measurement error (H = 0): K6 "
+          f"{large['dare_settle']} (large-state variant); settled and "
+          f"accepted {int(torch.isfinite(vals0).sum())}/{VG_BATCH} (the "
+          f"reference's fixed schedule of 8 Hewer polishes; the rest -inf, "
+          f"as the reference gives them) [{card}]", flush=True)
+
+    # ---- 16c: each large-state kernel against its plain version, float64
+    lib = _cuda.library()
+    kernel, plain, _outputs = kernel_checks()
+    every = torch.ones(LARGE_BATCH, dtype=torch.bool, device=dev)
+
+    def first_large(fits) -> int:
+        n = 1
+        while fits(n):
+            n += 1
+        return n
+
+    def f64(arrays):
+        return tuple(torch.as_tensor(a, device=dev, dtype=torch.float64)
+                     .contiguous() for a in arrays)
+
+    cases = []   # (wrapper name, shape label, args, accepted)
+    fits = {"settle_parts": lambda m: lib.gcp_settle_fits(1, m, 7, N_SETTLE),
+            "settle_filter_loglik": lambda m: lib.gcp_settle_fits(
+                1, m, 7, PERIODS),
+            "dare_settle": lambda m: lib.gcp_dare_fits(m, 7)}
+    edge = {name: first_large(fn) for name, fn in fits.items()}
+    for name in ("settle_parts", "settle_filter_loglik", "dare_settle"):
+        for n in sorted({*LARGE_SETTLE_N, edge[name]}):
+            label = f"n = {n}, k = 7" + (" (the first n above the small-state "
+                                         "plan)" if n == edge[name] else "")
+            if n == 104:
+                args = (vg_rec[name] if name == "dare_settle"
+                        else recs[name])
+                cases.append((name, label + ", SW-2007's own inputs", args,
+                              recs["accepted"]))
+                continue
+            if name == "dare_settle":
+                args = f64(dare_inputs(n, 7, LARGE_BATCH, seed=n))
+            else:
+                args = stable_system(n, 7, LARGE_BATCH, N_SETTLE if name
+                                     == "settle_parts" else PERIODS, n, dev,
+                                     torch.float64)
+            cases.append((name, label + ", synthetic", args, every))
+    for n, k in LARGE_TAIL_NK:
+        label = f"n = {n}, k = {k}"
+        if (n, k) == (104, 7):
+            cases.append(("filter_tail", label + ", SW-2007's own inputs",
+                          recs["filter_tail"], recs["accepted"]))
+        else:
+            arrays = tail_inputs(n, k, LARGE_BATCH, PERIODS - N_SETTLE,
+                                 seed=n + k)
+            cases.append(("filter_tail", label + ", synthetic", f64(arrays),
+                          every))
+    report = {}
+    for name, label, args, accepted in cases:
+        n, k = args[1].shape[-1], args[3].shape[-2]
+        large = (n > 64 or k > 32) if name == "filter_tail" \
+            else not fits[name](n)
+        variant = "large-state" if large else "small-state"
+        before = wrappers[name].large_launches
+        part = hold_to_plain(name, args, accepted, phase="16c")
+        if wrappers[name].large_launches != before + large:
+            raise AssertionError(f"16c {name} at {label}: expected the "
+                                 f"{variant} kernel")
+        ms = cuda_time_ms(lambda: kernel[name](*args), LARGE_REPS)
+        plain_ms = cuda_time_ms(lambda: plain[name](*args), 1)
+        bound_ms, bound_by = bound(name, args, CR_ITERS, LYAP_ITERS)
+        if label.startswith("n = 104, k = 7"):
+            got, want = kernel[name](*args), plain[name](*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            keep = accepted if name != "dare_settle" else every
+            abs_err = max(float((g[keep] - w[keep])[
+                torch.isfinite(g[keep]) & torch.isfinite(w[keep])].abs().max())
+                for g, w in zip(got, want))
+            report[name] = {"abs_f64": abs_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by}
+        print(f"phase 16c {part} at {label}, batch {args[1].shape[0]}, "
+              f"{variant} kernel: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / ms:.4f} [{card}]", flush=True)
+    work = {"K2": lib.gcp_settle_large_work_bytes(0, 0, 104, 7, N_SETTLE,
+                                                   BATCH),
+            "K5": lib.gcp_settle_large_work_bytes(0, 1, 104, 7, PERIODS,
+                                                   BATCH),
+            "K6": lib.gcp_dare_large_work_bytes(1, 104, 7, VG_BATCH)}
+    print(f"phase 16 large-state workspaces at n = 104 (16a's batch "
+          f"{BATCH}, 16b's {VG_BATCH}): {work} B", flush=True)
+    print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f} (budget "
+          f"{LARGE_BUDGET_S})", flush=True)
+    return path_large, report
 
 
 def nuts_phase(ss, ss_cpu, card, reset_counts, read_counts, num_warmup: int,
@@ -4280,14 +4641,15 @@ def sweep_breakdown(ss, data, batch, card, sweeps, reps: int = 5):
 
 
 def device_time_us(prof) -> tuple[float, int]:
-    """(device time in us, kernel launches) of a ``torch.profiler`` run."""
+    """(device time in us, kernel launches) of a ``torch.profiler`` run:
+    the durations and the number of its device events (kernels, copies
+    and fills)."""
     dev_us, n_kernels = 0.0, 0
-    for ev in prof.key_averages():
-        t_us = getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0))
-        if t_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dev_us += t_us
-            n_kernels += ev.count
+    for ev in trace_events(prof):
+        if str(ev.device_type()).endswith("CUDA"):
+            dev_us += (ev.duration_ns() / 1e3 if hasattr(ev, "duration_ns")
+                       else ev.duration_us())
+            n_kernels += 1
     return dev_us, n_kernels
 
 

@@ -1,5 +1,6 @@
 // Batched DARE settle (predictive covariance fixed point): four warps per
-// draw, one draw a block, the products on the FP64 tensor cores.
+// draw, one draw a block, the products on the FP64 tensor cores; the
+// draw's matrices in shared memory or, for larger states, in device memory.
 //
 // Replaces the TPU kernel _dare_kernel (geconpy_tpu/ops/pallas_dare.py:37,
 // reached through pallas_dare_settle).  For each draw, a fixed schedule:
@@ -56,6 +57,17 @@
 //  * A_cl = T - Kp Z and RQR + (Kp H) Kp' are epilogues of their products;
 //    sym is a pass over the pairs (i, j), (j, i), in place: each pair is
 //    summed once, so both entries get the reference's value.
+//
+// The large-state kernel.  Five n x n buffers of ceil32(n) rows exceed the
+// 232,448 B a block may have from n = 65 on (k = 7), and the reference's
+// kernel takes any n.  dare_large_kernel runs the same schedule on the same
+// layout (dare_draw, shared by both kernels) with each block's buffers in a
+// float64 workspace in device memory; the products read their operands
+// through L1 and L2.  Its grid is persistent (the resident blocks, each
+// striding over the batch), so the workspace is one layout per resident
+// block whatever the batch: at 128 registers a thread, four an SM, 528 x
+// 568 KB at n = 104 on an H100.  The wrapper picks the
+// small-state kernel wherever one draw's layout fits (gcp_dare_fits).
 #include "small_linalg.cuh"
 
 
@@ -112,25 +124,25 @@ __device__ __forceinline__ void symmetrise(double* P, int n, int ld,
   }
 }
 
+// One draw's whole schedule, its buffers at sm: shared memory in the
+// small-state kernel, device memory in the large-state one (the same
+// layout).  Every thread of the block takes part; the caller synchronises
+// the block before sm is reused.
 template <typename S>
-__global__ void __launch_bounds__(kDareThreads, kDareMinBlocks)
-    dare_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
-                const S* __restrict__ gZ, const S* __restrict__ gH,
-                S* __restrict__ gP, int n, int k, int lyap_iters,
-                int hewer_iters, int inner_iters) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const DareLayout L(n, k);
+__device__ __forceinline__ void dare_draw(
+    const S* __restrict__ gT, const S* __restrict__ gRQR,
+    const S* __restrict__ gZ, const S* __restrict__ gH, S* __restrict__ gP,
+    const DareLayout& L, double* sm, size_t b, int n, int k, int lyap_iters,
+    int hewer_iters, int inner_iters) {
   // the warp's number through a shuffle, so that the compiler knows it to
   // be the same in all lanes (no reconvergence code around the mma)
   const WarpCtx w{__shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0),
                   kDareWarps, (int)(threadIdx.x & 31)};
   const WarpCtx solo{0, 1, w.lane};
   const int tid = threadIdx.x;
-  const size_t b = blockIdx.x;
   const int nn = n * n, kn = k * n;
   const int ld = L.ld, ldk = L.ldk;
 
-  double* sm = reinterpret_cast<double*>(smem_raw);
   double* Tm = sm + L.T;
   double* P = sm + L.P;
   double* A = sm + L.A;
@@ -220,6 +232,40 @@ __global__ void __launch_bounds__(kDareThreads, kDareMinBlocks)
   }
 }
 
+// The small-state kernel: one draw a block, its buffers in shared memory.
+template <typename S>
+__global__ void __launch_bounds__(kDareThreads, kDareMinBlocks)
+    dare_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
+                const S* __restrict__ gZ, const S* __restrict__ gH,
+                S* __restrict__ gP, int n, int k, int lyap_iters,
+                int hewer_iters, int inner_iters) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const DareLayout L(n, k);
+  dare_draw(gT, gRQR, gZ, gH, gP, L, reinterpret_cast<double*>(smem_raw),
+            blockIdx.x, n, k, lyap_iters, hewer_iters, inner_iters);
+}
+
+// The large-state kernel: the same schedule on the same layout, each
+// block's buffers in a float64 workspace in device memory (gwork, L.total
+// doubles a block) instead of shared memory.  The grid is persistent: as
+// many blocks as are resident at once, each striding over the batch, so
+// the workspace scales with the card, not with the batch.
+template <typename S>
+__global__ void __launch_bounds__(kDareThreads, kDareMinBlocks)
+    dare_large_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
+                      const S* __restrict__ gZ, const S* __restrict__ gH,
+                      S* __restrict__ gP, double* gwork, int batch, int n,
+                      int k, int lyap_iters, int hewer_iters,
+                      int inner_iters) {
+  const DareLayout L(n, k);
+  double* sm = gwork + (size_t)blockIdx.x * L.total;
+  for (size_t b = blockIdx.x; b < (size_t)batch; b += gridDim.x) {
+    dare_draw(gT, gRQR, gZ, gH, gP, L, sm, b, n, k, lyap_iters, hewer_iters,
+              inner_iters);
+    __syncthreads();   // P is written out before the next draw's inputs
+  }
+}
+
 template <typename S>
 int launch_dare(const void* T, const void* RQR, const void* Z, const void* H,
                 void* P, int batch, int n, int k, int lyap_iters,
@@ -232,6 +278,44 @@ int launch_dare(const void* T, const void* RQR, const void* Z, const void* H,
       static_cast<const S*>(T), static_cast<const S*>(RQR),
       static_cast<const S*>(Z), static_cast<const S*>(H), static_cast<S*>(P),
       n, k, lyap_iters, hewer_iters, inner_iters);
+  return (int)cudaGetLastError();
+}
+
+// The large-state launch: as many blocks as the card holds at once, at
+// most one a draw, and the workspace they need.
+struct DareLargePlan {
+  int blocks;
+  size_t work_bytes;
+};
+
+template <typename S>
+DareLargePlan dare_large_plan(int n, int k, int batch) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dare_large_kernel<S>,
+                                                kDareThreads, 0);
+  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
+  DareLargePlan p;
+  p.blocks = batch < resident ? batch : resident;
+  p.work_bytes = (size_t)p.blocks * DareLayout(n, k).total * sizeof(double);
+  return p;
+}
+
+template <typename S>
+int launch_dare_large(const void* T, const void* RQR, const void* Z,
+                      const void* H, void* P, void* work, size_t work_bytes,
+                      int batch, int n, int k, int lyap_iters,
+                      int hewer_iters, int inner_iters, cudaStream_t stream) {
+  const DareLargePlan plan = dare_large_plan<S>(n, k, batch);
+  if (plan.blocks < 1) return 0;
+  if (work == nullptr || work_bytes < plan.work_bytes)
+    return (int)cudaErrorInvalidValue;
+  dare_large_kernel<S><<<plan.blocks, kDareThreads, 0, stream>>>(
+      static_cast<const S*>(T), static_cast<const S*>(RQR),
+      static_cast<const S*>(Z), static_cast<const S*>(H), static_cast<S*>(P),
+      static_cast<double*>(work), batch, n, k, lyap_iters, hewer_iters,
+      inner_iters);
   return (int)cudaGetLastError();
 }
 
@@ -259,5 +343,37 @@ size_t gcp_dare_smem_bytes(int n, int k) {
 
 // Threads per block (one draw).
 int gcp_dare_block_threads(void) { return gcp::kDareThreads; }
+
+// The large-state entry point: gcp_dare's arguments plus a float64
+// workspace of work_bytes >= gcp_dare_large_work_bytes(...) in device
+// memory (cudaErrorInvalidValue, without a launch, if it is smaller).
+int gcp_dare_large(int dtype, const void* T, const void* RQR, const void* Z,
+                   const void* H, void* P, void* work, size_t work_bytes,
+                   int batch, int n, int k, int lyap_iters, int hewer_iters,
+                   int inner_iters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gcp::launch_dare_large<float>(T, RQR, Z, H, P, work, work_bytes,
+                                         batch, n, k, lyap_iters, hewer_iters,
+                                         inner_iters, s);
+  return gcp::launch_dare_large<double>(T, RQR, Z, H, P, work, work_bytes,
+                                        batch, n, k, lyap_iters, hewer_iters,
+                                        inner_iters, s);
+}
+
+// Whether one draw's layout fits the device's shared memory (then gcp_dare
+// runs; else gcp_dare_large).
+int gcp_dare_fits(int n, int k) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return gcp_dare_smem_bytes(n, k) <= (size_t)limit;
+}
+
+// The workspace the large-state launch needs for this batch.
+size_t gcp_dare_large_work_bytes(int dtype, int n, int k, int batch) {
+  return dtype == 0 ? gcp::dare_large_plan<float>(n, k, batch).work_bytes
+                    : gcp::dare_large_plan<double>(n, k, batch).work_bytes;
+}
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Batched Kalman settle phase: four warps per draw, several draws per block,
-// the matrix products on the FP64 tensor cores.
+// the matrix products on the FP64 tensor cores; the draws' matrices in
+// shared memory or, for larger states, in device memory.
 //
 // Replaces the TPU kernel _settle_kernel (geconpy_tpu/ops/pallas_settle.py
 // :40, reached through pallas_settle_parts).  For each draw: P0 by
@@ -71,6 +72,25 @@
 //    draw barrier per step; the innovation, its quadratic form and y_t - d
 //    are each another warp's side job, one step ahead or behind, so that no
 //    warp waits for them.
+//
+// The large-state kernels.  A draw's four n x n buffers need 4 ceil16(n)
+// (ceil8(n) + 4) doubles; from n = 65 (K5 with 200 periods of y beside the
+// draw) or 73 (K2 with 32), k = 7, float64, one draw no longer fits the
+// 232,448 B a block may have, and the reference's kernels, which size
+// their VMEM block by the batch tile, take any n.  settle_large_kernel runs
+// the same schedule on the same layout (settle_start / settle_finish, shared
+// by both kernels) with each draw's buffers in a float64 workspace in device
+// memory instead; shared memory holds y alone.  The products read their
+// operands through L1 and L2 rather than shared memory, so a draw's products
+// cost more time than in the small-state kernel; what bounds it is then the
+// operand traffic of tile_mm (eight 8-byte loads a lane per 2,048
+// multiply-adds).  The grid is persistent (as many blocks as are resident,
+// each draw slot striding over the batch), so the workspace is the card's
+// resident draws times one layout, not the batch's: at 128 registers a
+// thread, two blocks of two draws an SM, 528 draws x 427 KB at n = 104 on
+// an H100.  The wrappers pick the small-state kernel wherever its
+// plan fits one draw a block (gcp_settle_fits), the large-state one
+// elsewhere.
 #include <type_traits>
 
 #include "small_linalg.cuh"
@@ -161,104 +181,106 @@ __device__ __forceinline__ void cp_async_elem(S* dst, const S* src) {
                : "memory");
 }
 
+// One draw's buffers in its workspace: shared memory in the small-state
+// kernel, device memory in the large-state one (the same layout).
+struct SettleBufs {
+  double *T, *Wa, *Wb, *Wc, *Z, *PZt, *K, *H, *Finv, *x, *xp, *dv, *v, *yd,
+      *v2, *yd2, *aug, *col, *row;
+  __device__ __forceinline__ SettleBufs(double* sm, const SettleLayout& L)
+      : T(sm + L.T), Wa(sm + L.W), Wb(sm + L.W + L.nr * L.ld),
+        Wc(sm + L.W + 2 * L.nr * L.ld), Z(sm + L.Z), PZt(sm + L.PZt),
+        K(sm + L.K), H(sm + L.H), Finv(sm + L.Finv), x(sm + L.x),
+        xp(sm + L.xp), dv(sm + L.dv), v(sm + L.v), yd(sm + L.yd),
+        v2(sm + L.v2), yd2(sm + L.yd2), aug(sm + L.aug), col(sm + L.col),
+        row(sm + L.row) {}
+};
+
+// y to shared memory, asynchronously, for every draw of the block (the
+// caller waits with cp.async.wait_all and a block barrier); returns where
+// the draws read y from.
+template <typename S>
+__device__ __forceinline__ const S* stage_y(const S* gy, void* dst,
+                                            int n_elems, int y_in_smem) {
+  if (!y_in_smem) return gy;
+  S* sy = reinterpret_cast<S*>(dst);
+  for (int e = threadIdx.x; e < n_elems; e += blockDim.x)
+    cp_async_elem(sy + e, gy + e);
+  return sy;
+}
+
+// The draw's inputs, zero-padded (T, P = R Q R', Z, H, d; x = 0), and P0 by
+// the Lyapunov doubling.  Every other buffer is written whole, pads
+// included, before it is read.
+template <typename S>
+__device__ __forceinline__ void settle_start(
+    const S* __restrict__ gT, const S* __restrict__ gRQR,
+    const S* __restrict__ gZ, const S* __restrict__ gH,
+    const S* __restrict__ gd, const SettleLayout& L, const SettleBufs& bf,
+    size_t b, int n, int k, int lyap_iters, WarpCtx w, int draw) {
+  const int dt = w.warp * 32 + w.lane;   // thread of the draw
+  const int nn = n * n, kn = k * n;
+  const int ld = L.ld, ldk = L.ldk;
+  const S* rqr = gRQR + b * nn;
+  for (int e = dt; e < L.nr * ld; e += kSettleThreads) {
+    const int i = e / ld, j = e - i * ld;
+    const bool in = i < n && j < n;
+    bf.T[e] = in ? double(gT[b * nn + i * n + j]) : 0.0;
+    bf.Wa[e] = in ? double(rqr[i * n + j]) : 0.0;
+  }
+  for (int e = dt; e < L.kr * ld; e += kSettleThreads) {
+    const int i = e / ld, j = e - i * ld;
+    bf.Z[e] = (i < k && j < n) ? double(gZ[b * kn + i * n + j]) : 0.0;
+  }
+  for (int e = dt; e < L.kr * ldk; e += kSettleThreads) {
+    const int i = e / ldk, j = e - i * ldk;
+    bf.H[e] = (i < k && j < k) ? double(gH[b * k * k + i * k + j]) : 0.0;
+  }
+  for (int i = dt; i < L.k8; i += kSettleThreads)
+    bf.dv[i] = i < k ? double(gd[b * k + i]) : 0.0;
+  for (int i = dt; i < L.n8; i += kSettleThreads) bf.x[i] = 0.0;
+  draw_barrier(draw);
+
+  // ---- P0: discrete Lyapunov by doubling.  P stays in Wa; the doubling
+  // matrix A starts as T itself and then alternates between Wb and Wc,
+  // three phases a doubling (no fifth buffer)
+  tile_lyap_doubling(bf.T, bf.Wa, bf.Wb, bf.Wc, nullptr, n, ld, lyap_iters, w,
+                     [&] { draw_barrier(draw); });
+}
+
+// The rest of a draw once P0 is in Wa and y is readable at ysrc: the
+// n_settle Riccati steps, the frozen-gain quantities and, with kFused, the
+// constant-gain tail.
 template <typename S, bool kFused>
-__global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
-                                   GCP_SETTLE_MIN_BLOCKS)
-    settle_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
-                  const S* __restrict__ gZ, const S* __restrict__ gH,
-                  const S* __restrict__ gd, const S* __restrict__ gy,
-                  S* __restrict__ gll, S* __restrict__ gxp,
-                  S* __restrict__ gM, S* __restrict__ gTK,
-                  S* __restrict__ gFinv, S* __restrict__ gconst, int batch,
-                  int n, int k, int n_settle, int n_total, int lyap_iters,
-                  int y_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const SettleLayout L(n, k);
-  const int draws = blockDim.x / kSettleThreads;
-  // the warp's number comes through a shuffle so that the compiler knows it
-  // (and the draw, the work items and every branch on them) to be the same
-  // in all lanes: the mma then need no reconvergence code around them
-  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
-  const int draw = block_warp / kSettleWarps;
-  const WarpCtx w{block_warp - draw * kSettleWarps, kSettleWarps,
-                  (int)(threadIdx.x & 31)};
+__device__ __forceinline__ void settle_finish(
+    const S* __restrict__ gRQR, S* __restrict__ gll, S* __restrict__ gxp,
+    S* __restrict__ gM, S* __restrict__ gTK, S* __restrict__ gFinv,
+    S* __restrict__ gconst, const SettleLayout& L, const SettleBufs& bf,
+    const S* ysrc, size_t b, int n, int k, int n_settle, int n_total,
+    WarpCtx w, int draw) {
   const WarpCtx solo{0, 1, w.lane};
   const int dt = w.warp * 32 + w.lane;   // thread of the draw
   const int lane = w.lane;
-  const size_t b = (size_t)blockIdx.x * draws + draw;
-  const bool active = b < (size_t)batch;
   const int nn = n * n, kn = k * n;
   const int ld = L.ld, ldk = L.ldk;
-
-  double* sm = reinterpret_cast<double*>(smem_raw) + (size_t)draw * L.total;
-  double* Tm = sm + L.T;
-  double* Wa = sm + L.W;
-  double* Wb = Wa + L.nr * ld;
-  double* Wc = Wb + L.nr * ld;
-  double* Z = sm + L.Z;
-  double* PZt = sm + L.PZt;
+  double* Tm = bf.T;
+  double* Z = bf.Z;
+  double* PZt = bf.PZt;
   double* KH = PZt;   // K H, and T K at the end, once P_pred Z' is dead
-  double* K = sm + L.K;
-  double* H = sm + L.H;
-  double* Finv = sm + L.Finv;
-  double* x = sm + L.x;
-  double* xp = sm + L.xp;
-  double* dv = sm + L.dv;
-  double* v = sm + L.v;
-  double* yd = sm + L.yd;
-  double* aug = sm + L.aug;
-  double* col = sm + L.col;
-  double* row = sm + L.row;
-
-  // ---- y to shared memory, asynchronously, for every draw of the block
-  const S* ysrc = gy;
-  if (y_in_smem) {
-    S* sy = reinterpret_cast<S*>(reinterpret_cast<double*>(smem_raw) +
-                                 (size_t)draws * L.total);
-    for (int e = threadIdx.x; e < n_total * k; e += blockDim.x)
-      cp_async_elem(sy + e, gy + e);
-    ysrc = sy;
-  }
-
+  double* K = bf.K;
+  double* H = bf.H;
+  double* Finv = bf.Finv;
+  double* x = bf.x;
+  double* xp = bf.xp;
+  double* dv = bf.dv;
+  double* v = bf.v;
+  double* yd = bf.yd;
   const S* no_g = nullptr;
   S* no_o = nullptr;
   const S* rqr = gRQR + b * nn;
 
-  if (active) {
-    // ---- inputs, zero-padded: T, P = R Q R', Z, H, d; x = 0.  Every other
-    // buffer is written whole, pads included, before it is read.
-    for (int e = dt; e < L.nr * ld; e += kSettleThreads) {
-      const int i = e / ld, j = e - i * ld;
-      const bool in = i < n && j < n;
-      Tm[e] = in ? double(gT[b * nn + i * n + j]) : 0.0;
-      Wa[e] = in ? double(rqr[i * n + j]) : 0.0;
-    }
-    for (int e = dt; e < L.kr * ld; e += kSettleThreads) {
-      const int i = e / ld, j = e - i * ld;
-      Z[e] = (i < k && j < n) ? double(gZ[b * kn + i * n + j]) : 0.0;
-    }
-    for (int e = dt; e < L.kr * ldk; e += kSettleThreads) {
-      const int i = e / ldk, j = e - i * ldk;
-      H[e] = (i < k && j < k) ? double(gH[b * k * k + i * k + j]) : 0.0;
-    }
-    for (int i = dt; i < L.k8; i += kSettleThreads)
-      dv[i] = i < k ? double(gd[b * k + i]) : 0.0;
-    for (int i = dt; i < L.n8; i += kSettleThreads) x[i] = 0.0;
-    draw_barrier(draw);
-
-    // ---- P0: discrete Lyapunov by doubling.  P stays in Wa; the doubling
-    // matrix A starts as T itself and then alternates between Wb and Wc,
-    // three phases a doubling (no fifth buffer)
-    tile_lyap_doubling(Tm, Wa, Wb, Wc, nullptr, n, ld, lyap_iters, w,
-                       [&] { draw_barrier(draw); });
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncthreads();   // y is in shared memory for every draw of the block
-  if (!active) return;
-
-  double* P = Wa;     // the covariance
-  double* B1 = Wb;    // T P, then I - K Z
-  double* B2 = Wc;    // P_pred, then the new covariance
+  double* P = bf.Wa;     // the covariance
+  double* B1 = bf.Wb;    // T P, then I - K Z
+  double* B2 = bf.Wc;    // P_pred, then the new covariance
   // owned by warp 0 of the draw, the same value in every lane
   double ll = 0.0, minpiv = INFINITY, logdet = 0.0;
 
@@ -284,7 +306,7 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
     minpiv = INFINITY;
     logdet = 0.0;
     return warp_solve_innovation<decltype(with_v)::value>(
-        Finv, ldk, v, k, aug, col, row, lane, minpiv, logdet);
+        Finv, ldk, v, k, bf.aug, bf.col, bf.row, lane, minpiv, logdet);
   };
 
   // ---- n_settle exact Riccati steps
@@ -396,8 +418,8 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
     const double* TK = KH;
     double* xc = xp;   // predicted state
     double* xn = x;
-    double* v2 = sm + L.v2;
-    double* yd2 = sm + L.yd2;
+    double* v2 = bf.v2;
+    double* yd2 = bf.yd2;
     auto v_of = [&](int t) { return (t & 1) ? v2 : v; };
     auto yd_of = [&](int t) { return (t & 1) ? yd2 : yd; };
     auto quad_form = [&](const double* vt) {
@@ -436,6 +458,88 @@ __global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
   }
 }
 
+
+// The small-state kernel: every draw of the block in shared memory.
+template <typename S, bool kFused>
+__global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
+                                   GCP_SETTLE_MIN_BLOCKS)
+    settle_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
+                  const S* __restrict__ gZ, const S* __restrict__ gH,
+                  const S* __restrict__ gd, const S* __restrict__ gy,
+                  S* __restrict__ gll, S* __restrict__ gxp,
+                  S* __restrict__ gM, S* __restrict__ gTK,
+                  S* __restrict__ gFinv, S* __restrict__ gconst, int batch,
+                  int n, int k, int n_settle, int n_total, int lyap_iters,
+                  int y_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SettleLayout L(n, k);
+  const int draws = blockDim.x / kSettleThreads;
+  // the warp's number comes through a shuffle so that the compiler knows it
+  // (and the draw, the work items and every branch on them) to be the same
+  // in all lanes: the mma then need no reconvergence code around them
+  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int draw = block_warp / kSettleWarps;
+  const WarpCtx w{block_warp - draw * kSettleWarps, kSettleWarps,
+                  (int)(threadIdx.x & 31)};
+  const size_t b = (size_t)blockIdx.x * draws + draw;
+  const bool active = b < (size_t)batch;
+  double* sm = reinterpret_cast<double*>(smem_raw) + (size_t)draw * L.total;
+  const SettleBufs bf(sm, L);
+
+  const S* ysrc = stage_y(
+      gy, reinterpret_cast<double*>(smem_raw) + (size_t)draws * L.total,
+      n_total * k, y_in_smem);
+  if (active)
+    settle_start(gT, gRQR, gZ, gH, gd, L, bf, b, n, k, lyap_iters, w, draw);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();   // y is in shared memory for every draw of the block
+  if (!active) return;
+  settle_finish<S, kFused>(gRQR, gll, gxp, gM, gTK, gFinv, gconst, L, bf,
+                           ysrc, b, n, k, n_settle, n_total, w, draw);
+}
+
+// The large-state kernel: the same schedule on the same layout, with each
+// draw's buffers in a float64 workspace in device memory (gwork, L.total
+// doubles per draw slot) instead of shared memory, which then holds y
+// alone.  The grid is persistent: it holds as many blocks as are resident
+// at once, and each draw slot strides over the batch, so the workspace
+// scales with the card, not with the batch.
+template <typename S, bool kFused>
+__global__ void __launch_bounds__(kSettleThreads* GCP_SETTLE_DRAWS,
+                                   GCP_SETTLE_MIN_BLOCKS)
+    settle_large_kernel(const S* __restrict__ gT, const S* __restrict__ gRQR,
+                        const S* __restrict__ gZ, const S* __restrict__ gH,
+                        const S* __restrict__ gd, const S* __restrict__ gy,
+                        S* __restrict__ gll, S* __restrict__ gxp,
+                        S* __restrict__ gM, S* __restrict__ gTK,
+                        S* __restrict__ gFinv, S* __restrict__ gconst,
+                        double* gwork, int batch, int n, int k,
+                        int n_settle, int n_total, int lyap_iters,
+                        int y_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SettleLayout L(n, k);
+  const int draws = blockDim.x / kSettleThreads;
+  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int draw = block_warp / kSettleWarps;
+  const WarpCtx w{block_warp - draw * kSettleWarps, kSettleWarps,
+                  (int)(threadIdx.x & 31)};
+  const size_t slot = (size_t)blockIdx.x * draws + draw;
+  const SettleBufs bf(gwork + slot * L.total, L);
+
+  const S* ysrc = stage_y(gy, smem_raw, n_total * k, y_in_smem);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();   // y is in shared memory for every draw of the block
+  // a draw slot past the batch leaves at once: no block barrier follows
+  for (size_t b = slot; b < (size_t)batch;
+       b += (size_t)gridDim.x * draws) {
+    settle_start(gT, gRQR, gZ, gH, gd, L, bf, b, n, k, lyap_iters, w, draw);
+    draw_barrier(draw);   // P0 is written (also with lyap_iters = 0)
+    settle_finish<S, kFused>(gRQR, gll, gxp, gM, gTK, gFinv, gconst, L, bf,
+                             ysrc, b, n, k, n_settle, n_total, w, draw);
+    draw_barrier(draw);   // every warp is done with the slot's buffers
+  }
+}
+
 template <typename S, bool kFused>
 int launch_settle(const void* T, const void* RQR, const void* Z,
                   const void* H, const void* d, const void* y, void* ll,
@@ -456,6 +560,59 @@ int launch_settle(const void* T, const void* RQR, const void* Z,
           static_cast<S*>(ll), static_cast<S*>(xp), static_cast<S*>(M),
           static_cast<S*>(TK), static_cast<S*>(Finv), static_cast<S*>(cnst),
           batch, n, k, n_settle, n_total, lyap_iters, plan.y_in_smem);
+  return (int)cudaGetLastError();
+}
+
+// The large-state launch: GCP_SETTLE_DRAWS draws a block, y staged in
+// shared memory as in the small-state plan, and as many blocks as the card
+// holds at once (at most one per GCP_SETTLE_DRAWS draws of the batch).
+struct SettleLargePlan {
+  int draws, blocks, y_in_smem;
+  size_t smem, work_bytes;
+};
+
+template <typename S, bool kFused>
+SettleLargePlan settle_large_plan(int n, int k, int n_obs, int batch) {
+  SettleLargePlan p;
+  const size_t ybytes = (((size_t)n_obs * k * sizeof(S)) + 15) & ~(size_t)15;
+  p.y_in_smem = ybytes <= kSettleMaxYBytes;
+  p.smem = p.y_in_smem ? ybytes : 0;
+  p.draws = GCP_SETTLE_DRAWS;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, settle_large_kernel<S, kFused>, kSettleThreads * p.draws,
+      p.smem);
+  const int need = (batch + p.draws - 1) / p.draws;
+  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
+  p.blocks = need < resident ? need : resident;
+  p.work_bytes = (size_t)p.blocks * p.draws * SettleLayout(n, k).total *
+                 sizeof(double);
+  return p;
+}
+
+template <typename S, bool kFused>
+int launch_settle_large(const void* T, const void* RQR, const void* Z,
+                        const void* H, const void* d, const void* y,
+                        void* ll, void* xp, void* M, void* TK, void* Finv,
+                        void* cnst, void* work, size_t work_bytes, int batch,
+                        int n, int k, int n_settle, int n_total,
+                        int lyap_iters, cudaStream_t stream) {
+  const SettleLargePlan plan =
+      settle_large_plan<S, kFused>(n, k, n_total, batch);
+  if (plan.blocks < 1) return 0;
+  if (work == nullptr || work_bytes < plan.work_bytes)
+    return (int)cudaErrorInvalidValue;
+  settle_large_kernel<S, kFused>
+      <<<plan.blocks, kSettleThreads * plan.draws, plan.smem, stream>>>(
+          static_cast<const S*>(T), static_cast<const S*>(RQR),
+          static_cast<const S*>(Z), static_cast<const S*>(H),
+          static_cast<const S*>(d), static_cast<const S*>(y),
+          static_cast<S*>(ll), static_cast<S*>(xp), static_cast<S*>(M),
+          static_cast<S*>(TK), static_cast<S*>(Finv), static_cast<S*>(cnst),
+          static_cast<double*>(work), batch, n, k, n_settle, n_total,
+          lyap_iters, plan.y_in_smem);
   return (int)cudaGetLastError();
 }
 
@@ -505,6 +662,68 @@ size_t gcp_settle_smem_bytes(int dtype, int n, int k, int n_obs) {
 // Draws per block of that launch (kSettleThreads threads each).
 int gcp_settle_draws_per_block(int dtype, int n, int k, int n_obs) {
   return gcp::settle_plan(n, k, n_obs, dtype == 0 ? 4 : 8).draws;
+}
+
+// The large-state entry points: the same arguments, plus a float64
+// workspace of work_bytes >= gcp_settle_large_work_bytes(...) in device
+// memory (cudaErrorInvalidValue, without a launch, if it is smaller).
+int gcp_settle_large(int dtype, const void* T, const void* RQR,
+                     const void* Z, const void* H, const void* d,
+                     const void* y, void* ll, void* xp, void* M, void* TK,
+                     void* Finv, void* cnst, void* work, size_t work_bytes,
+                     int batch, int n, int k, int n_settle, int lyap_iters,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gcp::launch_settle_large<float, false>(
+        T, RQR, Z, H, d, y, ll, xp, M, TK, Finv, cnst, work, work_bytes,
+        batch, n, k, n_settle, n_settle, lyap_iters, s);
+  return gcp::launch_settle_large<double, false>(
+      T, RQR, Z, H, d, y, ll, xp, M, TK, Finv, cnst, work, work_bytes, batch,
+      n, k, n_settle, n_settle, lyap_iters, s);
+}
+
+int gcp_settle_filter_large(int dtype, const void* T, const void* RQR,
+                            const void* Z, const void* H, const void* d,
+                            const void* y, void* ll, void* work,
+                            size_t work_bytes, int batch, int n, int k,
+                            int n_settle, int n_total, int lyap_iters,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gcp::launch_settle_large<float, true>(
+        T, RQR, Z, H, d, y, ll, nullptr, nullptr, nullptr, nullptr, nullptr,
+        work, work_bytes, batch, n, k, n_settle, n_total, lyap_iters, s);
+  return gcp::launch_settle_large<double, true>(
+      T, RQR, Z, H, d, y, ll, nullptr, nullptr, nullptr, nullptr, nullptr,
+      work, work_bytes, batch, n, k, n_settle, n_total, lyap_iters, s);
+}
+
+// Whether the small-state plan fits one draw a block in the device's
+// shared memory (then gcp_settle / gcp_settle_filter run; else the large
+// entry points).
+int gcp_settle_fits(int dtype, int n, int k, int n_obs) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return gcp_settle_smem_bytes(dtype, n, k, n_obs) <= (size_t)limit;
+}
+
+// The workspace the large-state launch needs for this batch: one draw
+// slot of the float64 layout per resident draw (fused: the K5 launch).
+size_t gcp_settle_large_work_bytes(int dtype, int fused, int n, int k,
+                                   int n_obs, int batch) {
+  if (fused)
+    return dtype == 0
+               ? gcp::settle_large_plan<float, true>(n, k, n_obs, batch)
+                     .work_bytes
+               : gcp::settle_large_plan<double, true>(n, k, n_obs, batch)
+                     .work_bytes;
+  return dtype == 0
+             ? gcp::settle_large_plan<float, false>(n, k, n_obs, batch)
+                   .work_bytes
+             : gcp::settle_large_plan<double, false>(n, k, n_obs, batch)
+                   .work_bytes;
 }
 
 }  // extern "C"

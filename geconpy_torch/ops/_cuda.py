@@ -32,8 +32,8 @@ import tempfile
 import torch
 
 __all__ = ["library", "check", "stream_handle", "dtype_code",
-           "smem_limit", "require_cuda_inputs", "build_root", "CSRC",
-           "BUILD_ROOT"]
+           "smem_limit", "require_cuda_inputs", "count_launch", "workspace",
+           "build_root", "CSRC", "BUILD_ROOT"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "geconpy_torch"
@@ -48,6 +48,7 @@ BUILDS = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_Z = ctypes.c_size_t
 _SIGNATURES = {
     "gcp_cr_policy": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                       ctypes.c_int),
@@ -58,12 +59,23 @@ _SIGNATURES = {
                  ctypes.c_int),
     "gcp_dare_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "gcp_dare_block_threads": ([], ctypes.c_int),
+    "gcp_dare_large": ([_I, _P, _P, _P, _P, _P, _P, _Z, _I, _I, _I, _I, _I,
+                        _I, _P], ctypes.c_int),
+    "gcp_dare_fits": ([_I, _I], ctypes.c_int),
+    "gcp_dare_large_work_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
     "gcp_settle": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_filter": ([_I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
     "gcp_settle_draws_per_block": ([_I, _I, _I, _I], ctypes.c_int),
+    "gcp_settle_large": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _Z, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_settle_filter_large": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _Z,
+                                 _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_settle_fits": ([_I, _I, _I, _I], ctypes.c_int),
+    "gcp_settle_large_work_bytes": ([_I, _I, _I, _I, _I, _I],
+                                    ctypes.c_size_t),
     "gcp_filter_tail": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_filter_tail_draws_per_block": ([], ctypes.c_int),
@@ -71,6 +83,8 @@ _SIGNATURES = {
     "gcp_filter_tail_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "gcp_filter_tail_max_n": ([], ctypes.c_int),
     "gcp_filter_tail_max_k": ([], ctypes.c_int),
+    "gcp_filter_tail_large": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -185,6 +199,21 @@ def smem_limit(device: torch.device) -> int:
     """Largest dynamic shared memory a block may opt in to on ``device``."""
     props = torch.cuda.get_device_properties(device)
     return int(getattr(props, "shared_memory_per_block_optin", 232448))
+
+
+def count_launch(wrapper, large: bool) -> None:
+    """Count one launch of ``wrapper``'s kernel: ``wrapper.launches``
+    counts either variant, ``wrapper.large_launches`` the large-state one."""
+    wrapper.launches += 1
+    if large:
+        wrapper.large_launches += 1
+
+
+def workspace(nbytes: int, device: torch.device) -> torch.Tensor:
+    """A float64 scratch buffer of at least ``nbytes`` bytes on ``device``
+    (from PyTorch's caching allocator) for a large-state kernel."""
+    return torch.empty(((nbytes + 7) // 8,), dtype=torch.float64,
+                       device=device)
 
 
 def require_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype,

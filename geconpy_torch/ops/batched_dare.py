@@ -23,8 +23,17 @@ to whole tiles: every product runs on the FP64 tensor cores
 P += (A P) A' in the next), S⁻¹ is one warp's Gauss-Jordan elimination
 (in registers for k <= 8), and RQR is added from device memory in an
 epilogue, so that a draw needs five n × n buffers (52,224 B at n = 26,
-k = 7: four draws an SM).  The TPU wrapper's lane padding (H = I in the
-padded slots) has no counterpart: the grid is exactly one block per draw.
+k = 7: four draws an SM).  That small-state kernel runs wherever one
+draw's buffers fit the device's shared memory (``gcp_dare_fits``: n <= 64
+at k = 7); the reference's kernel takes any n, so beyond that a
+large-state kernel runs the same schedule with each block's buffers in a
+float64 workspace in device memory, allocated by the wrapper
+(``torch.empty``) for the resident blocks of a persistent grid
+(``chip_smoke.py`` phase 16 prints its size), its products reading their
+operands through L1 and L2.  ``dare_settle.large_launches`` counts those
+launches among ``launches``.  The TPU wrapper's lane padding (H = I in
+the padded slots) has no counterpart: the small-state grid is exactly one
+block per draw, and the large-state grid strides over the draws.
 It takes and returns the caller's dtype but runs the recursion in float64,
 as the settle kernel K2 does, and so does the plain version.
 
@@ -94,19 +103,26 @@ def _dare_cuda(T, RQR, Z, H):
         {"T": (T, (Bn, n, n)), "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)),
          "H": (H, (Bn, k, k))}, T.dtype, T.device)
     lib = _cuda.library()
-    smem = lib.gcp_dare_smem_bytes(n, k)
-    if smem > _cuda.smem_limit(T.device):
-        raise ValueError(
-            f"dare_settle: n={n}, k={k} needs {smem} bytes of shared memory "
-            f"per block, above the device's {_cuda.smem_limit(T.device)}")
+    # the small-state kernel where one draw fits the device's shared
+    # memory, else the large-state one with its workspace in device memory
+    large = not lib.gcp_dare_fits(n, k)
     P = torch.empty((Bn, n, n), dtype=T.dtype, device=T.device)
     if Bn:
-        code = lib.gcp_dare(
-            _cuda.dtype_code(T.dtype), T.data_ptr(), RQR.data_ptr(),
-            Z.data_ptr(), H.data_ptr(), P.data_ptr(), Bn, n, k, LYAP_ITERS,
-            HEWER_ITERS, INNER_ITERS, _cuda.stream_handle(T.device))
+        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, P)]
+        sched = (LYAP_ITERS, HEWER_ITERS, INNER_ITERS)
+        stream = _cuda.stream_handle(T.device)
+        if large:
+            nbytes = lib.gcp_dare_large_work_bytes(
+                _cuda.dtype_code(T.dtype), n, k, Bn)
+            work = _cuda.workspace(nbytes, T.device)
+            code = lib.gcp_dare_large(
+                _cuda.dtype_code(T.dtype), *ptrs, work.data_ptr(), nbytes, Bn,
+                n, k, *sched, stream)
+        else:
+            code = lib.gcp_dare(_cuda.dtype_code(T.dtype), *ptrs, Bn, n, k,
+                                *sched, stream)
         _cuda.check(code, "dare_settle")
-        dare_settle.launches += 1
+        _cuda.count_launch(dare_settle, large)
     return P
 
 
@@ -121,5 +137,7 @@ def dare_settle(T, RQR, Z, H) -> torch.Tensor:
     raise ValueError(f"dare_settle: no kernel for {T.device}")
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either variant) since the count was last
+#: set to 0, and of its large-state variant alone
 dare_settle.launches = 0
+dare_settle.large_launches = 0

@@ -8,18 +8,31 @@ as :func:`filter_tail`.  Per draw and step t:
     x   = M x + TK (y_t - d)
 
 Kernel source note.  ``csrc/filter_tail.cu`` replaces the TPU kernel
-``_tail_kernel`` (``ops/pallas_filter.py:34``).  On the H100 each step is
-~1.3k multiply-adds per draw (n = 26, k = 7) that depend on the previous
-step's state, so the recursion is bound by the instructions of a draw's
-step.  The design gives each draw one warp: lane i holds row i of M and
-TK (two rows a lane for 32 < n <= 64) and, on lanes i < k, row i of Z and
-F^{-1} in registers; each step hands x, y_t - d and v round the warp
-through a small shared-memory buffer of its own (broadcast loads, four
-floats a load), forms the quadratic form with a warp reduction, and
-synchronises nothing but the warp.  The shared observations ``y_tail``
-are read through the read-only cache.  It computes in the caller's dtype,
-as the reference does; results differ from the plain version only by
-summation order.  It takes n <= 64 and k <= 32 and raises beyond.
+``_tail_kernel`` (``ops/pallas_filter.py:34``), which takes any n and k.
+On the H100 each step is ~1.3k multiply-adds per draw (n = 26, k = 7) that
+depend on the previous step's state, so the recursion is bound by the
+instructions of a draw's step.  It has two variants, both kernels:
+
+* the small-state kernel (n <= 64 and k <= 32, every bundled model's
+  filter core) gives each draw one warp: lane i holds row i of M and TK
+  (two rows a lane for 32 < n <= 64) and, on lanes i < k, row i of Z and
+  F^{-1} in registers; each step hands x, y_t - d and v round the warp
+  through a small shared-memory buffer of its own (broadcast loads, four
+  floats a load), forms the quadratic form with a warp reduction, and
+  synchronises nothing but the warp;
+* the large-state kernel (any other n or k, e.g. the lag-augmented filter
+  state of 104 of SW-2007 with year-on-year inflation) gives each draw a
+  block, a thread per row of the stacked step [M TK; Z 0] [x; y_t - d],
+  with x, y_t - d and v in shared memory and one block barrier a step; the
+  stacked matrix sits in shared memory while it fits there (n = 104,
+  k = 7: 49 KB in float32) and is read from device memory (L2) each step
+  when it does not.
+
+The shared observations ``y_tail`` are read through the read-only cache.
+It computes in the caller's dtype, as the reference does; results differ
+from the plain version only by summation order.  ``filter_tail.launches``
+counts either variant's launches, ``filter_tail.large_launches`` the
+large-state kernel's.
 
 :func:`_filter_tail_plain` is the plain PyTorch version of the same
 recursion.  The wrapper uses it for CPU tensors; a CUDA tensor goes to the
@@ -59,20 +72,19 @@ def _filter_tail_cuda(y_tail, M, TK, Z, d, Finv, const, x0):
          "Finv": (Finv, (Bn, k, k)), "const": (const, (Bn,)),
          "x0": (x0, (Bn, n))}, M.dtype, M.device)
     lib = _cuda.library()
-    max_n, max_k = lib.gcp_filter_tail_max_n(), lib.gcp_filter_tail_max_k()
-    if n > max_n or k > max_k:
-        raise ValueError(
-            f"filter_tail: the kernel takes n <= {max_n} states and k <= "
-            f"{max_k} observables, got n={n}, k={k}")
+    # the small-state kernel where its registers hold the draw, else the
+    # large-state one
+    large = n > lib.gcp_filter_tail_max_n() or k > lib.gcp_filter_tail_max_k()
+    launch = lib.gcp_filter_tail_large if large else lib.gcp_filter_tail
     ll = torch.empty((Bn,), dtype=M.dtype, device=M.device)
     if Bn:
-        code = lib.gcp_filter_tail(
+        code = launch(
             _cuda.dtype_code(M.dtype), y_tail.data_ptr(), M.data_ptr(),
             TK.data_ptr(), Z.data_ptr(), d.data_ptr(), Finv.data_ptr(),
             const.data_ptr(), x0.data_ptr(), ll.data_ptr(), Bn, n, k,
             y_tail.shape[0], _cuda.stream_handle(M.device))
         _cuda.check(code, "filter_tail")
-        filter_tail.launches += 1
+        _cuda.count_launch(filter_tail, large)
     return ll
 
 
@@ -92,5 +104,7 @@ def filter_tail(y_tail, M, TK, Z, d, Finv, const, x0):
     raise ValueError(f"filter_tail: no kernel for {M.device}")
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either variant) since the count was last
+#: set to 0, and of its large-state variant alone
 filter_tail.launches = 0
+filter_tail.large_launches = 0

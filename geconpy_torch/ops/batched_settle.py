@@ -33,8 +33,20 @@ against the float64 path instead.  The TPU kernel's one-hot row extraction
 over the sample, its broadcast of ``y`` over the lanes, the lane padding and
 the ``tile`` argument are gone.  The launch (draws per block, whether ``y``
 fits beside them) is decided in the C entry point;
-``gcp_settle_smem_bytes`` answers for that launch, and the wrapper raises
-if even one draw per block exceeds the device's shared memory.
+``gcp_settle_smem_bytes`` answers for that launch.
+
+Two variants, both kernels, as the reference's kernels take any n: where
+one draw's float64 layout and ``y`` fit the device's shared memory
+(``gcp_settle_fits``; in float64 at k = 7, n <= 64 for K5 over 200
+periods and n <= 72 for K2 over 32 settle steps on an H100) the
+small-state kernel above runs; beyond that the large-state kernel runs the
+same schedule on the same layout with each draw's buffers in a float64
+workspace in device memory, which the wrapper allocates (``torch.empty``)
+for the resident draws of a persistent grid, not for the batch
+(``chip_smoke.py`` phase 16 prints its size).  Its products read their
+operands through L1 and L2 instead of shared memory.
+``settle_parts.large_launches`` and ``settle_filter_loglik.large_launches``
+count the large-state launches among ``launches``.
 
 :func:`_settle_plain` and :func:`_settle_filter_plain` are the plain PyTorch
 versions of the same schedules.  The wrappers use them for CPU tensors; a
@@ -126,8 +138,9 @@ def _settle_filter_plain(y, T, RQR, Z, H, d, n_settle: int, lyap_iters: int):
 
 
 def _checked_library(name, y, T, RQR, Z, H, d):
-    """Check a settle kernel's inputs and its shared memory against the
-    device's limit; returns the kernel library."""
+    """Check a settle kernel's inputs; returns the kernel library and
+    whether the large-state variant runs (the small-state plan does not fit
+    one draw a block in the device's shared memory)."""
     Bn, n, _ = T.shape
     k = Z.shape[1]
     _cuda.require_cuda_inputs(
@@ -136,36 +149,43 @@ def _checked_library(name, y, T, RQR, Z, H, d):
          "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)), "H": (H, (Bn, k, k)),
          "d": (d, (Bn, k))}, T.dtype, T.device)
     lib = _cuda.library()
-    # the launch's own answer: its draws per block, and y if it is staged
-    smem = lib.gcp_settle_smem_bytes(_cuda.dtype_code(T.dtype), n, k,
-                                     y.shape[0])
-    if smem > _cuda.smem_limit(T.device):
-        raise ValueError(
-            f"{name}: n={n}, k={k} in {T.dtype} needs {smem} bytes of "
-            f"shared memory per block, above the device's "
-            f"{_cuda.smem_limit(T.device)}")
-    return lib
+    large = not lib.gcp_settle_fits(_cuda.dtype_code(T.dtype), n, k,
+                                    y.shape[0])
+    return lib, large
+
+
+def _large_workspace(lib, fused: bool, y, T, Z):
+    """The large-state launch's float64 workspace: (tensor, bytes)."""
+    Bn, n, _ = T.shape
+    nbytes = lib.gcp_settle_large_work_bytes(
+        _cuda.dtype_code(T.dtype), int(fused), n, Z.shape[1], y.shape[0], Bn)
+    return _cuda.workspace(nbytes, T.device), nbytes
 
 
 def _settle_cuda(y_head, T, RQR, Z, H, d, lyap_iters: int):
-    """Launch the K2 kernel."""
+    """Launch the K2 kernel (either variant)."""
     Bn, n, _ = T.shape
     k = Z.shape[1]
     n_settle = y_head.shape[0]
-    lib = _checked_library("settle_parts", y_head, T, RQR, Z, H, d)
+    lib, large = _checked_library("settle_parts", y_head, T, RQR, Z, H, d)
     empty = lambda *shape: torch.empty(shape, dtype=T.dtype,  # noqa: E731
                                        device=T.device)
     ll, xp, M, TK, Finv, const = (empty(Bn), empty(Bn, n), empty(Bn, n, n),
                                   empty(Bn, n, k), empty(Bn, k, k), empty(Bn))
     if Bn:
-        code = lib.gcp_settle(
-            _cuda.dtype_code(T.dtype), T.data_ptr(), RQR.data_ptr(),
-            Z.data_ptr(), H.data_ptr(), d.data_ptr(), y_head.data_ptr(),
-            ll.data_ptr(), xp.data_ptr(), M.data_ptr(), TK.data_ptr(),
-            Finv.data_ptr(), const.data_ptr(), Bn, n, k, n_settle,
-            lyap_iters, _cuda.stream_handle(T.device))
+        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, d, y_head, ll, xp, M, TK,
+                                       Finv, const)]
+        stream = _cuda.stream_handle(T.device)
+        if large:
+            work, nbytes = _large_workspace(lib, False, y_head, T, Z)
+            code = lib.gcp_settle_large(
+                _cuda.dtype_code(T.dtype), *ptrs, work.data_ptr(), nbytes, Bn,
+                n, k, n_settle, lyap_iters, stream)
+        else:
+            code = lib.gcp_settle(_cuda.dtype_code(T.dtype), *ptrs, Bn, n, k,
+                                  n_settle, lyap_iters, stream)
         _cuda.check(code, "settle_parts")
-        settle_parts.launches += 1
+        _cuda.count_launch(settle_parts, large)
     return ll, xp, M, TK, Finv, const
 
 
@@ -186,24 +206,32 @@ def settle_parts(y_head, T, RQR, Z, H, d):
     raise ValueError(f"settle_parts: no kernel for {T.device}")
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either variant) since the count was last
+#: set to 0, and of its large-state variant alone
 settle_parts.launches = 0
+settle_parts.large_launches = 0
 
 
 def _settle_filter_cuda(y, T, RQR, Z, H, d, n_settle: int, lyap_iters: int):
-    """Launch the K5 kernel."""
+    """Launch the K5 kernel (either variant)."""
     Bn, n, _ = T.shape
     k = Z.shape[1]
-    lib = _checked_library("settle_filter_loglik", y, T, RQR, Z, H, d)
+    lib, large = _checked_library("settle_filter_loglik", y, T, RQR, Z, H, d)
     ll = torch.empty((Bn,), dtype=T.dtype, device=T.device)
     if Bn:
-        code = lib.gcp_settle_filter(
-            _cuda.dtype_code(T.dtype), T.data_ptr(), RQR.data_ptr(),
-            Z.data_ptr(), H.data_ptr(), d.data_ptr(), y.data_ptr(),
-            ll.data_ptr(), Bn, n, k, n_settle, y.shape[0], lyap_iters,
-            _cuda.stream_handle(T.device))
+        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, d, y, ll)]
+        stream = _cuda.stream_handle(T.device)
+        if large:
+            work, nbytes = _large_workspace(lib, True, y, T, Z)
+            code = lib.gcp_settle_filter_large(
+                _cuda.dtype_code(T.dtype), *ptrs, work.data_ptr(), nbytes, Bn,
+                n, k, n_settle, y.shape[0], lyap_iters, stream)
+        else:
+            code = lib.gcp_settle_filter(
+                _cuda.dtype_code(T.dtype), *ptrs, Bn, n, k, n_settle,
+                y.shape[0], lyap_iters, stream)
         _cuda.check(code, "settle_filter_loglik")
-        settle_filter_loglik.launches += 1
+        _cuda.count_launch(settle_filter_loglik, large)
     return ll
 
 
@@ -225,5 +253,7 @@ def settle_filter_loglik(y, T, RQR, Z, H, d, n_settle: int = 32):
     raise ValueError(f"settle_filter_loglik: no kernel for {T.device}")
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either variant) since the count was last
+#: set to 0, and of its large-state variant alone
 settle_filter_loglik.launches = 0
+settle_filter_loglik.large_launches = 0

@@ -10,12 +10,17 @@ level) and each wrapper counts its launches.  Every kernel is also run on
 synthetic inputs whose sizes are not multiples of its tiles, at batches
 that do not fill the last block: K2 and K5, K1 and K4, and K3 (float64
 within 1e-12 of the plain version, float32 within the sweep's 5e-4) and K6
-(float64 within 1e-11), with a NaN draw that must stay isolated and a
-shape the kernel does not take, which must raise.  The numeric steady
-state of ``open_rbc`` runs on the card as on the CPU (the same iterations
-and flags, x_ss at rel 1e-10), and its implicit gradient is finite inside
-the value+grad path at batch 512.  ``Model.solve_model`` runs on the card
-by default and gives the CPU's T and R (rel 1e-10) under each solver, and
+(float64 within 1e-11), with a NaN draw that must stay isolated.  K2, K3,
+K5 and K6 also run at state sizes beyond their small-state kernels (the
+large-state variants: either side of each small-state plan's edge, the
+filter state of 104, k > 32 for K3), at the same bars, and a NaN draw
+there poisons only itself, also where its workspace slot serves later
+draws; K1 and K4 refuse a pencil beyond their shared memory.  The
+numeric steady state of ``open_rbc`` runs on the card as on the CPU (the
+same iterations and flags, x_ss at rel 1e-10), and its implicit gradient
+is finite inside the value+grad path at batch 512.
+``Model.solve_model`` runs on the card by default and gives the CPU's T
+and R (rel 1e-10) under each solver, and
 the device gensys over a batch on the card gives each draw's solo CPU run.
 Every filter of the likelihood (the SDA and auto settles, steady state,
 Chandrasekhar, parallel, the cyclostationary filter of mixed-frequency
@@ -267,12 +272,81 @@ def test_settle_kernels_read_a_long_sample_from_device_memory(device):
 
 
 def test_settle_kernels_refuse_more_shared_memory_than_the_device_has(device):
+    """A draw whose float64 layout exceeds the device's shared memory (this
+    shape raised before the large-state kernels): it runs the large-state
+    variant, within rel 1e-9 of the plain version."""
     args = [torch.as_tensor(a, device=device)
             for a in _stable_system(96, 3, 2, 4, seed=1)]
-    with pytest.raises(ValueError, match="shared memory"):
-        settle_parts(*args)
-    with pytest.raises(ValueError, match="shared memory"):
-        settle_filter_loglik(*args, n_settle=2)
+    before = (settle_parts.large_launches, settle_filter_loglik.large_launches)
+    got = settle_parts(*args)
+    for g, r in zip(got, _settle_plain(*args, LYAP_ITERS)):
+        assert g.shape == r.shape and _rel(g, r) < 1e-9
+    ll = settle_filter_loglik(*args, n_settle=2)
+    assert _rel(ll, _settle_filter_plain(*args, 2, LYAP_ITERS)) < 1e-9
+    assert (settle_parts.large_launches, settle_filter_loglik.large_launches) \
+        == (before[0] + 1, before[1] + 1)
+
+
+def _last_small_n(fits) -> int:
+    """The largest n (k = 7) whose small-state plan ``fits(n)`` holds."""
+    n = 1
+    while fits(n + 1):
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("edge", ["last small", "first large"])
+def test_settle_kernels_at_the_edge_of_the_small_state_plan(device, edge):
+    """K2 and K5 at the last n (k = 7) whose small-state plan fits the
+    device's shared memory and at the next: the variant each wrapper
+    records, and rel 1e-9 to the plain version."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for name, n_obs in (("settle_parts", 5), ("settle_filter_loglik", N_OBS)):
+        n = _last_small_n(lambda m: lib.gcp_settle_fits(1, m, 7, n_obs))
+        n += edge == "first large"
+        args = [torch.as_tensor(a, device=device)
+                for a in _stable_system(n, 7, 3, N_OBS, seed=n)]
+        y, mats = args[0], args[1:]
+        if name == "settle_parts":
+            before = settle_parts.large_launches
+            got = settle_parts(y[:5], *mats)
+            ref = _settle_plain(y[:5], *mats, LYAP_ITERS)
+            large = settle_parts.large_launches - before
+        else:
+            before = settle_filter_loglik.large_launches
+            got = (settle_filter_loglik(y, *mats, n_settle=5),)
+            ref = (_settle_filter_plain(y, *mats, 5, LYAP_ITERS),)
+            large = settle_filter_loglik.large_launches - before
+        assert large == (edge == "first large"), (name, n)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < 1e-9, (name, n)
+
+
+def test_large_settle_kernels_nan_draw_poisons_only_itself(device):
+    """The large-state K2 and K5 (n = 90) on more draws than the persistent
+    grid holds at once, so that the NaN draw's workspace slot serves later
+    draws: every other draw is bitwise what it is without the NaN."""
+    args = [torch.as_tensor(a, device=device)
+            for a in _stable_system(90, 3, 1100, N_OBS, seed=9)]
+    y, T = args[0], args[1]
+    T_bad = T.clone()
+    T_bad[1, 0, 0] = float("nan")
+    keep = torch.arange(1100, device=device) != 1
+    before = settle_parts.large_launches
+    clean = settle_parts(y[:5], T, *args[2:])
+    got = settle_parts(y[:5], T_bad, *args[2:])
+    assert settle_parts.large_launches == before + 2
+    assert not torch.isfinite(got[0][1])
+    for g, c in zip(got, clean):
+        assert torch.equal(g[keep], c[keep])
+    before = settle_filter_loglik.large_launches
+    clean = settle_filter_loglik(y, T, *args[2:], n_settle=5)
+    got = settle_filter_loglik(y, T_bad, *args[2:], n_settle=5)
+    assert settle_filter_loglik.large_launches == before + 2
+    assert not torch.isfinite(got[1])
+    assert torch.equal(got[keep], clean[keep])
 
 
 # ---- K1 and K4 on ragged shapes: synthetic pencils from a seed
@@ -405,10 +479,40 @@ def test_filter_tail_kernel_nan_draw_poisons_only_itself(device, n):
 
 
 def test_filter_tail_kernel_refuses_more_states_than_it_holds(device):
-    with pytest.raises(ValueError, match="n <= 64"):
-        filter_tail(*_tail_inputs(device, 65, 3, 2, seed=1))
-    with pytest.raises(ValueError, match="k <= 32"):
-        filter_tail(*_tail_inputs(device, 40, 33, 2, seed=1))
+    """n = 65 and k = 33, beyond the small-state kernel's registers (these
+    raised before the large-state kernel): both run the large-state variant,
+    float64 within 1e-12 of the plain version, float32 within 5e-4."""
+    for n, k in ((65, 3), (40, 33)):
+        args = _tail_inputs(device, n, k, 5, seed=1)
+        before = filter_tail.large_launches
+        assert _rel(filter_tail(*args), _filter_tail_plain(*args)) < 1e-12
+        assert filter_tail.large_launches == before + 1
+        args32 = [a.float() for a in args]
+        assert _rel(filter_tail(*args32), _filter_tail_plain(*args32)) < 5e-4
+
+
+@pytest.mark.parametrize("batch", [1, 67])
+@pytest.mark.parametrize("n,k", [(64, 7), (65, 7), (104, 7), (130, 7),
+                                 (300, 5), (40, 33)])
+def test_filter_tail_kernel_at_large_states(device, n, k, batch):
+    """Either side of the small-state kernel's n <= 64, the filter state of
+    104 of SW-2007 with year-on-year inflation, a stacked step too large to
+    sit in shared memory in float64 (n = 300) and k > 32: the variant the
+    wrapper records, float64 within 1e-12 of the plain version."""
+    args = _tail_inputs(device, n, k, batch, seed=n + k)
+    before = filter_tail.large_launches
+    assert _rel(filter_tail(*args), _filter_tail_plain(*args)) < 1e-12
+    assert filter_tail.large_launches - before == (n > 64 or k > 32)
+
+
+def test_large_filter_tail_kernel_nan_draw_poisons_only_itself(device):
+    args = _tail_inputs(device, 104, 7, 9, seed=3)
+    bad = [a.clone() for a in args]
+    bad[1][2, 0, 0] = float("nan")      # M of draw 2
+    clean, got = filter_tail(*args), filter_tail(*bad)
+    keep = [0, 1, 3, 4, 5, 6, 7, 8]
+    assert torch.isnan(got[2])
+    assert torch.equal(got[keep], clean[keep])
 
 
 # ---- K6 on ragged shapes: synthetic stable systems from a seed
@@ -464,8 +568,44 @@ def test_dare_kernel_nan_draw_poisons_only_itself(device):
 
 
 def test_dare_kernel_refuses_more_shared_memory_than_the_device_has(device):
-    with pytest.raises(ValueError, match="shared memory"):
-        dare_settle(*_dare_inputs(device, 80, 7, 2, seed=1))
+    """n = 80, whose float64 layout exceeds the device's shared memory (this
+    shape raised before the large-state kernel): it runs the large-state
+    variant, within rel 1e-11 of the plain version."""
+    args = _dare_inputs(device, 80, 7, 2, seed=1)
+    before = dare_settle.large_launches
+    P = dare_settle(*args)
+    assert dare_settle.large_launches == before + 1
+    assert _rel(P, _dare_plain(*args)) < 1e-11
+    assert torch.equal(P, P.mT)
+
+
+@pytest.mark.parametrize("edge", ["last small", "first large"])
+def test_dare_kernel_at_the_edge_of_the_small_state_plan(device, edge):
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    n = _last_small_n(lambda m: lib.gcp_dare_fits(m, 7))
+    n += edge == "first large"
+    args = _dare_inputs(device, n, 7, 3, seed=n)
+    before = dare_settle.large_launches
+    P = dare_settle(*args)
+    assert dare_settle.large_launches - before == (edge == "first large")
+    assert _rel(P, _dare_plain(*args)) < 1e-11
+
+
+def test_large_dare_kernel_nan_draw_poisons_only_itself(device):
+    """The large-state K6 (n = 70) on more draws than the persistent grid
+    holds at once: the NaN draw's workspace slot serves later draws, which
+    are bitwise what they are without it."""
+    args = _dare_inputs(device, 70, 7, 1100, seed=5)
+    bad = [a.clone() for a in args]
+    bad[0][1, 0, 0] = float("nan")      # T of draw 1
+    before = dare_settle.large_launches
+    clean, got = dare_settle(*args), dare_settle(*bad)
+    assert dare_settle.large_launches == before + 2
+    keep = torch.arange(1100, device=device) != 1
+    assert not torch.isfinite(got[1]).all()
+    assert torch.equal(got[keep], clean[keep])
 
 
 def test_fit_runs_its_chains_on_the_card(device):
@@ -809,7 +949,7 @@ def test_smoothers_and_posterior_tools_on_the_card_equal_the_cpu(device):
         assert gap(a, b) <= 1e-10
 
 
-def _rel(a, b):
+def _rel_max(a, b):
     """max |a - b| / max |b|, the finiteness equal."""
     a, b = a.detach().cpu().double(), b.detach().cpu().double()
     assert torch.equal(torch.isfinite(a), torch.isfinite(b))
@@ -866,7 +1006,7 @@ def test_posterior_bands_on_the_card_equal_the_cpu(rbc_posterior, name):
             a = a.cpu()
             assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-10
         else:
-            assert _rel(a, b) <= 1e-10
+            assert _rel_max(a, b) <= 1e-10
     if name == "posterior_diagnostics":
         for f in ("ss_success", "solver_success", "stable"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
@@ -886,7 +1026,7 @@ def test_predictive_and_forecasts_on_the_card_equal_the_cpu(rbc_posterior,
     g = torch.Generator().manual_seed(3)
     eps = torch.randn((8, 20, 1), generator=g, dtype=torch.float64)
     eta = torch.randn((8, 20, 2), generator=g, dtype=torch.float64)
-    assert _rel(posterior._predictive_paths(sols[0], eps.to(device),
+    assert _rel_max(posterior._predictive_paths(sols[0], eps.to(device),
                                             eta.to(device)),
                 posterior._predictive_paths(sols[1], eps, eta)) <= 1e-10
     runs = [posterior.posterior_predictive(
@@ -898,7 +1038,7 @@ def test_predictive_and_forecasts_on_the_card_equal_the_cpu(rbc_posterior,
     term = [forecast._terminal_state(s, sol, data)
             for s, sol in zip((ss, ss_cpu), full)]
     for a, b in zip(*term):
-        assert _rel(a, b) <= 1e-8
+        assert _rel_max(a, b) <= 1e-8
     fans = [forecast.posterior_forecast(ss, result, data, horizon=6, seed=2)
             for _ in range(2)]
     assert torch.equal(fans[0].mean, fans[1].mean)
@@ -908,7 +1048,7 @@ def test_predictive_and_forecasts_on_the_card_equal_the_cpu(rbc_posterior,
     got = forecast.conditional_forecast(ss, result, data, cond, **kw)
     want = forecast.conditional_forecast(ss_cpu, result, data, cond, **kw)
     for a, b in zip(_float_fields(got), _float_fields(want)):
-        assert _rel(a, b) <= 1e-8
+        assert _rel_max(a, b) <= 1e-8
     assert float((got[0].quantiles[:, 0, :3] - cond["Y"][0]).abs().max()) \
         <= 1e-8 * (1 + abs(cond["Y"][0]))
 
@@ -986,8 +1126,8 @@ def test_diagnostic_sweeps_on_the_card_equal_the_cpu(device):
     t_g = rbc.solve_model(verbose=False).summary()
     t_c = rbc.solve_model(verbose=False, device="cpu").summary()
     for x, y in zip(_float_fields(t_g), _float_fields(t_c)):
-        assert _rel(x, y) <= 1e-10
-    assert _rel(pdiag.spectral_radius_sensitivity(rbc).d_rho_d_param,
+        assert _rel_max(x, y) <= 1e-10
+    assert _rel_max(pdiag.spectral_radius_sensitivity(rbc).d_rho_d_param,
                 pdiag.spectral_radius_sensitivity(
                     rbc, device="cpu").d_rho_d_param) <= 1e-10
     e_g = pdiag.eigenvalue_sensitivity(rbc)
@@ -1018,7 +1158,7 @@ def test_diagnostic_sweeps_on_the_card_equal_the_cpu(device):
     want = prior_predictive._sweep_core(ss_cpu, U.cpu(), 12, 8,
                                         (0.05, 0.5, 0.95))
     for x, y in zip(_float_fields(got), _float_fields(want)):
-        assert _rel(x, y) <= 1e-10
+        assert _rel_max(x, y) <= 1e-10
     priors = {p.name: p.prior for p in ss.estimated}
     draws = sample_from_priors(priors, 16)     # the defaults: the card
     again = sample_from_priors(priors, 16, seed=0, device=device)
@@ -1063,7 +1203,7 @@ def test_second_order_solve_on_the_card_equals_the_cpu(device, name):
                                eps[:, :12]))]
     for a, b in pairs:
         assert a.device.type == "cuda"
-        assert _rel(a, b) <= 1e-10
+        assert _rel_max(a, b) <= 1e-10
 
 
 @pytest.mark.parametrize("method", ["marginalized", "full"])
@@ -1089,7 +1229,7 @@ def test_second_order_logpost_on_the_card_equals_the_cpu(rbc_posterior,
     fd = [nonlinear.filter_data_second_order(s, data, smoother=True)
           for s in (ss, ss_cpu)]
     for a, b in zip(_float_fields(fd[0]), _float_fields(fd[1])):
-        assert _rel(a, b) <= 1e-8
+        assert _rel_max(a, b) <= 1e-8
     nz = 2 * ss.model.functions.n_variables
     g_ = torch.Generator().manual_seed(4)
     init = torch.randn((2, 256, nz), generator=g_, dtype=torch.float64)
@@ -1125,7 +1265,7 @@ def test_second_order_estimation_runs_on_the_card(rbc_posterior, device):
     paths = [posterior._girf_paths(nonlinear._solution_fn(s)(
         us.to(s._device())), 0, None, normals.to(s._device()))
         for s in (ss, ss_cpu)]
-    assert _rel(paths[0], paths[1]) <= 1e-10
+    assert _rel_max(paths[0], paths[1]) <= 1e-10
     runs = [posterior.posterior_girfs(
         ss, result, ss.model.functions.shock_names[0],
         torch.Generator(device=device).manual_seed(1), periods=6, n_mc=8)

@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""Phase 16 of ``chip_smoke.py`` (the large-state kernels) alone.
+
+Run from the root of a checkout on a GPU:
+
+    python3 tools/large_state_probe.py
+
+It builds the kernels, makes SW-2007's model and runs
+``chip_smoke.large_state_phase`` (16a the sweep with each settle and 16b
+the value+grad at a filter state of 104, 16c each large-state kernel
+against its plain version), printing its lines and then the JSON rows of
+the four large-state variants.
+"""
+
+import json
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("large_state_probe: no CUDA device", file=sys.stderr)
+        return 2
+    import geconpy_torch
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_cycle_reduction import (
+        cycle_reduction, cycle_reduction_policy)
+    from geconpy_torch.ops.batched_dare import dare_settle
+    from geconpy_torch.ops.batched_filter import filter_tail
+    from geconpy_torch.ops.batched_settle import (settle_filter_loglik,
+                                                  settle_parts)
+
+    counted = {"cycle_reduction_policy": cycle_reduction_policy,
+               "settle_parts": settle_parts, "filter_tail": filter_tail,
+               "cycle_reduction": cycle_reduction, "dare_settle": dare_settle,
+               "settle_filter_loglik": settle_filter_loglik}
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+            if hasattr(fn, "large_launches"):
+                fn.large_launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    _cuda.library()
+    model = geconpy_torch.model_from_gcn(
+        geconpy_torch.get_example_gcn("sw2007"), verbose=False)
+    constant = [p for p in model.param_names
+                if p not in chip_smoke.SW_ESTIMATED]
+    launches, report = chip_smoke.large_state_phase(
+        chip_smoke.card_line(), reset_counts, read_counts, model, constant)
+    print(json.dumps({chip_smoke.LARGE_KERNELS[k]: dict(report[k],
+                                                        launches=launches[k])
+                      for k in report}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
