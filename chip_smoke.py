@@ -337,6 +337,33 @@ Phases, one line each (plus one line per kernel in phase 3):
    small-state plan, K3 at n = 65, 104, 130 and at n = 40, k = 33 (k = 7
    otherwise; n = 104 on the sweep's and value+grad's own inputs, the
    rest synthetic from a seed), each with its time, bound and share.
+17. the large-state K1 and K4 (``large_pencil_phase``;
+   ``tools/large_pencil_probe.py`` runs it alone; budget 60 s, printed
+   first): two SW-2007 economies side by side
+   (``tests/_gcn_fixtures/sw2007_two_economies.gcn``: the second economy
+   the first with every name suffixed ``_b``), whose dynamic core of
+   2 x 26 = 52 states is above the small-state K1/K4 plan (n <= 48); the
+   22 parameters of phase 4 estimated in each (44), the 7 observables of
+   each (14), 200 periods of ``data_from_prior`` (CUDA seed 0), draws that
+   draw + 0.05 N(0, 1) in float32.  17a ``build_batched_loglik(policy=
+   "pallas")`` at batch 4096 under each settle: the large-state K1 once a
+   sweep and the small-state K1 never, with K2 + K3, K5 or K3 as in phase
+   4; >= 99% finite, the first 512 draws within rel 5e-4 of the float64
+   CPU path; evals/s over 2 calls; K1's time on the ``"pallas"`` sweep's
+   own inputs (CUDA events) and its share of the call.  17b ``build_batched_logpost_and_grad(
+   settle="pallas")`` (stationary filter) at batch 512: the large-state
+   K4 once and K6; >= 99% finite, every gradient finite; of 64 draws the
+   card rejects those the CPU rejects, the rest within 5e-4 / 1e-3 of the
+   float64 CPU path; us/draw.  17c each large-state kernel against its
+   plain version at batch 256: float64 (``hold_to_plain``, rel 1e-9,
+   success flags equal) and float32 I/O (rel 5e-4 to the plain float64
+   outputs, success equal on >= 99%), K1 at n = 49 (the plan's first n
+   above it, printed for m = 7 and 14), 52, 64, 104 and 130 with m = 7
+   and 14, K4 at each n (n = 52 on 17a's and 17b's own inputs, the rest
+   synthetic, ``tools/cr_variants.py::stable_pencil``), and both at
+   n = 52 on more draws than the persistent grid's slots; each with its
+   time, bound and share (the plain version timed on the own inputs
+   only).
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -346,11 +373,14 @@ it: K1 and K5 the sweep's plus 15b's SMC under a mesh, K2 and K3 the
 ``"pallas"`` sweep's, K6 the ``"pallas"`` value+grad's, K4 the NUTS
 fit's), error, times and bound; the large-state variants of K2, K3, K5
 and K6 are rows of their own (``*_large``: launches on 16a and 16b, error,
-times and bound at 16c's n = 104).
+times and bound at 16c's n = 104), and so are those of K1 and K4
+(launches on 17a and 17b, error, times and bound at 17c's n = 52 on the
+path's own inputs).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import pathlib
@@ -545,6 +575,22 @@ LARGE_KERNELS = {"settle_parts": "settle_parts_large",
                  "filter_tail": "filter_tail_large",
                  "settle_filter_loglik": "settle_filter_loglik_large",
                  "dare_settle": "dare_settle_large"}
+
+# phase 17: two SW-2007 economies side by side (a test fixture: the second
+# economy is the first with every name suffixed _b), whose dynamic core of
+# 2 x 26 = 52 states is above the small-state K1 and K4 plan (n <= 48);
+# the 22 parameters of SW_ESTIMATED estimated in each and the 7 SW_OBS of
+# each observed.  17c's pencils: each n with m = 7 and 14 (m is K1's
+# alone) at batch PENCIL_BATCH, each kernel timed PENCIL_REPS times; the
+# phase's budget in seconds
+TWO_SW_GCN = "tests/_gcn_fixtures/sw2007_two_economies.gcn"
+TWO_SW_ESTIMATED = SW_ESTIMATED + [p + "_b" for p in SW_ESTIMATED]
+TWO_SW_OBS = SW_OBS + [o + "_b" for o in SW_OBS]
+PENCIL_N, PENCIL_M = (49, 52, 64, 104, 130), (7, 14)
+PENCIL_BATCH, PENCIL_REPS, PENCIL_BUDGET_S = 256, 3, 60
+# the large-state K1 and K4 in the kernels' JSON line
+PENCIL_KERNELS = {"cycle_reduction_policy": "cycle_reduction_policy_large",
+                  "cycle_reduction": "cycle_reduction_large"}
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -973,18 +1019,21 @@ def sequential_phase(card, reset_counts, read_counts, sw_model, constant,
     print(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}", flush=True)
 
 
-def hold_to_plain(name: str, args, accepted=None, phase: str = "9") -> str:
+def hold_to_plain(name: str, args, accepted=None, phase: str = "9",
+                  ref=None) -> str:
     """One kernel against its plain version on the same float64 inputs
-    (phases 9 and 16c): every output within rel 1e-9 on the draws both
+    (phases 9, 16c and 17c): every output within rel 1e-9 on the draws both
     keep, and equal flags (K1 and K4 success, K6 settled, the others'
-    finiteness on the ``accepted`` draws); raises otherwise.  Returns the
-    line's part."""
+    finiteness on the ``accepted`` draws); raises otherwise.  ``ref`` is
+    the plain version's output on ``args`` where the caller has it.
+    Returns the line's part."""
     import torch
 
     from geconpy_torch.ops.kalman import dare_residual_settled
 
     kernel, plain, outputs = kernel_checks()
-    got, ref = kernel[name](*args), plain[name](*args)
+    got = kernel[name](*args)
+    ref = plain[name](*args) if ref is None else ref
     torch.cuda.synchronize()
     got = dict(zip(outputs[name], got if isinstance(got, tuple) else (got,)))
     ref = dict(zip(outputs[name], ref if isinstance(ref, tuple) else (ref,)))
@@ -3428,7 +3477,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
             # lane and observables held
             switches = re.findall(r"Lb([01])E", template)
             ints = [int(v) for v in re.findall(r"Li(\d+)E", template)]
-            tag = {"cr_kernel": "+sel", "settle_kernel": "+tail",
+            tag = {"cr_kernel": "+sel", "cr_large_kernel": "+sel",
+                   "settle_kernel": "+tail",
                    "settle_large_kernel": "+tail"}.get(
                 name, "") if switches[:1] == ["1"] else ""
             extra = ", n > 32" if switches[1:] == ["0"] else ""
@@ -4088,12 +4138,19 @@ def main() -> int:
     large_launches, large_report = large_state_phase(
         card, reset_counts, read_counts, model, constant)
 
+    # ---- phase 17: the large-state K1 and K4 at a core of 52 states
+    pencil_launches, pencil_report = large_pencil_phase(
+        card, reset_counts, read_counts)
+
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
         rows = [(name, report[name], path_launches[name])]
         if name in LARGE_KERNELS:
             rows.append((LARGE_KERNELS[name], large_report[name],
                          large_launches[name]))
+        if name in PENCIL_KERNELS:
+            rows.append((PENCIL_KERNELS[name], pencil_report[name],
+                         pencil_launches[name]))
         for row_name, entry, launches in rows:
             kernels.append({
                 "name": row_name, "route": "cuda", "source": src,
@@ -4384,6 +4441,286 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
           f"{BATCH}, 16b's {VG_BATCH}): {work} B", flush=True)
     print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f} (budget "
           f"{LARGE_BUDGET_S})", flush=True)
+    return path_large, report
+
+
+def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
+    """Phase 17: the large-state K1 and K4 at the dynamic core of 52 states
+    of two SW-2007 economies side by side (17a the sweep with each settle,
+    17b the value+grad), and each of them against its plain version at
+    17c's pencils (see the module docstring).  Returns ({wrapper name:
+    large-state launches on 17a/17b}, {wrapper name: its JSON entry's
+    numbers at 17c's n = 52 on the path's own inputs}); raises on a
+    failure."""
+    import torch
+
+    import geconpy_torch
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_cycle_reduction import (
+        cr_policy_raw, cycle_reduction, cycle_reduction_policy)
+    from geconpy_torch.ops.batched_settle import LYAP_ITERS
+    from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from cr_variants import stable_pencil
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    print(f"phase 17 budget: {PENCIL_BUDGET_S} s (two SW-2007 economies, "
+          f"dynamic core 52)", flush=True)
+    # 17c's synthetic pencils (numpy, ~7 s of eigenvalues on the host) are
+    # made on a thread of their own while 17a and 17b run
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pencils = {n: pool.submit(stable_pencil, n, max(PENCIL_M), PENCIL_BATCH,
+                              n) for n in PENCIL_N}
+    wrappers = {"cycle_reduction_policy": cycle_reduction_policy,
+                "cycle_reduction": cycle_reduction}
+
+    def large_counts() -> dict:
+        return {k_: fn.large_launches for k_, fn in wrappers.items()}
+
+    model = geconpy_torch.model_from_gcn((ROOT / TWO_SW_GCN).read_text(),
+                                         verbose=False)
+    constant = [p for p in model.param_names if p not in TWO_SW_ESTIMATED]
+    kw = dict(observed_states=TWO_SW_OBS, constant_params=constant,
+              kalman_settle=N_SETTLE)
+    ss = DSGEStateSpace(model, device="cuda").configure(
+        filter_type="steady_state", **kw)
+    ss_cpu = DSGEStateSpace(model, device="cpu").configure(
+        filter_type="steady_state", **kw)
+    data, draw = ss.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+    data32 = data.astype("float32")
+    u0 = ss.unconstrain(draw).to(torch.float32)
+    n_core = len(ss._filter_core)
+    if u0.shape[0] != len(TWO_SW_ESTIMATED) or n_core != 52:
+        raise AssertionError(f"17: {u0.shape[0]} estimated parameters, core "
+                             f"{n_core}")
+    batch = u0[None, :] + 0.05 * torch.randn(
+        (BATCH, u0.shape[0]), device=dev, dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    ref = ss_cpu.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                      policy="pallas", settle="pallas")(
+        batch[:N_CHECK].double().cpu())
+    cpu_s = time.perf_counter() - t0
+
+    # ---- 17a: the sweep with each settle, the large-state K1 once a call
+    path_large = dict.fromkeys(wrappers, 0)
+    rec: dict = {}
+    paths = {"pallas": ("cycle_reduction_policy", "settle_parts",
+                        "filter_tail"),
+             "fused": ("cycle_reduction_policy", "settle_filter_loglik"),
+             "xla": ("cycle_reduction_policy", "filter_tail")}
+    for settle, path in paths.items():
+        sweep = ss.build_batched_loglik(data32, n_settle=N_SETTLE,
+                                        policy="pallas", settle=settle)
+        reset_counts()
+        torch.cuda.synchronize()
+        out = sweep(batch)
+        torch.cuda.synchronize()
+        launches, large = read_counts(), large_counts()
+        if launches["cycle_reduction_policy"] != 1 \
+                or large["cycle_reduction_policy"] != 1 \
+                or any(launches[k_] < 1 for k_ in path) \
+                or any(launches[k_] for k_ in launches if k_ not in path):
+            raise AssertionError(f"17a settle={settle}: expected the "
+                                 f"large-state K1 once and {path}, got "
+                                 f"{launches}, large {large}")
+        path_large["cycle_reduction_policy"] += large["cycle_reduction_policy"]
+        if out.shape != (BATCH,) or out.dtype != torch.float32:
+            raise AssertionError(f"17a output {tuple(out.shape)} {out.dtype}")
+        frac = float(torch.isfinite(out).float().mean())
+        got = out[:N_CHECK].double().cpu()
+        both = torch.isfinite(ref) & torch.isfinite(got)
+        if frac < 0.99 or float(both.double().mean()) < 0.99:
+            raise AssertionError(f"17a settle={settle}: {frac:.4f} finite, "
+                                 f"{int(both.sum())}/{N_CHECK} in both")
+        rel = float(((got - ref).abs() / (1.0 + ref.abs()))[both].max())
+        if rel >= 5e-4:
+            raise AssertionError(f"17a settle={settle} off the float64 CPU "
+                                 f"path by rel {rel:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            sweep(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2
+        k1 = ""
+        if settle == "pallas":
+            # K1 on this sweep's own inputs, its share of the call
+            rec_call: dict = {}
+            sweep(batch, record=rec_call)
+            k1_ms = cuda_time_ms(lambda: cr_policy_raw(
+                *rec_call["cycle_reduction_policy"], CR_ITERS), 1)
+            k1 = (f"; K1 on the call's own inputs {k1_ms:.1f} ms "
+                  f"({k1_ms / (wall * 1e3):.3f} of the call)")
+            sweep(batch[:PENCIL_BATCH].double(), record=rec)
+        names = ", ".join(f"{KERNELS[k_][0]} {launches[k_]}" for k_ in path)
+        print(f"phase 17a sweep settle={settle}: launches {names} (K1 the "
+              f"large-state variant); finite {frac:.4f}; rel vs float64 CPU "
+              f"path {rel:.3e} on {int(both.sum())}/{N_CHECK} (CPU "
+              f"{cpu_s:.1f} s); {BATCH / wall:.1f} evals/s (2 calls of batch "
+              f"{BATCH}, {wall * 1e3:.1f} ms a call){k1}; step "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+    # ---- 17b: value+grad on the stationary filter, the large-state K4
+    ss_vg = DSGEStateSpace(model, device="cuda").configure(
+        filter_type="stationary", **kw)
+    ss_vg_cpu = DSGEStateSpace(model, device="cpu").configure(
+        filter_type="stationary", **kw)
+    vg_batch = batch[:VG_BATCH]
+    vag = ss_vg.build_batched_logpost_and_grad(data, settle="pallas")
+    reset_counts()
+    torch.cuda.synchronize()
+    vals, grads = vag(vg_batch)
+    torch.cuda.synchronize()
+    launches, large = read_counts(), large_counts()
+    if launches["cycle_reduction"] != 1 or large["cycle_reduction"] != 1 \
+            or launches["dare_settle"] < 1:
+        raise AssertionError(f"17b: expected the large-state K4 once and K6, "
+                             f"got {launches}, large {large}")
+    path_large["cycle_reduction"] = large["cycle_reduction"]
+    frac = float(torch.isfinite(vals).float().mean())
+    if vals.shape != (VG_BATCH,) or frac < 0.99 \
+            or not bool(torch.isfinite(grads).all()):
+        raise AssertionError(f"17b: {tuple(vals.shape)}, {frac:.4f} finite, "
+                             f"gradients finite "
+                             f"{bool(torch.isfinite(grads).all())}")
+    t0 = time.perf_counter()
+    v_ref, g_ref = ss_vg_cpu.build_batched_logpost_and_grad(
+        data, settle="pallas")(vg_batch[:VG_CHECK].double().cpu())
+    cpu_s = time.perf_counter() - t0
+    v_got = vals[:VG_CHECK].double().cpu()
+    g_got = grads[:VG_CHECK].double().cpu()
+    both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+    if not torch.equal(torch.isfinite(v_ref), torch.isfinite(v_got)):
+        raise AssertionError(f"17b: rejected on the card "
+                             f"{int((~torch.isfinite(v_got)).sum())}, on the "
+                             f"CPU {int((~torch.isfinite(v_ref)).sum())}, "
+                             f"not the same draws")
+    rel_v = float(((v_got - v_ref).abs() / (1.0 + v_ref.abs()))[both].max())
+    rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                   / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+    if rel_v > 5e-4 or rel_g > 1e-3:
+        raise AssertionError(f"17b off the float64 CPU path: value rel "
+                             f"{rel_v:.3e}, gradient rel {rel_g:.3e}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        vag(vg_batch)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / (2 * VG_BATCH) * 1e6
+    vg_rec: dict = {}
+    ss_vg.build_batched_logpost(data, settle="pallas")(
+        vg_batch[:PENCIL_BATCH].double(), record=vg_rec)
+    print(f"phase 17b value+grad settle=pallas: launches K4 "
+          f"{launches['cycle_reduction']} (large-state variant), K6 "
+          f"{launches['dare_settle']}; finite {frac:.4f}, every gradient "
+          f"finite; vs float64 CPU path on {int(both.sum())}/{VG_CHECK}: "
+          f"value rel {rel_v:.3e}, gradient rel {rel_g:.3e} (CPU "
+          f"{cpu_s:.1f} s); {us:.2f} us/draw (2 calls of batch {VG_BATCH}); "
+          f"step {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+    # ---- 17c: each large-state kernel against its plain version
+    lib = _cuda.library()
+    kernel, plain, outputs = kernel_checks()
+
+    def first_large(m: int) -> int:
+        n = 1
+        while lib.gcp_cr_fits(n, m):
+            n += 1
+        return n
+
+    def slots(n: int, m: int) -> int:
+        return (lib.gcp_cr_large_work_bytes(1, 1, n, m, 1 << 20)
+                // lib.gcp_cr_large_work_bytes(1, 1, n, m, 1))
+
+    # more draws than the persistent grid holds at once: the slots stride
+    over = slots(52, 14) + 64
+    over_pencil = pool.submit(stable_pencil, 52, 14, over, 5214)
+    pool.shutdown(wait=False)
+
+    edges = {m: first_large(m) for m in (0, *PENCIL_M)}
+    print(f"phase 17c the small-state plan's first n that does not fit: "
+          f"{edges[7]} (m = 7), {edges[14]} (m = 14), {edges[0]} (K4); "
+          f"persistent grid at n = 52, m = 14: {slots(52, 14)} draw slots "
+          f"[{card}]", flush=True)
+    cases = []   # (wrapper name, label, float64 args)
+    for n in PENCIL_N:
+        # one pencil an n; D's first m columns for each m
+        pencil = tuple(torch.as_tensor(a, device=dev)
+                       for a in pencils[n].result())
+        for m in PENCIL_M:
+            if (n, m) == (52, 14):
+                cases.append(("cycle_reduction_policy", "n = 52, m = 14, "
+                              "17a's own inputs", rec["cycle_reduction_policy"]))
+                continue
+            cases.append(("cycle_reduction_policy", f"n = {n}, m = {m}, "
+                          "synthetic", (*pencil[:3],
+                                        pencil[3][..., :m].contiguous())))
+        cases.append(("cycle_reduction", f"n = {n}, 17b's own inputs"
+                      if n == 52 else f"n = {n}, synthetic",
+                      vg_rec["cycle_reduction"] if n == 52 else pencil[:3]))
+    pencil = tuple(torch.as_tensor(a, device=dev)
+                   for a in over_pencil.result())
+    cases += [("cycle_reduction_policy", f"n = 52, m = 14, batch {over} "
+               "(above the slots), synthetic", pencil),
+              ("cycle_reduction", f"n = 52, batch {over} (above the slots), "
+               "synthetic", pencil[:3])]
+    report = {}
+    for name, label, args in cases:
+        before = wrappers[name].large_launches
+        ref64 = plain[name](*args)
+        part = hold_to_plain(name, args, phase="17c", ref=ref64)
+        # float32 I/O: T (and R) within 5e-4 of the plain version's float64
+        # outputs on the draws both accept
+        args32 = tuple(X.float() for X in args)
+        got = dict(zip(outputs[name], kernel[name](*args32)))
+        want = dict(zip(outputs[name], ref64))
+        ok_k = cr_success(got.pop("flags"), torch.float32)
+        ok_p = cr_success(want.pop("flags"), torch.float64)
+        agree = float((ok_k == ok_p).double().mean())
+        both = ok_k & ok_p
+        rel32 = max(compare(got[k_][both].double(), want[k_][both])[0]
+                    for k_ in got)
+        if agree < 0.99 or rel32 > 5e-4:
+            raise AssertionError(f"17c {name} at {label} float32 I/O: rel "
+                                 f"{rel32:.3e}, success agrees on {agree:.4f}")
+        if wrappers[name].large_launches != before + 2:
+            raise AssertionError(f"17c {name} at {label}: expected the "
+                                 f"large-state kernel")
+        # timed at the path's I/O: the sweep's float32 (K1), float64 (K4);
+        # the plain version (launch-bound, ~0.3-1 s) on the path's own
+        # inputs only
+        timed = args32 if name == "cycle_reduction_policy" else args
+        ms = cuda_time_ms(lambda: kernel[name](*timed), PENCIL_REPS)
+        bound_ms, bound_by = bound(name, timed, CR_ITERS, LYAP_ITERS)
+        plain_part = ""
+        if "own inputs" in label:
+            plain_ms = cuda_time_ms(lambda: plain[name](*timed), 1)
+            plain_part = f", plain {plain_ms:.3f} ms"
+            got, want = kernel[name](*args), ref64
+            ok = cr_success(got[-1], torch.float64) \
+                & cr_success(want[-1], torch.float64)
+            abs_err = max(float((g[ok] - w[ok]).abs().max())
+                          for g, w in zip(got[:-1], want[:-1]))
+            report[name] = {"abs_f64": abs_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by}
+        print(f"phase 17c {part}, float32 I/O rel {rel32:.2e}, at {label}, "
+              f"batch {args[0].shape[0]}, large-state kernel "
+              f"({timed[0].dtype} I/O): {ms:.3f} ms{plain_part}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4f}; "
+              f"step {time.perf_counter() - t_phase:.1f} s [{card}]",
+              flush=True)
+    work = {"K1": lib.gcp_cr_large_work_bytes(0, 1, 52, 14, BATCH),
+            "K4": lib.gcp_cr_large_work_bytes(1, 0, 52, 0, VG_BATCH)}
+    print(f"phase 17 large-state workspaces at n = 52 (17a's batch {BATCH}, "
+          f"17b's {VG_BATCH}): {work} B", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 17 seconds: {wall:.1f} (budget {PENCIL_BUDGET_S})",
+          flush=True)
     return path_large, report
 
 

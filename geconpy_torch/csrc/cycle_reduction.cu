@@ -52,6 +52,19 @@
 //    barrier per pivot, the pivot search overlapped with the update), on an
 //    augmented system of three zero-padded blocks [A1 | A0 | A2] whose spent
 //    left block receives A2 Q0.
+//
+// The large-state kernel.  From n = 49 (ceil16(n) = 64 rows: 242,336 B a draw
+// at n = 52, m = 14) one draw no longer fits the 232,448 B a block may
+// have, and the reference's kernels, which size their VMEM block by the
+// batch tile, take any n.  cr_large_kernel runs the recursion of the n > 32
+// instance (cr_draw: the same doublings, cr_eliminate's pivots and tile_mm's
+// products, on the same layout) with each draw's buffers in a float64
+// workspace in device memory instead, read through L1 and L2.  The grid is
+// persistent (as many blocks as are resident, each draw slot striding over
+// the batch), so the workspace is the card's resident draws times one
+// layout, not the batch's.  The wrappers pick the small-state kernel
+// wherever its plan fits one draw a block (gcp_cr_fits), the large-state
+// one elsewhere.
 #include "small_linalg.cuh"
 
 #ifndef GCP_CR_DRAWS
@@ -434,31 +447,24 @@ __device__ __forceinline__ void cr_solve_regs(
 
 // kRegs: the instance for n <= 32 (cr_solve_regs; CrLayout's regs), compiled
 // apart so that neither carries the other's registers
+// The recursion of draw b by the draw's kCrThreads threads (warp w.warp of
+// draw `draw` of its block) on the draw's buffers at sm (CrLayout L): shared
+// memory in cr_kernel, a slot of the workspace in device memory in
+// cr_large_kernel.  Returns once b's outputs are written; the caller
+// synchronises the draw before it reuses the buffers.
 template <typename S, bool kSelect, bool kRegs>
-__global__ void __launch_bounds__(kCrThreads* GCP_CR_DRAWS, GCP_CR_MIN_BLOCKS)
-    cr_kernel(const S* __restrict__ gA, const S* __restrict__ gB,
-              const S* __restrict__ gC, const S* __restrict__ gD,
-              S* __restrict__ gT, S* __restrict__ gR, S* __restrict__ gflags,
-              int batch, int n, int m, int n_iter) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const CrLayout L(n, m);
-  const int draws = blockDim.x / kCrThreads;
-  // the warp's number through a shuffle, so that the compiler knows it (and
-  // the draw and every branch on them) to be uniform: the mma then need no
-  // reconvergence code around them
-  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
-  const int draw = block_warp / kCrWarps;
-  const WarpCtx w{block_warp - draw * kCrWarps, kCrWarps,
-                  (int)(threadIdx.x & 31)};
+__device__ __forceinline__ void cr_draw(
+    const S* __restrict__ gA, const S* __restrict__ gB,
+    const S* __restrict__ gC, const S* __restrict__ gD, S* __restrict__ gT,
+    S* __restrict__ gR, S* __restrict__ gflags, double* sm,
+    const CrLayout& L, size_t b, int n, int m, int n_iter, WarpCtx w,
+    int draw) {
   const int dt = w.warp * 32 + w.lane;   // thread of the draw
-  const size_t b = (size_t)blockIdx.x * draws + draw;
-  if (b >= (size_t)batch) return;   // no barrier spans two draws
 #if GCP_CR_PROBE
-  const bool probe = blockIdx.x == 0 && draw == 0 && dt == 0;
+  const bool probe = b == 0 && dt == 0;
   unsigned long long probe_t = clock64();
 #endif
 
-  double* sm = reinterpret_cast<double*>(smem_raw) + (size_t)draw * L.total;
   double* A0 = sm + L.A0;
   double* A1 = sm + L.A1;
   double* A2 = sm + L.A2;
@@ -709,6 +715,59 @@ __global__ void __launch_bounds__(kCrThreads* GCP_CR_DRAWS, GCP_CR_MIN_BLOCKS)
 }
 
 template <typename S, bool kSelect, bool kRegs>
+__global__ void __launch_bounds__(kCrThreads* GCP_CR_DRAWS, GCP_CR_MIN_BLOCKS)
+    cr_kernel(const S* __restrict__ gA, const S* __restrict__ gB,
+              const S* __restrict__ gC, const S* __restrict__ gD,
+              S* __restrict__ gT, S* __restrict__ gR, S* __restrict__ gflags,
+              int batch, int n, int m, int n_iter) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const CrLayout L(n, m);
+  const int draws = blockDim.x / kCrThreads;
+  // the warp's number through a shuffle, so that the compiler knows it (and
+  // the draw and every branch on them) to be uniform: the mma then need no
+  // reconvergence code around them
+  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int draw = block_warp / kCrWarps;
+  const WarpCtx w{block_warp - draw * kCrWarps, kCrWarps,
+                  (int)(threadIdx.x & 31)};
+  const size_t b = (size_t)blockIdx.x * draws + draw;
+  if (b >= (size_t)batch) return;   // no barrier spans two draws
+  double* sm = reinterpret_cast<double*>(smem_raw) + (size_t)draw * L.total;
+  cr_draw<S, kSelect, kRegs>(gA, gB, gC, gD, gT, gR, gflags, sm, L, b, n, m,
+                             n_iter, w, draw);
+}
+
+// The large-state kernel: cr_draw's recursion above n = 32 (cr_eliminate)
+// with each draw's buffers in a float64 workspace in device memory (gwork,
+// L.total doubles per draw slot) instead of shared memory.  The grid is
+// persistent: it holds as many blocks as are resident at once, and each
+// draw slot strides over the batch, so the workspace scales with the card,
+// not with the batch.
+template <typename S, bool kSelect>
+__global__ void __launch_bounds__(kCrThreads* GCP_CR_DRAWS, GCP_CR_MIN_BLOCKS)
+    cr_large_kernel(const S* __restrict__ gA, const S* __restrict__ gB,
+                    const S* __restrict__ gC, const S* __restrict__ gD,
+                    S* __restrict__ gT, S* __restrict__ gR,
+                    S* __restrict__ gflags, double* gwork, int batch, int n,
+                    int m, int n_iter) {
+  const CrLayout L(n, m);
+  const int draws = blockDim.x / kCrThreads;
+  const int block_warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int draw = block_warp / kCrWarps;
+  const WarpCtx w{block_warp - draw * kCrWarps, kCrWarps,
+                  (int)(threadIdx.x & 31)};
+  const size_t slot = (size_t)blockIdx.x * draws + draw;
+  double* sm = gwork + slot * L.total;
+  // a draw slot past the batch leaves at once: no barrier spans two draws
+  for (size_t b = slot; b < (size_t)batch;
+       b += (size_t)gridDim.x * draws) {
+    cr_draw<S, kSelect, false>(gA, gB, gC, gD, gT, gR, gflags, sm, L, b, n,
+                               m, n_iter, w, draw);
+    cr_barrier(draw);   // every warp is done with the slot's buffers
+  }
+}
+
+template <typename S, bool kSelect, bool kRegs>
 int launch_cr_as(const void* A, const void* B, const void* C, const void* D,
                  void* T, void* R, void* flags, int batch, int n, int m,
                  int n_iter, const CrPlan& plan, cudaStream_t stream) {
@@ -736,6 +795,51 @@ int launch_cr(const void* A, const void* B, const void* C, const void* D,
                                           m, n_iter, plan, stream);
   return launch_cr_as<S, kSelect, false>(A, B, C, D, T, R, flags, batch, n,
                                          m, n_iter, plan, stream);
+}
+
+// The large-state launch: GCP_CR_DRAWS draws a block, no shared memory, and
+// as many blocks as the card holds at once (at most one per GCP_CR_DRAWS
+// draws of the batch).
+struct CrLargePlan {
+  int draws, blocks;
+  size_t work_bytes;
+};
+
+template <typename S, bool kSelect>
+CrLargePlan cr_large_plan(int n, int m, int batch) {
+  CrLargePlan p;
+  p.draws = GCP_CR_DRAWS;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, cr_large_kernel<S, kSelect>, kCrThreads * p.draws, 0);
+  const int need = (batch + p.draws - 1) / p.draws;
+  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
+  p.blocks = need < resident ? need : resident;
+  p.work_bytes = (size_t)p.blocks * p.draws * CrLayout(n, m).total *
+                 sizeof(double);
+  return p;
+}
+
+template <typename S, bool kSelect>
+int launch_cr_large(const void* A, const void* B, const void* C,
+                    const void* D, void* T, void* R, void* flags, void* work,
+                    size_t work_bytes, int batch, int n, int m, int n_iter,
+                    cudaStream_t stream) {
+  // the layout of cr_eliminate's instance; n <= 32 always fits shared memory
+  if (CrLayout(n, m).regs) return (int)cudaErrorInvalidValue;
+  const CrLargePlan plan = cr_large_plan<S, kSelect>(n, m, batch);
+  if (plan.blocks < 1) return 0;
+  if (work == nullptr || work_bytes < plan.work_bytes)
+    return (int)cudaErrorInvalidValue;
+  cr_large_kernel<S, kSelect><<<plan.blocks, kCrThreads * plan.draws, 0,
+                                stream>>>(
+      static_cast<const S*>(A), static_cast<const S*>(B),
+      static_cast<const S*>(C), static_cast<const S*>(D), static_cast<S*>(T),
+      static_cast<S*>(R), static_cast<S*>(flags), static_cast<double*>(work),
+      batch, n, m, n_iter);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace gcp
@@ -776,6 +880,59 @@ size_t gcp_cr_smem_bytes(int n) { return gcp::cr_plan(n, 0).bytes; }
 
 // Draws per block of that launch (kCrThreads threads each); m = 0 for gcp_cr.
 int gcp_cr_draws_per_block(int n, int m) { return gcp::cr_plan(n, m).draws; }
+
+// Whether the small-state plan at (n, m) (m = 0: gcp_cr) fits one draw a
+// block in the device's shared memory (then gcp_cr_policy / gcp_cr run;
+// else the large entry points).
+int gcp_cr_fits(int n, int m) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return gcp::cr_plan(n, m).bytes <= (size_t)limit;
+}
+
+// The large-state entry points: the arguments of gcp_cr_policy and gcp_cr,
+// plus a float64 workspace of work_bytes >= gcp_cr_large_work_bytes(...) in
+// device memory (cudaErrorInvalidValue, without a launch, if it is smaller
+// or if n <= 32).
+int gcp_cr_policy_large(int dtype, const void* A, const void* B,
+                        const void* C, const void* D, void* T, void* R,
+                        void* flags, void* work, size_t work_bytes, int batch,
+                        int n, int m, int n_iter, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gcp::launch_cr_large<float, true>(A, B, C, D, T, R, flags, work,
+                                             work_bytes, batch, n, m, n_iter,
+                                             s);
+  return gcp::launch_cr_large<double, true>(A, B, C, D, T, R, flags, work,
+                                            work_bytes, batch, n, m, n_iter, s);
+}
+
+int gcp_cr_large(int dtype, const void* A, const void* B, const void* C,
+                 void* T, void* flags, void* work, size_t work_bytes,
+                 int batch, int n, int n_iter, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gcp::launch_cr_large<float, false>(A, B, C, nullptr, T, nullptr,
+                                              flags, work, work_bytes, batch,
+                                              n, 0, n_iter, s);
+  return gcp::launch_cr_large<double, false>(A, B, C, nullptr, T, nullptr,
+                                             flags, work, work_bytes, batch, n,
+                                             0, n_iter, s);
+}
+
+// The workspace the large-state launch needs for this batch: one draw slot
+// of the float64 layout per resident draw (select: the K1 launch, with m
+// columns of D; else K4, m = 0).
+size_t gcp_cr_large_work_bytes(int dtype, int select, int n, int m,
+                               int batch) {
+  if (select)
+    return dtype == 0 ? gcp::cr_large_plan<float, true>(n, m, batch).work_bytes
+                      : gcp::cr_large_plan<double, true>(n, m, batch)
+                            .work_bytes;
+  return dtype == 0 ? gcp::cr_large_plan<float, false>(n, 0, batch).work_bytes
+                    : gcp::cr_large_plan<double, false>(n, 0, batch).work_bytes;
+}
 
 #if GCP_CR_PROBE
 // The probe's clocks (8 sums, see cr_probe): set to 0, and read back.

@@ -32,8 +32,8 @@ import tempfile
 import torch
 
 __all__ = ["library", "check", "stream_handle", "dtype_code",
-           "smem_limit", "require_cuda_inputs", "count_launch", "workspace",
-           "build_root", "CSRC", "BUILD_ROOT"]
+           "require_cuda_inputs", "count_launch", "workspace", "build_root",
+           "CSRC", "BUILD_ROOT"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "geconpy_torch"
@@ -55,6 +55,12 @@ _SIGNATURES = {
     "gcp_cr_policy_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "gcp_cr": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
     "gcp_cr_smem_bytes": ([_I], ctypes.c_size_t),
+    "gcp_cr_policy_large": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _Z, _I, _I,
+                             _I, _I, _P], ctypes.c_int),
+    "gcp_cr_large": ([_I, _P, _P, _P, _P, _P, _P, _Z, _I, _I, _I, _P],
+                     ctypes.c_int),
+    "gcp_cr_fits": ([_I, _I], ctypes.c_int),
+    "gcp_cr_large_work_bytes": ([_I, _I, _I, _I, _I], ctypes.c_size_t),
     "gcp_dare": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                  ctypes.c_int),
     "gcp_dare_smem_bytes": ([_I, _I], ctypes.c_size_t),
@@ -193,12 +199,6 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype == torch.float64:
         return 1
     raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
-
-
-def smem_limit(device: torch.device) -> int:
-    """Largest dynamic shared memory a block may opt in to on ``device``."""
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin", 232448))
 
 
 def count_launch(wrapper, large: bool) -> None:

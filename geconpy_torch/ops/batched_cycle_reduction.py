@@ -20,8 +20,15 @@ gives each draw four warps under a named barrier of their own, its
 matrices resident in shared memory for the whole recursion, the products on
 the FP64 tensor cores and, for n <= 32, the eliminations in registers: one
 warp runs the pivots ahead while the other three apply them (the source's
-note says more; the shared memory of a draw limits n to 48).  The TPU-only
-parts are gone: the Mosaic
+note says more).  That small-state kernel runs wherever one draw's
+matrices fit the device's shared memory (``gcp_cr_fits``: n <= 48); the
+reference's kernels take any n, so beyond that a large-state kernel runs
+the same recursion with each draw's buffers in a float64 workspace in
+device memory, allocated by the wrapper for the resident draws of a
+persistent grid, its products and eliminations reading through L1 and L2.
+``cycle_reduction_policy.large_launches`` and
+``cycle_reduction.large_launches`` count those launches among
+``launches``.  The TPU-only parts are gone: the Mosaic
 identity embedding for n < 8 and the lane padding (neither changes T, R,
 the residual or the success flag).  It takes and returns the caller's
 dtype but runs the recursion in float64, and so does the plain version:
@@ -117,22 +124,25 @@ def _cr_policy_cuda(A, B, C, D, n_iter: int):
         {"A": (A, (Bn, n, n)), "B": (B, (Bn, n, n)), "C": (C, (Bn, n, n)),
          "D": (D, (Bn, n, m))}, A.dtype, A.device)
     lib = _cuda.library()
-    smem = lib.gcp_cr_policy_smem_bytes(n, m)
-    if smem > _cuda.smem_limit(A.device):
-        raise ValueError(
-            f"cycle_reduction_policy: n={n}, m={m} in {A.dtype} needs {smem} "
-            f"bytes of shared memory per block, above the device's "
-            f"{_cuda.smem_limit(A.device)}")
+    # the small-state kernel where one draw fits the device's shared
+    # memory, else the large-state one with its workspace in device memory
+    large = not lib.gcp_cr_fits(n, m)
     T = torch.empty((Bn, n, n), dtype=A.dtype, device=A.device)
     R = torch.empty((Bn, n, m), dtype=A.dtype, device=A.device)
     flags = torch.empty((Bn, 3), dtype=A.dtype, device=A.device)
     if Bn:
-        code = lib.gcp_cr_policy(
-            _cuda.dtype_code(A.dtype), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), D.data_ptr(), T.data_ptr(), R.data_ptr(),
-            flags.data_ptr(), Bn, n, m, n_iter, _cuda.stream_handle(A.device))
+        code_dt = _cuda.dtype_code(A.dtype)
+        ptrs = [X.data_ptr() for X in (A, B, C, D, T, R, flags)]
+        stream = _cuda.stream_handle(A.device)
+        if large:
+            nbytes = lib.gcp_cr_large_work_bytes(code_dt, 1, n, m, Bn)
+            work = _cuda.workspace(nbytes, A.device)
+            code = lib.gcp_cr_policy_large(code_dt, *ptrs, work.data_ptr(),
+                                           nbytes, Bn, n, m, n_iter, stream)
+        else:
+            code = lib.gcp_cr_policy(code_dt, *ptrs, Bn, n, m, n_iter, stream)
         _cuda.check(code, "cycle_reduction_policy")
-        cycle_reduction_policy.launches += 1
+        _cuda.count_launch(cycle_reduction_policy, large)
     return T, R, flags
 
 
@@ -180,8 +190,10 @@ def cycle_reduction_policy(A, B, C, D, order: np.ndarray | None = None,
     return T, R, success, resid
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either variant) since the count was last
+#: set to 0, and of its large-state variant alone
 cycle_reduction_policy.launches = 0
+cycle_reduction_policy.large_launches = 0
 
 
 def _cr_cuda(A, B, C, n_iter: int):
@@ -192,20 +204,22 @@ def _cr_cuda(A, B, C, n_iter: int):
         {"A": (A, (Bn, n, n)), "B": (B, (Bn, n, n)), "C": (C, (Bn, n, n))},
         A.dtype, A.device)
     lib = _cuda.library()
-    smem = lib.gcp_cr_smem_bytes(n)
-    if smem > _cuda.smem_limit(A.device):
-        raise ValueError(
-            f"cycle_reduction: n={n} needs {smem} bytes of shared memory per "
-            f"block, above the device's {_cuda.smem_limit(A.device)}")
+    large = not lib.gcp_cr_fits(n, 0)
     T = torch.empty((Bn, n, n), dtype=A.dtype, device=A.device)
     flags = torch.empty((Bn, 2), dtype=A.dtype, device=A.device)
     if Bn:
-        code = lib.gcp_cr(
-            _cuda.dtype_code(A.dtype), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), T.data_ptr(), flags.data_ptr(), Bn, n, n_iter,
-            _cuda.stream_handle(A.device))
+        code_dt = _cuda.dtype_code(A.dtype)
+        ptrs = [X.data_ptr() for X in (A, B, C, T, flags)]
+        stream = _cuda.stream_handle(A.device)
+        if large:
+            nbytes = lib.gcp_cr_large_work_bytes(code_dt, 0, n, 0, Bn)
+            work = _cuda.workspace(nbytes, A.device)
+            code = lib.gcp_cr_large(code_dt, *ptrs, work.data_ptr(), nbytes,
+                                    Bn, n, n_iter, stream)
+        else:
+            code = lib.gcp_cr(code_dt, *ptrs, Bn, n, n_iter, stream)
         _cuda.check(code, "cycle_reduction")
-        cycle_reduction.launches += 1
+        _cuda.count_launch(cycle_reduction, large)
     return T, flags
 
 
@@ -242,5 +256,7 @@ def cycle_reduction(A, B, C, order: np.ndarray | None = None,
     return T, success
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either variant) since the count was last
+#: set to 0, and of its large-state variant alone
 cycle_reduction.launches = 0
+cycle_reduction.large_launches = 0

@@ -15,7 +15,8 @@ K5 and K6 also run at state sizes beyond their small-state kernels (the
 large-state variants: either side of each small-state plan's edge, the
 filter state of 104, k > 32 for K3), at the same bars, and a NaN draw
 there poisons only itself, also where its workspace slot serves later
-draws; K1 and K4 refuse a pencil beyond their shared memory.  The
+draws; so do K1 and K4 beyond their small-state plan (n = 49 to 104, the
+two-economy SW-2007 core of 52 among them).  The
 numeric steady state of ``open_rbc`` runs on the card as on the CPU (the
 same iterations and flags, x_ss at rel 1e-10), and its implicit gradient
 is finite inside the value+grad path at batch 512.
@@ -415,13 +416,87 @@ def test_cycle_reduction_kernels_nan_draw_poisons_only_itself(device, n):
     assert not ok4[1] and not ok4[4] and bool(ok4[keep].all())
 
 
+def _cr_slots(n, m) -> int:
+    """Draw slots of the large-state K1's persistent grid at (n, m): the
+    draws it holds at once."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    return (lib.gcp_cr_large_work_bytes(1, 1, n, m, 1 << 20)
+            // lib.gcp_cr_large_work_bytes(1, 1, n, m, 1))
+
+
+# the large-state K1 and K4: the first n above the small-state plan (49),
+# the two-economy SW-2007 core (52), 64 and 104
+LARGE_CR_NM = [(n, m) for n in (49, 52, 64, 104) for m in (7, 14)]
+
+
+@pytest.mark.parametrize("batch", ["3", "above the slots"])
+@pytest.mark.parametrize("n,m", LARGE_CR_NM)
 def test_cycle_reduction_kernels_refuse_more_shared_memory_than_the_device_has(
-        device):
-    args = _pencil(device, 49, 7, 2, seed=1)
-    with pytest.raises(ValueError, match="shared memory"):
-        cr_policy_raw(*args, CR_ITERS)
-    with pytest.raises(ValueError, match="shared memory"):
-        cr_raw(*args[:3], CR_ITERS)
+        device, n, m, batch):
+    """A pencil whose float64 layout exceeds the device's shared memory (n =
+    49 raised here before the large-state kernels): K1 and K4 run their
+    large-state variant, float64 within rel 1e-9 of the plain version with
+    every draw solved, float32 I/O within 5e-4; at 3 draws, and at more
+    draws than the persistent grid holds at once, so that slots stride."""
+    from geconpy_torch.ops import _cuda
+
+    assert not _cuda.library().gcp_cr_fits(n, m)
+    assert not _cuda.library().gcp_cr_fits(n, 0)
+    Bn = 3 if batch == "3" else _cr_slots(n, m) + 5
+    args = _pencil(device, n, m, Bn, seed=100 * n + m)
+    before = (cycle_reduction_policy.large_launches,
+              cycle_reduction.large_launches)
+    T, R, flags = cr_policy_raw(*args, CR_ITERS)
+    T0, R0, flags0 = _cr_policy_plain(*args, CR_ITERS)
+    assert _rel(T, T0) < 1e-9 and _rel(R, R0) < 1e-9
+    assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
+    T4, flags4 = cr_raw(*args[:3], CR_ITERS)
+    T40, flags40 = _cr_plain(*args[:3], CR_ITERS)
+    assert _rel(T4, T40) < 1e-9 and _rel(flags4[:, 1:], flags40[:, 1:]) < 1e-9
+    assert (cycle_reduction_policy.large_launches,
+            cycle_reduction.large_launches) == (before[0] + 1, before[1] + 1)
+    assert bool(cycle_reduction_policy(*args, n_iter=CR_ITERS)[2].all())
+    assert bool(cycle_reduction(*args[:3], n_iter=CR_ITERS)[1].all())
+    args32 = [a.float() for a in args]
+    for got, want in ((cr_policy_raw(*args32, CR_ITERS),
+                       _cr_policy_plain(*args32, CR_ITERS)),
+                      (cr_raw(*args32[:3], CR_ITERS),
+                       _cr_plain(*args32[:3], CR_ITERS))):
+        for g, w in zip(got[:-1], want[:-1]):
+            assert g.dtype == torch.float32 and _rel(g, w) < 5e-4
+
+
+def test_large_cycle_reduction_kernels_nan_draw_poisons_only_itself(device):
+    """The large-state K1 and K4 (n = 52, m = 14) on more draws than the
+    persistent grid holds at once, with a NaN draw and a draw whose first
+    pivot column is zero: both are flagged, not raised, and every other
+    draw, also those that reuse their workspace slots, is bitwise what it
+    is without them."""
+    Bn = _cr_slots(52, 14) + 5
+    args = _pencil(device, 52, 14, Bn, seed=7)
+    bad = [a.clone() for a in args]
+    bad[0][1, 0, 0] = float("nan")
+    bad[1][4, :, 0] = 0.0          # B's first column: a zero pivot
+    keep = torch.ones(Bn, dtype=torch.bool, device=device)
+    keep[[1, 4]] = False
+    before = (cycle_reduction_policy.large_launches,
+              cycle_reduction.large_launches)
+    clean, got = cr_policy_raw(*args, CR_ITERS), cr_policy_raw(*bad, CR_ITERS)
+    for g, c in zip(got, clean):
+        assert torch.equal(g[keep], c[keep])
+    assert not torch.isfinite(got[0][1]).all()
+    assert not bool(got[2][4, 0] > 1e-7)   # min |pivot|: 0, or NaN after it
+    ok = cycle_reduction_policy(*bad, n_iter=CR_ITERS)[2]
+    assert not ok[1] and not ok[4] and bool(ok[keep].all())
+    clean4, got4 = cr_raw(*args[:3], CR_ITERS), cr_raw(*bad[:3], CR_ITERS)
+    for g, c in zip(got4, clean4):
+        assert torch.equal(g[keep], c[keep])
+    ok4 = cycle_reduction(*bad[:3], n_iter=CR_ITERS)[1]
+    assert not ok4[1] and not ok4[4] and bool(ok4[keep].all())
+    assert (cycle_reduction_policy.large_launches,
+            cycle_reduction.large_launches) == (before[0] + 3, before[1] + 3)
 
 
 # ---- K3 on ragged shapes: synthetic stable tails from a seed
@@ -1234,7 +1309,9 @@ def test_second_order_logpost_on_the_card_equals_the_cpu(rbc_posterior,
     g_ = torch.Generator().manual_seed(4)
     init = torch.randn((2, 256, nz), generator=g_, dtype=torch.float64)
     us = torch.rand((40, 2), generator=g_, dtype=torch.float64)
-    eps = torch.randn((40, 2, 256, 2), generator=g_, dtype=torch.float64)
+    n_shocks = len(ss.model.functions.shock_names)
+    eps = torch.randn((40, 2, 256, n_shocks), generator=g_,
+                      dtype=torch.float64)
     lls = []
     for s, dev in ((ss, ss.device), (ss_cpu, torch.device("cpu"))):
         pf = s.build_pf_loglik_second_order(data, n_particles=256)
@@ -1260,8 +1337,10 @@ def test_second_order_estimation_runs_on_the_card(rbc_posterior, device):
                   n_particles=256)
     assert np.isfinite(pm.logp).all()
     us = posterior._flat_draws(ss_cpu, result, None)
-    normals = torch.randn((us.shape[0], 8, 6, 2), generator=torch.Generator()
-                          .manual_seed(5), dtype=torch.float64)
+    n_shocks = len(ss.model.functions.shock_names)
+    normals = torch.randn((us.shape[0], 8, 6, n_shocks),
+                          generator=torch.Generator().manual_seed(5),
+                          dtype=torch.float64)
     paths = [posterior._girf_paths(nonlinear._solution_fn(s)(
         us.to(s._device())), 0, None, normals.to(s._device()))
         for s in (ss, ss_cpu)]
