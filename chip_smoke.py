@@ -313,7 +313,7 @@ Phases, one line each (plus one line per kernel in phase 3):
    at one fresh directory: the first builds the kernels there, the second
    loads them (no build, ``nvcc.log`` unchanged), both launch K4 once on
    a synthetic pencil, bitwise equal; both processes' seconds.
-16. the large-state kernels (``large_state_phase``;
+16. the kernels above their small-state plans (``large_state_phase``;
    ``tools/large_state_probe.py`` runs it alone; budget 90 s, printed
    first): SW-2007 with the published first-difference observables
    ``dy``, ``dc``, ``dinve``, ``dw``, with ``r``, ``lab`` and year-on-year
@@ -322,21 +322,38 @@ Phases, one line each (plus one line per kernel in phase 3):
    periods of ``data_from_prior``, CUDA seed 0, draws that draw + 0.05
    N(0, 1) in float32).  16a ``build_batched_loglik(policy="pallas")`` at
    batch 4096 under each settle: ``"pallas"`` K1 + K2 + K3, ``"fused"``
-   K1 + K5, ``"xla"`` K1 + K3, every K2, K3 and K5 launch the large-state
+   K1 + K5, ``"xla"`` K1 + K3; every K2 and K5 launch the cluster tier
+   (never the device-memory one), every K3 launch the large-state
    variant; >= 99% finite, the first 512 draws within rel 5e-4 of the
-   float64 CPU path; evals/s.  16b ``build_batched_logpost_and_grad(
+   float64 CPU path; evals/s; K2 and K5 timed on their sweep's own 4096
+   draws (float32 I/O, CUDA events) under the cluster tier (the wrapper)
+   and the device-memory tier (its C entry point), each with its share of
+   the call and its bound.  16b ``build_batched_logpost_and_grad(
    settle="pallas")`` at batch 512 with a fixed measurement-error std of
    0.002 on each observable: K4 and the large-state K6, >= 99% finite,
    every gradient finite; of 64 draws the card rejects those the CPU
    rejects, and the rest are within 5e-4 / 1e-3 of the float64 CPU path;
    us/draw; then once without measurement error, where the
    reference's fixed DARE schedule leaves draws unsettled: the share it
-   accepts.  16c each large-state kernel against its plain version
-   (``hold_to_plain``, rel 1e-9, flags equal) in float64 at batch 256:
-   K2, K5 and K6 at n = 66, 104 and the first n above each one's
-   small-state plan, K3 at n = 65, 104, 130 and at n = 40, k = 33 (k = 7
-   otherwise; n = 104 on the sweep's and value+grad's own inputs, the
-   rest synthetic from a seed), each with its time, bound and share.
+   accepts.  16c each kernel above its small-state plan against its
+   plain version (``hold_to_plain``, rel 1e-9, flags equal) in float64 at
+   batch 256, in the tier each size takes (the counters say which): K2,
+   K5 and K6 at n = 66, 104 and the first n above each one's small-state
+   plan, K2 and K5 also at 130, at the largest n of the cluster plan and
+   the first n above it (the device-memory tier), K3 at n = 65, 104, 130
+   and at n = 40, k = 33 (k = 7 otherwise; n = 104 on the sweep's and
+   value+grad's own inputs, the rest synthetic from a seed), each with its
+   time, bound and share, at n = 104 also the device-memory K2 and K5 on
+   the same inputs; then the cluster K2 and K5 with float32 I/O at
+   n = 104 (within 5e-4 of the plain version's float64 outputs on the
+   same rounded inputs), on more draws than the card's resident clusters,
+   and with a NaN draw among them that poisons only itself.  16d two
+   SW-2007 economies (phase 17's fixture) with year-on-year inflation in
+   each, a filter state of 4 x 52 = 208 above the cluster plan: the
+   ``"pallas"`` and ``"fused"`` sweeps at batch 512, float32, each
+   launching the device-memory K2 or K5 once; >= 99% finite, the card
+   rejecting the draws the CPU rejects of 8 held to the float64 CPU path
+   at rel 5e-4; evals/s.
 17. the large-state K1 and K4 (``large_pencil_phase``;
    ``tools/large_pencil_probe.py`` runs it alone; budget 60 s, printed
    first): two SW-2007 economies side by side
@@ -372,8 +389,11 @@ line is one JSON object with each kernel's launches (on the path that runs
 it: K1 and K5 the sweep's plus 15b's SMC under a mesh, K2 and K3 the
 ``"pallas"`` sweep's, K6 the ``"pallas"`` value+grad's, K4 the NUTS
 fit's), error, times and bound; the large-state variants of K2, K3, K5
-and K6 are rows of their own (``*_large``: launches on 16a and 16b, error,
-times and bound at 16c's n = 104), and so are those of K1 and K4
+and K6 are rows of their own (``*_large``: launches on 16a, 16b and 16d,
+error, times and bound at 16c's n = 104; for K2 and K5 the device-memory
+tier, whose path is 16d), so is the cluster tier of K2 and K5
+(``*_cluster``: launches on 16a, the rest at 16c's n = 104), and so are
+those of K1 and K4
 (launches on 17a and 17b, error, times and bound at 17c's n = 52 on the
 path's own inputs).
 """
@@ -568,13 +588,22 @@ SW_YOY_EQS = {"dy": "y[] - y[-1]", "dc": "c[] - c[-1]",
 # rejected, as the reference rejects it
 LARGE_ME_STD = 0.002
 LARGE_SETTLE_N = (66, 104)
+LARGE_CLUSTER_N = (130,)   # K2 and K5 only
 LARGE_TAIL_NK = ((65, 7), (104, 7), (130, 7), (40, 33))
 LARGE_BATCH, LARGE_REPS, LARGE_BUDGET_S = 256, 3, 90
+# 16d: two SW-2007 economies (phase 17's fixture) with year-on-year
+# inflation in each, whose filter state of 4 x 52 = 208 is above the
+# cluster plan of K2 and K5: the device-memory tier's own path, at batch
+# LARGE_PATH_BATCH, LARGE_PATH_CHECK draws held to the CPU
+LARGE_PATH_BATCH, LARGE_PATH_CHECK = 512, 8
 # the large-state variants in the kernels' JSON line: wrapper name -> entry
+# (K2 and K5: the device-memory tier, beside it the cluster tier)
 LARGE_KERNELS = {"settle_parts": "settle_parts_large",
                  "filter_tail": "filter_tail_large",
                  "settle_filter_loglik": "settle_filter_loglik_large",
                  "dare_settle": "dare_settle_large"}
+CLUSTER_KERNELS = {"settle_parts": "settle_parts_cluster",
+                   "settle_filter_loglik": "settle_filter_loglik_cluster"}
 
 # phase 17: two SW-2007 economies side by side (a test fixture: the second
 # economy is the first with every name suffixed _b), whose dynamic core of
@@ -3455,7 +3484,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
     draws per block and shared memory are the library's own answer for the
     path's launch: four warps a draw for K1, K2, K4, K5 and K6, one for K3.
     Instances that the path does not launch (K1/K4 for n > 32, K3 for other
-    n and k, the large-state kernels) get their registers and spills only.
+    n and k, the large-state and cluster kernels) get their registers and
+    spills only.
     Spills of functions that are not kernels are listed last."""
     import re
 
@@ -3479,7 +3509,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
             ints = [int(v) for v in re.findall(r"Li(\d+)E", template)]
             tag = {"cr_kernel": "+sel", "cr_large_kernel": "+sel",
                    "settle_kernel": "+tail",
-                   "settle_large_kernel": "+tail"}.get(
+                   "settle_large_kernel": "+tail",
+                   "settle_cluster_kernel": "+tail"}.get(
                 name, "") if switches[:1] == ["1"] else ""
             extra = ", n > 32" if switches[1:] == ["0"] else ""
             if name == "filter_tail_kernel":
@@ -3491,7 +3522,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                     + " memory"
             current = f"{name}{tag}<{io}{extra}>"
             if (extra and current != f"filter_tail_kernel<{io}, 1 row a "
-                    f"lane, k <= 8>") or name.endswith("_large_kernel"):
+                    f"lane, k <= 8>") or name.endswith(("_large_kernel",
+                                                        "_cluster_kernel")):
                 off_path.add(current)
             labels[found.group(1)] = current
         owner = re.search(r"Function properties for (\S+)", line)
@@ -3588,8 +3620,9 @@ def main() -> int:
     def reset_counts():
         for fn in counted.values():
             fn.launches = 0
-            if hasattr(fn, "large_launches"):
-                fn.large_launches = 0
+            for tier in ("large_launches", "workspace_launches"):
+                if hasattr(fn, tier):
+                    setattr(fn, tier, 0)
 
     def read_counts() -> dict:
         return {name: fn.launches for name, fn in counted.items()}
@@ -4145,9 +4178,10 @@ def main() -> int:
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
         rows = [(name, report[name], path_launches[name])]
-        if name in LARGE_KERNELS:
-            rows.append((LARGE_KERNELS[name], large_report[name],
-                         large_launches[name]))
+        for extra in (LARGE_KERNELS, CLUSTER_KERNELS):
+            if name in extra:
+                rows.append((extra[name], large_report[extra[name]],
+                             large_launches[extra[name]]))
         if name in PENCIL_KERNELS:
             rows.append((PENCIL_KERNELS[name], pencil_report[name],
                          pencil_launches[name]))
@@ -4165,17 +4199,36 @@ def main() -> int:
     return 0
 
 
+def settle_workspace_call(name: str, args):
+    """K2 (``name`` ``"settle_parts"``) or K5 (``"settle_filter_loglik"``)
+    on ``args`` through the large-state kernel's C entry point
+    (``gcp_settle_large``, ``gcp_settle_filter_large``), each draw's buffers
+    in a device-memory workspace, whatever tier the wrappers would take for
+    that shape: the device-memory tier beside the cluster tier on the same
+    inputs.  Returns the wrapper's outputs; counts no launch."""
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_settle import LYAP_ITERS, _launch
+
+    fused = name == "settle_filter_loglik"
+    n_obs = args[0].shape[0]
+    return _launch(_cuda.library(), "workspace", fused, *args,
+                   min(N_SETTLE, n_obs) if fused else n_obs, LYAP_ITERS)
+
+
 def large_state_phase(card, reset_counts, read_counts, sw_model,
                       constant) -> tuple[dict, dict]:
-    """Phase 16: the four kernels with a large-state variant (K2, K3, K5,
-    K6) at the filter state of 104 of SW-2007 with year-on-year inflation
-    (16a the sweep with each settle, 16b the value+grad), and each of them
-    against its plain version at 16c's shapes (see the module docstring).
-    Returns ({wrapper name: large-state launches on 16a/16b}, {wrapper
-    name: its JSON entry's numbers at 16c's n = 104}); raises on a failure.
+    """Phase 16: the kernels above their small-state plans (K2 and K5 in
+    two tiers, the cluster kernel and the device-memory one; K3, K6) at the
+    filter state of 104 of SW-2007 with year-on-year inflation (16a the
+    sweep with each settle, 16b the value+grad), each of them against its
+    plain version at 16c's shapes, and the device-memory K2 and K5 on
+    their own path, two such economies side by side (16d; see the module
+    docstring).  Returns ({JSON row name: launches on 16a, 16b and 16d},
+    {JSON row name: its numbers at 16c's n = 104}); raises on a failure.
     """
     import torch
 
+    import geconpy_torch
     from geconpy_torch.ops.batched_dare import dare_settle
     from geconpy_torch.ops.batched_filter import filter_tail
     from geconpy_torch.ops.batched_settle import (LYAP_ITERS,
@@ -4191,13 +4244,52 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     dev = torch.device("cuda", 0)
     t_phase = time.perf_counter()
     print(f"phase 16 budget: {LARGE_BUDGET_S} s (SW-2007 with year-on-year "
-          f"inflation, filter state 104)", flush=True)
+          f"inflation, filter state 104; 16d two such economies, 208)",
+          flush=True)
     wrappers = {"settle_parts": settle_parts, "filter_tail": filter_tail,
                 "settle_filter_loglik": settle_filter_loglik,
                 "dare_settle": dare_settle}
+    settles = ("settle_parts", "settle_filter_loglik")
+    n_obs_of = {"settle_parts": N_SETTLE, "settle_filter_loglik": PERIODS}
+    lib = _cuda.library()
 
     def large_counts() -> dict:
         return {k_: fn.large_launches for k_, fn in wrappers.items()}
+
+    def workspace_counts() -> dict:
+        return {k_: wrappers[k_].workspace_launches for k_ in settles}
+
+    def first_large(fits) -> int:
+        n = 1
+        while fits(n):
+            n += 1
+        return n
+
+    def last_cluster(name) -> int:
+        n = first_large(lambda m: lib.gcp_settle_fits(1, m, 7,
+                                                      n_obs_of[name]))
+        while lib.gcp_settle_cluster_fits(1, n + 1, 7, n_obs_of[name]):
+            n += 1
+        return n
+
+    # 16c's synthetic systems (numpy eigenvalues on the host, ~15 s at
+    # n = 193) are made on a thread of their own while 16a and 16b run;
+    # K2 reads the first N_SETTLE rows of K5's y
+    top = {name: last_cluster(name) for name in settles}
+    synth_n = sorted({*LARGE_SETTLE_N, *LARGE_CLUSTER_N,
+                      *(first_large(lambda m, o=o: lib.gcp_settle_fits(
+                          1, m, 7, o)) for o in n_obs_of.values()),
+                      *top.values(), *(t + 1 for t in top.values())} - {104})
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    systems = {n: pool.submit(stable_system, n, 7, LARGE_BATCH, PERIODS, n,
+                              dev, torch.float64) for n in synth_n}
+    resident = {name: lib.gcp_settle_cluster_resident(
+        1, int(name == "settle_filter_loglik"), 104, 7, n_obs_of[name])
+        for name in settles}
+    over = max(resident.values()) + 64
+    systems["over"] = pool.submit(stable_system, 104, 7, over, PERIODS, 1041,
+                                  dev, torch.float64)
+    pool.shutdown(wait=False)
 
     kw = dict(observed_states=SW_YOY_OBS, observation_equations=SW_YOY_EQS,
               constant_params=constant, kalman_settle=N_SETTLE)
@@ -4219,9 +4311,14 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                                       policy="pallas", settle="pallas")(
         batch[:N_CHECK].double().cpu())
     cpu_s = time.perf_counter() - t0
+    kernel, plain, _outputs = kernel_checks()
 
-    # ---- 16a: the sweep with each settle, K1 and the large-state kernels
-    path_large, recs = {}, {}
+    # ---- 16a: the sweep with each settle, K1 and the kernels above their
+    # small-state plans: the cluster tier of K2 and K5, never the
+    # device-memory one
+    row_launches = dict.fromkeys([*LARGE_KERNELS.values(),
+                                  *CLUSTER_KERNELS.values()], 0)
+    recs = {}
     paths = {"pallas": ("cycle_reduction_policy", "settle_parts",
                         "filter_tail"),
              "fused": ("cycle_reduction_policy", "settle_filter_loglik"),
@@ -4233,16 +4330,21 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
         torch.cuda.synchronize()
         out = sweep(batch)
         torch.cuda.synchronize()
-        launches, large = read_counts(), large_counts()
+        launches, large, work = read_counts(), large_counts(), \
+            workspace_counts()
         if any(launches[k_] < 1 for k_ in path) or any(
                 launches[k_] for k_ in launches if k_ not in path) or any(
-                large[k_] != launches[k_] for k_ in path if k_ in large):
+                large[k_] != launches[k_] for k_ in path if k_ in large) \
+                or any(work.values()):
             raise AssertionError(f"16a settle={settle}: expected {path}, the "
-                                 f"large-state variants, got {launches}, "
-                                 f"large {large}")
+                                 f"tiers above the small-state plan and never "
+                                 f"the device-memory one, got {launches}, "
+                                 f"large {large}, device-memory {work}")
         for k_ in path:
-            if k_ in large:
-                path_large[k_] = path_large.get(k_, 0) + large[k_]
+            if k_ in CLUSTER_KERNELS:
+                row_launches[CLUSTER_KERNELS[k_]] += large[k_] - work[k_]
+            elif k_ in LARGE_KERNELS:
+                row_launches[LARGE_KERNELS[k_]] += large[k_]
         if out.shape != (BATCH,) or out.dtype != torch.float32:
             raise AssertionError(f"16a output {tuple(out.shape)} {out.dtype}")
         frac = float(torch.isfinite(out).float().mean())
@@ -4267,13 +4369,35 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                      or k_ == "accepted"} if settle != "xla" else {})
         names = ", ".join(
             f"{KERNELS[k_][0]} {launches[k_]}"
-            + (" (large-state variant)" if k_ in large else "")
+            + (" (cluster tier)" if k_ in CLUSTER_KERNELS else
+               " (large-state variant)" if k_ in large else "")
             for k_ in path)
+        tiers = ""
+        name = {"pallas": "settle_parts",
+                "fused": "settle_filter_loglik"}.get(settle)
+        if name:
+            # K2 or K5 on this call's own inputs (batch 4096, float32 I/O):
+            # the cluster tier through the wrapper, the device-memory tier
+            # through its C entry point
+            rec32: dict = {}
+            sweep(batch, record=rec32)
+            args32 = rec32[name]
+            ms_c = cuda_time_ms(lambda: kernel[name](*args32), 1)
+            ms_w = cuda_time_ms(lambda: settle_workspace_call(name, args32), 1)
+            b_ms, b_by = bound(name, args32, CR_ITERS, LYAP_ITERS)
+            call_ms = wall * 1e3
+            tiers = (f"; {KERNELS[name][0]} on the call's own inputs "
+                     f"(batch {BATCH}, float32 I/O): cluster tier "
+                     f"{ms_c:.3f} ms ({ms_c / call_ms:.3f} of the call), "
+                     f"device-memory tier {ms_w:.3f} ms "
+                     f"({ms_w / call_ms:.3f}), bound {b_ms:.3f} ms "
+                     f"({b_by}), shares {b_ms / ms_c:.4f} and "
+                     f"{b_ms / ms_w:.4f}")
         print(f"phase 16a sweep settle={settle}: launches {names}; finite "
               f"{frac:.4f}; rel vs float64 CPU path {rel:.3e} on "
               f"{int(both.sum())}/{N_CHECK} (CPU {cpu_s:.1f} s); "
               f"{BATCH / wall:.1f} evals/s (2 calls of batch {BATCH}, "
-              f"{wall * 1e3:.1f} ms a call) [{card}]", flush=True)
+              f"{wall * 1e3:.1f} ms a call){tiers} [{card}]", flush=True)
 
     # ---- 16b: value+grad on the stationary filter, K4 and the large K6,
     # with measurement error (LARGE_ME_STD), then without
@@ -4293,7 +4417,7 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
             or large["dare_settle"] != launches["dare_settle"]:
         raise AssertionError(f"16b: expected K4 and the large K6, got "
                              f"{launches}, large {large}")
-    path_large["dare_settle"] = large["dare_settle"]
+    row_launches["dare_settle_large"] += large["dare_settle"]
     frac = float(torch.isfinite(vals).float().mean())
     if vals.shape != (VG_BATCH,) or frac < 0.99 \
             or not bool(torch.isfinite(grads).all()):
@@ -4344,7 +4468,7 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
         data, settle="pallas")(vg_batch)
     torch.cuda.synchronize()
     large = large_counts()
-    path_large["dare_settle"] += large["dare_settle"]
+    row_launches["dare_settle_large"] += large["dare_settle"]
     if large["dare_settle"] < 1 or not bool(torch.isfinite(grads0).all()):
         raise AssertionError(f"16b without measurement error: large K6 "
                              f"{large['dare_settle']}, gradients finite "
@@ -4355,31 +4479,58 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
           f"reference's fixed schedule of 8 Hewer polishes; the rest -inf, "
           f"as the reference gives them) [{card}]", flush=True)
 
-    # ---- 16c: each large-state kernel against its plain version, float64
-    lib = _cuda.library()
-    kernel, plain, _outputs = kernel_checks()
+    # ---- 16c: each kernel above its small-state plan against its plain
+    # version, float64 (K2 and K5 in the tier each n takes)
     every = torch.ones(LARGE_BATCH, dtype=torch.bool, device=dev)
-
-    def first_large(fits) -> int:
-        n = 1
-        while fits(n):
-            n += 1
-        return n
 
     def f64(arrays):
         return tuple(torch.as_tensor(a, device=dev, dtype=torch.float64)
                      .contiguous() for a in arrays)
 
-    cases = []   # (wrapper name, shape label, args, accepted)
     fits = {"settle_parts": lambda m: lib.gcp_settle_fits(1, m, 7, N_SETTLE),
             "settle_filter_loglik": lambda m: lib.gcp_settle_fits(
                 1, m, 7, PERIODS),
             "dare_settle": lambda m: lib.gcp_dare_fits(m, 7)}
     edge = {name: first_large(fn) for name, fn in fits.items()}
+
+    def tier_of(name, n) -> str:
+        if name not in settles:
+            return "large-state" if not fits[name](n) else "small-state"
+        if fits[name](n):
+            return "small-state"
+        return "cluster" if lib.gcp_settle_cluster_fits(
+            1, n, 7, n_obs_of[name]) else "device-memory"
+
+    plan = {name: (lib.gcp_settle_cluster_ctas(1, 104, 7, n_obs_of[name]),
+                   lib.gcp_settle_cluster_smem_bytes(1, 104, 7,
+                                                     n_obs_of[name]))
+            for name in settles}
+    print(f"phase 16c cluster plan at n = 104, k = 7, float64: K2 "
+          f"{plan['settle_parts'][0]} CTAs of "
+          f"{lib.gcp_settle_cluster_block_threads()} threads, "
+          f"{plan['settle_parts'][1]} B shared memory a CTA, "
+          f"{resident['settle_parts']} resident clusters; K5 "
+          f"{plan['settle_filter_loglik'][0]} CTAs, "
+          f"{plan['settle_filter_loglik'][1]} B, "
+          f"{resident['settle_filter_loglik']} resident; the largest n of "
+          f"the cluster plan K2 {top['settle_parts']}, K5 "
+          f"{top['settle_filter_loglik']}; first n above the small-state "
+          f"plan K2 {edge['settle_parts']}, K5 "
+          f"{edge['settle_filter_loglik']} [{card}]", flush=True)
+    cases = []   # (wrapper name, shape label, args, accepted)
     for name in ("settle_parts", "settle_filter_loglik", "dare_settle"):
-        for n in sorted({*LARGE_SETTLE_N, edge[name]}):
-            label = f"n = {n}, k = 7" + (" (the first n above the small-state "
-                                         "plan)" if n == edge[name] else "")
+        ns = {*LARGE_SETTLE_N, edge[name]}
+        if name in settles:
+            ns |= {*LARGE_CLUSTER_N, top[name], top[name] + 1}
+        for n in sorted(ns):
+            notes = [note for cond, note in (
+                (n == edge[name], "the first n above the small-state plan"),
+                (name in top and n == top[name],
+                 "the largest n of the cluster plan"),
+                (name in top and n == top.get(name, 0) + 1,
+                 "the first n of the device-memory tier")) if cond]
+            label = f"n = {n}, k = 7" + (f" ({'; '.join(notes)})" if notes
+                                         else "")
             if n == 104:
                 args = (vg_rec[name] if name == "dare_settle"
                         else recs[name])
@@ -4389,9 +4540,8 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
             if name == "dare_settle":
                 args = f64(dare_inputs(n, 7, LARGE_BATCH, seed=n))
             else:
-                args = stable_system(n, 7, LARGE_BATCH, N_SETTLE if name
-                                     == "settle_parts" else PERIODS, n, dev,
-                                     torch.float64)
+                y, *mats = systems[n].result()
+                args = (y[:N_SETTLE] if name == "settle_parts" else y, *mats)
             cases.append((name, label + ", synthetic", args, every))
     for n, k in LARGE_TAIL_NK:
         label = f"n = {n}, k = {k}"
@@ -4406,42 +4556,205 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     report = {}
     for name, label, args, accepted in cases:
         n, k = args[1].shape[-1], args[3].shape[-2]
-        large = (n > 64 or k > 32) if name == "filter_tail" \
-            else not fits[name](n)
-        variant = "large-state" if large else "small-state"
-        before = wrappers[name].large_launches
+        if name == "filter_tail":
+            variant = "large-state" if (n > 64 or k > 32) else "small-state"
+        else:
+            variant = tier_of(name, n)
+        before = (wrappers[name].large_launches,
+                  getattr(wrappers[name], "workspace_launches", 0))
         part = hold_to_plain(name, args, accepted, phase="16c")
-        if wrappers[name].large_launches != before + large:
+        after = (wrappers[name].large_launches,
+                 getattr(wrappers[name], "workspace_launches", 0))
+        want = (int(variant != "small-state"),
+                int(variant == "device-memory"))
+        if tuple(a - b for a, b in zip(after, before)) != want:
             raise AssertionError(f"16c {name} at {label}: expected the "
                                  f"{variant} kernel")
         ms = cuda_time_ms(lambda: kernel[name](*args), LARGE_REPS)
         plain_ms = cuda_time_ms(lambda: plain[name](*args), 1)
         bound_ms, bound_by = bound(name, args, CR_ITERS, LYAP_ITERS)
         if label.startswith("n = 104, k = 7"):
-            got, want = kernel[name](*args), plain[name](*args)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
+            want_out = plain[name](*args)
+            want_out = want_out if isinstance(want_out, tuple) \
+                else (want_out,)
             keep = accepted if name != "dare_settle" else every
-            abs_err = max(float((g[keep] - w[keep])[
-                torch.isfinite(g[keep]) & torch.isfinite(w[keep])].abs().max())
-                for g, w in zip(got, want))
-            report[name] = {"abs_f64": abs_err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by}
+
+            def abs_err(got) -> float:
+                got = got if isinstance(got, tuple) else (got,)
+                return max(float((g[keep] - w[keep])[
+                    torch.isfinite(g[keep]) & torch.isfinite(w[keep])]
+                    .abs().max()) for g, w in zip(got, want_out))
+
+            entry = {"abs_f64": abs_err(kernel[name](*args)), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+            if name in CLUSTER_KERNELS:
+                # the device-memory tier on the same inputs, and the
+                # largest difference between the two tiers' outputs
+                report[CLUSTER_KERNELS[name]] = entry
+                ms_w = cuda_time_ms(lambda: settle_workspace_call(name, args),
+                                    LARGE_REPS)
+                got_w = settle_workspace_call(name, args)
+                err_w = abs_err(got_w)
+                got_c = kernel[name](*args)
+                pairs = zip(got_c if isinstance(got_c, tuple) else (got_c,),
+                            got_w if isinstance(got_w, tuple) else (got_w,))
+                gap = max(float(torch.where(
+                    torch.isnan(c_[keep]) & torch.isnan(w_[keep]), 0.0,
+                    (c_[keep] - w_[keep]).abs()).nan_to_num(nan=math.inf)
+                    .max()) for c_, w_ in pairs)
+                report[LARGE_KERNELS[name]] = dict(entry, abs_f64=err_w,
+                                                   ms=ms_w)
+                part += (f"; the device-memory tier on the same inputs "
+                         f"{ms_w:.3f} ms (abs err {err_w:.3e}), share "
+                         f"{bound_ms / ms_w:.4f}; the two tiers' outputs "
+                         f"differ by at most {gap:.3e}")
+            else:
+                report[LARGE_KERNELS[name]] = entry
         print(f"phase 16c {part} at {label}, batch {args[1].shape[0]}, "
               f"{variant} kernel: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}), share "
               f"{bound_ms / ms:.4f} [{card}]", flush=True)
-    work = {"K2": lib.gcp_settle_large_work_bytes(0, 0, 104, 7, N_SETTLE,
-                                                   BATCH),
-            "K5": lib.gcp_settle_large_work_bytes(0, 1, 104, 7, PERIODS,
-                                                   BATCH),
-            "K6": lib.gcp_dare_large_work_bytes(1, 104, 7, VG_BATCH)}
-    print(f"phase 16 large-state workspaces at n = 104 (16a's batch "
-          f"{BATCH}, 16b's {VG_BATCH}): {work} B", flush=True)
+    # float32 I/O of the cluster tier at n = 104 (SW-2007's own inputs
+    # rounded to float32) against the plain version's float64 outputs on
+    # those rounded inputs; more draws than the resident clusters; a NaN
+    # draw among them
+    y, *mats = systems["over"].result()
+    for name in settles:
+        label = KERNELS[name][0]
+        args32 = tuple(X.float() for X in recs[name])
+        before = (wrappers[name].large_launches,
+                  wrappers[name].workspace_launches)
+        got = kernel[name](*args32)
+        want = plain[name](*(X.double() for X in args32))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        acc = recs["accepted"]
+        agree = all(compare(g[acc].double(), w[acc])[1] == 1.0
+                    for g, w in zip(got, want))
+        rel32 = max(compare(g[acc].double(), w[acc])[0]
+                    for g, w in zip(got, want))
+        if (wrappers[name].large_launches - before[0],
+                wrappers[name].workspace_launches - before[1]) != (1, 0) \
+                or not agree or rel32 > 5e-4:
+            raise AssertionError(f"16c {label} float32 I/O at n = 104: rel "
+                                 f"{rel32:.3e}, finite agree {agree}")
+        args = (y[:N_SETTLE] if name == "settle_parts" else y, *mats)
+        every_over = torch.ones(over, dtype=torch.bool, device=dev)
+        before = (wrappers[name].large_launches,
+                  wrappers[name].workspace_launches)
+        part = hold_to_plain(name, args, every_over, phase="16c")
+        T_bad = args[1].clone()
+        T_bad[1, 0, 0] = float("nan")
+        clean = kernel[name](*args)
+        bad = kernel[name](args[0], T_bad, *args[2:])
+        if (wrappers[name].large_launches - before[0],
+                wrappers[name].workspace_launches - before[1]) != (3, 0):
+            raise AssertionError(f"16c {label} at batch {over}: not the "
+                                 f"cluster tier alone")
+        clean = clean if isinstance(clean, tuple) else (clean,)
+        bad = bad if isinstance(bad, tuple) else (bad,)
+        keep = torch.arange(over, device=dev) != 1
+        confined = all(torch.equal(b_[keep], c_[keep])
+                       for b_, c_ in zip(bad, clean)) \
+            and not bool(torch.isfinite(bad[0][1]))
+        if not confined:
+            raise AssertionError(f"16c {label}: the NaN draw reaches others")
+        print(f"phase 16c {label} cluster tier, float32 I/O at n = 104 on "
+              f"SW-2007's own inputs: rel {rel32:.2e} to the plain float64 "
+              f"outputs ({int(acc.sum())}/{acc.numel()} accepted, finite "
+              f"alike); {part} at n = 104, k = 7, batch {over} (above the "
+              f"{resident[name]} resident clusters), synthetic; a NaN draw "
+              f"there non-finite, every other draw bitwise unchanged "
+              f"[{card}]", flush=True)
+
+    # ---- 16d: the device-memory K2 and K5 on their own path: two SW-2007
+    # economies (phase 17's fixture) with year-on-year inflation in each
+    two = geconpy_torch.model_from_gcn((ROOT / TWO_SW_GCN).read_text(),
+                                       verbose=False)
+    eqs = {**SW_YOY_EQS, **{o + "_b": e.replace("[", "_b[")
+                            for o, e in SW_YOY_EQS.items()}}
+    kw2 = dict(observed_states=SW_YOY_OBS + [o + "_b" for o in SW_YOY_OBS],
+               observation_equations=eqs, kalman_settle=N_SETTLE,
+               constant_params=[p for p in two.param_names
+                                if p not in TWO_SW_ESTIMATED],
+               filter_type="steady_state")
+    ss2 = DSGEStateSpace(two, device="cuda").configure(**kw2)
+    ss2_cpu = DSGEStateSpace(two, device="cpu").configure(**kw2)
+    data2, draw2 = ss2.data_from_prior(
+        torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+    data2_32 = data2.astype("float32")
+    u2 = ss2.unconstrain(draw2).to(torch.float32)
+    batch2 = u2[None, :] + 0.05 * torch.randn(
+        (LARGE_PATH_BATCH, u2.shape[0]), device=dev, dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    ref2 = ss2_cpu.build_batched_loglik(data2_32, n_settle=N_SETTLE,
+                                        policy="pallas", settle="pallas")(
+        batch2[:LARGE_PATH_CHECK].double().cpu())
+    cpu_s = time.perf_counter() - t0
+    for settle, name in (("pallas", "settle_parts"),
+                         ("fused", "settle_filter_loglik")):
+        sweep = ss2.build_batched_loglik(data2_32, n_settle=N_SETTLE,
+                                         policy="pallas", settle=settle)
+        reset_counts()
+        torch.cuda.synchronize()
+        out = sweep(batch2)
+        torch.cuda.synchronize()
+        launches, large, work = read_counts(), large_counts(), \
+            workspace_counts()
+        if launches[name] != 1 or large[name] != 1 or work[name] != 1:
+            raise AssertionError(f"16d settle={settle}: expected the "
+                                 f"device-memory {KERNELS[name][0]} once, got "
+                                 f"{launches}, large {large}, device-memory "
+                                 f"{work}")
+        row_launches[LARGE_KERNELS[name]] += work[name]
+        if settle == "pallas":
+            row_launches["filter_tail_large"] += large["filter_tail"]
+        frac = float(torch.isfinite(out).float().mean())
+        got = out[:LARGE_PATH_CHECK].double().cpu()
+        both = torch.isfinite(ref2) & torch.isfinite(got)
+        rel = float(((got - ref2).abs() / (1.0 + ref2.abs()))[both].max()) \
+            if bool(both.any()) else math.inf
+        # the card rejects exactly the draws the CPU rejects
+        if frac < 0.99 or rel >= 5e-4 or not torch.equal(
+                torch.isfinite(ref2), torch.isfinite(got)):
+            raise AssertionError(f"16d settle={settle}: {frac:.4f} finite, "
+                                 f"{int(both.sum())}/{LARGE_PATH_CHECK} in "
+                                 f"both, rel {rel:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(batch2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec2: dict = {}
+        sweep(batch2[:2], record=rec2)
+        n2 = rec2[name][1].shape[-1]
+        if n2 <= top[name]:
+            raise AssertionError(f"16d: filter state {n2}")
+        print(f"phase 16d two SW-2007 economies with year-on-year inflation "
+              f"(filter state {n2}, 14 observables; the cluster plan holds n "
+              f"<= {top[name]}), sweep settle={settle}: launches "
+              f"{KERNELS[name][0]} {launches[name]} (device-memory tier), K1 "
+              f"{launches['cycle_reduction_policy']}"
+              + (f", K3 {launches['filter_tail']}" if settle == "pallas"
+                 else "")
+              + f"; finite {frac:.4f}; rel vs float64 CPU path {rel:.3e} on "
+              f"{int(both.sum())}/{LARGE_PATH_CHECK} (CPU {cpu_s:.1f} s); "
+              f"{LARGE_PATH_BATCH / wall:.1f} evals/s (one call of batch "
+              f"{LARGE_PATH_BATCH}, {wall * 1e3:.1f} ms) [{card}]",
+              flush=True)
+    work_b = {"K2": lib.gcp_settle_large_work_bytes(0, 0, 104, 7, N_SETTLE,
+                                                     BATCH),
+              "K5": lib.gcp_settle_large_work_bytes(0, 1, 104, 7, PERIODS,
+                                                     BATCH),
+              "K6": lib.gcp_dare_large_work_bytes(1, 104, 7, VG_BATCH)}
+    print(f"phase 16 device-memory workspaces at n = 104 (16a's batch "
+          f"{BATCH}, 16b's {VG_BATCH}; K2 and K5 there run the cluster tier "
+          f"and take none): {work_b} B", flush=True)
     print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f} (budget "
           f"{LARGE_BUDGET_S})", flush=True)
-    return path_large, report
+    return row_launches, report
 
 
 def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:

@@ -82,6 +82,15 @@ _SIGNATURES = {
     "gcp_settle_fits": ([_I, _I, _I, _I], ctypes.c_int),
     "gcp_settle_large_work_bytes": ([_I, _I, _I, _I, _I, _I],
                                     ctypes.c_size_t),
+    "gcp_settle_cluster": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_settle_filter_cluster": ([_I, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_settle_cluster_ctas": ([_I, _I, _I, _I], ctypes.c_int),
+    "gcp_settle_cluster_fits": ([_I, _I, _I, _I], ctypes.c_int),
+    "gcp_settle_cluster_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    "gcp_settle_cluster_resident": ([_I, _I, _I, _I, _I], ctypes.c_int),
+    "gcp_settle_cluster_block_threads": ([], ctypes.c_int),
     "gcp_filter_tail": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_filter_tail_draws_per_block": ([], ctypes.c_int),
@@ -201,12 +210,16 @@ def dtype_code(dtype: torch.dtype) -> int:
     raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
 
 
-def count_launch(wrapper, large: bool) -> None:
+def count_launch(wrapper, large: bool, workspace: bool = False) -> None:
     """Count one launch of ``wrapper``'s kernel: ``wrapper.launches``
-    counts either variant, ``wrapper.large_launches`` the large-state one."""
+    counts every variant, ``wrapper.large_launches`` those above the
+    small-state plan, and ``wrapper.workspace_launches`` (the settle
+    wrappers') the large-state kernel on its device-memory workspace."""
     wrapper.launches += 1
     if large:
         wrapper.large_launches += 1
+    if workspace:
+        wrapper.workspace_launches += 1
 
 
 def workspace(nbytes: int, device: torch.device) -> torch.Tensor:

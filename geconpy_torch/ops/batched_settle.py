@@ -35,18 +35,24 @@ the ``tile`` argument are gone.  The launch (draws per block, whether ``y``
 fits beside them) is decided in the C entry point;
 ``gcp_settle_smem_bytes`` answers for that launch.
 
-Two variants, both kernels, as the reference's kernels take any n: where
-one draw's float64 layout and ``y`` fit the device's shared memory
-(``gcp_settle_fits``; in float64 at k = 7, n <= 64 for K5 over 200
-periods and n <= 72 for K2 over 32 settle steps on an H100) the
-small-state kernel above runs; beyond that the large-state kernel runs the
-same schedule on the same layout with each draw's buffers in a float64
-workspace in device memory, which the wrapper allocates (``torch.empty``)
-for the resident draws of a persistent grid, not for the batch
-(``chip_smoke.py`` phase 16 prints its size).  Its products read their
-operands through L1 and L2 instead of shared memory.
-``settle_parts.large_launches`` and ``settle_filter_loglik.large_launches``
-count the large-state launches among ``launches``.
+Three tiers, all kernels, chosen by size alone, as the reference's
+kernels take any n: where one draw's float64 layout and ``y`` fit the
+device's shared memory (``gcp_settle_fits``; in float64 at k = 7, n <= 64
+for K5 over 200 periods and n <= 72 for K2 over 32 settle steps on an
+H100) the small-state kernel above runs.  Beyond that, where a draw split
+in row panels over a thread-block cluster of at most 8 CTAs fits their
+shared memory (``gcp_settle_cluster_fits``), the cluster kernel runs the
+same schedule with each CTA holding its panel of T, P and the work
+buffers and reading its peers' rows through distributed shared memory;
+no draw buffer lives in device memory.  Beyond that too, the large-state
+kernel runs the schedule with each draw's buffers in a float64 workspace
+in device memory, which the wrapper allocates (``torch.empty``) for the
+resident draws of a persistent grid, not for the batch (``chip_smoke.py``
+phase 16 prints its size).  ``settle_parts.large_launches`` and
+``settle_filter_loglik.large_launches`` count the launches above the
+small-state plan among ``launches``, and ``workspace_launches`` those of
+the device-memory tier alone.  A launch the card refuses raises; no tier
+stands in for another.
 
 :func:`_settle_plain` and :func:`_settle_filter_plain` are the plain PyTorch
 versions of the same schedules.  The wrappers use them for CPU tensors; a
@@ -138,9 +144,10 @@ def _settle_filter_plain(y, T, RQR, Z, H, d, n_settle: int, lyap_iters: int):
 
 
 def _checked_library(name, y, T, RQR, Z, H, d):
-    """Check a settle kernel's inputs; returns the kernel library and
-    whether the large-state variant runs (the small-state plan does not fit
-    one draw a block in the device's shared memory)."""
+    """Check a settle kernel's inputs; returns the kernel library and the
+    tier that runs: ``"small"`` (one draw a block fits the device's shared
+    memory), ``"cluster"`` (one draw a thread-block cluster fits) or
+    ``"workspace"`` (the draw's buffers in device memory)."""
     Bn, n, _ = T.shape
     k = Z.shape[1]
     _cuda.require_cuda_inputs(
@@ -149,44 +156,53 @@ def _checked_library(name, y, T, RQR, Z, H, d):
          "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)), "H": (H, (Bn, k, k)),
          "d": (d, (Bn, k))}, T.dtype, T.device)
     lib = _cuda.library()
-    large = not lib.gcp_settle_fits(_cuda.dtype_code(T.dtype), n, k,
-                                    y.shape[0])
-    return lib, large
+    shape = (_cuda.dtype_code(T.dtype), n, k, y.shape[0])
+    if lib.gcp_settle_fits(*shape):
+        return lib, "small"
+    return lib, "cluster" if lib.gcp_settle_cluster_fits(*shape) \
+        else "workspace"
 
 
-def _large_workspace(lib, fused: bool, y, T, Z):
-    """The large-state launch's float64 workspace: (tensor, bytes)."""
+def _launch(lib, tier: str, fused: bool, y, T, RQR, Z, H, d, n_settle: int,
+            lyap_iters: int):
+    """Launch K2 (``fused`` false; ``y`` the settle's ``n_settle``
+    observations) or K5 of ``tier`` through its C entry point in ``lib``,
+    with the device-memory tier's workspace; returns the outputs.  The
+    wrappers choose the tier (``_checked_library``) and count the launch."""
     Bn, n, _ = T.shape
-    nbytes = lib.gcp_settle_large_work_bytes(
-        _cuda.dtype_code(T.dtype), int(fused), n, Z.shape[1], y.shape[0], Bn)
-    return _cuda.workspace(nbytes, T.device), nbytes
+    k = Z.shape[1]
+    new = lambda *shape: torch.empty(shape, dtype=T.dtype,  # noqa: E731
+                                     device=T.device)
+    outs = (new(Bn),) if fused else (new(Bn), new(Bn, n), new(Bn, n, n),
+                                     new(Bn, n, k), new(Bn, k, k), new(Bn))
+    if Bn:
+        code = _cuda.dtype_code(T.dtype)
+        entry = {"small": (lib.gcp_settle, lib.gcp_settle_filter),
+                 "cluster": (lib.gcp_settle_cluster,
+                             lib.gcp_settle_filter_cluster),
+                 "workspace": (lib.gcp_settle_large,
+                               lib.gcp_settle_filter_large)}[tier][fused]
+        work = ()
+        if tier == "workspace":
+            nbytes = lib.gcp_settle_large_work_bytes(code, int(fused), n, k,
+                                                     y.shape[0], Bn)
+            buf = _cuda.workspace(nbytes, T.device)
+            work = (buf.data_ptr(), nbytes)
+        dims = (Bn, n, k, n_settle) + ((y.shape[0],) if fused else ())
+        rc = entry(code, *(X.data_ptr() for X in (T, RQR, Z, H, d, y, *outs)),
+                   *work, *dims, lyap_iters, _cuda.stream_handle(T.device))
+        _cuda.check(rc, "settle_filter_loglik" if fused else "settle_parts")
+    return outs[0] if fused else outs
 
 
 def _settle_cuda(y_head, T, RQR, Z, H, d, lyap_iters: int):
-    """Launch the K2 kernel (either variant)."""
-    Bn, n, _ = T.shape
-    k = Z.shape[1]
-    n_settle = y_head.shape[0]
-    lib, large = _checked_library("settle_parts", y_head, T, RQR, Z, H, d)
-    empty = lambda *shape: torch.empty(shape, dtype=T.dtype,  # noqa: E731
-                                       device=T.device)
-    ll, xp, M, TK, Finv, const = (empty(Bn), empty(Bn, n), empty(Bn, n, n),
-                                  empty(Bn, n, k), empty(Bn, k, k), empty(Bn))
-    if Bn:
-        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, d, y_head, ll, xp, M, TK,
-                                       Finv, const)]
-        stream = _cuda.stream_handle(T.device)
-        if large:
-            work, nbytes = _large_workspace(lib, False, y_head, T, Z)
-            code = lib.gcp_settle_large(
-                _cuda.dtype_code(T.dtype), *ptrs, work.data_ptr(), nbytes, Bn,
-                n, k, n_settle, lyap_iters, stream)
-        else:
-            code = lib.gcp_settle(_cuda.dtype_code(T.dtype), *ptrs, Bn, n, k,
-                                  n_settle, lyap_iters, stream)
-        _cuda.check(code, "settle_parts")
-        _cuda.count_launch(settle_parts, large)
-    return ll, xp, M, TK, Finv, const
+    """Launch the K2 kernel of the tier the shape takes."""
+    lib, tier = _checked_library("settle_parts", y_head, T, RQR, Z, H, d)
+    outs = _launch(lib, tier, False, y_head, T, RQR, Z, H, d,
+                   y_head.shape[0], lyap_iters)
+    if T.shape[0]:
+        _cuda.count_launch(settle_parts, tier != "small", tier == "workspace")
+    return outs
 
 
 def settle_parts(y_head, T, RQR, Z, H, d):
@@ -206,32 +222,21 @@ def settle_parts(y_head, T, RQR, Z, H, d):
     raise ValueError(f"settle_parts: no kernel for {T.device}")
 
 
-#: launches of the CUDA kernel (either variant) since the count was last
-#: set to 0, and of its large-state variant alone
+#: launches of the CUDA kernel (any tier) since the count was last set to
+#: 0, of the tiers above the small-state plan, and of the device-memory
+#: tier alone
 settle_parts.launches = 0
 settle_parts.large_launches = 0
+settle_parts.workspace_launches = 0
 
 
 def _settle_filter_cuda(y, T, RQR, Z, H, d, n_settle: int, lyap_iters: int):
-    """Launch the K5 kernel (either variant)."""
-    Bn, n, _ = T.shape
-    k = Z.shape[1]
-    lib, large = _checked_library("settle_filter_loglik", y, T, RQR, Z, H, d)
-    ll = torch.empty((Bn,), dtype=T.dtype, device=T.device)
-    if Bn:
-        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, d, y, ll)]
-        stream = _cuda.stream_handle(T.device)
-        if large:
-            work, nbytes = _large_workspace(lib, True, y, T, Z)
-            code = lib.gcp_settle_filter_large(
-                _cuda.dtype_code(T.dtype), *ptrs, work.data_ptr(), nbytes, Bn,
-                n, k, n_settle, y.shape[0], lyap_iters, stream)
-        else:
-            code = lib.gcp_settle_filter(
-                _cuda.dtype_code(T.dtype), *ptrs, Bn, n, k, n_settle,
-                y.shape[0], lyap_iters, stream)
-        _cuda.check(code, "settle_filter_loglik")
-        _cuda.count_launch(settle_filter_loglik, large)
+    """Launch the K5 kernel of the tier the shape takes."""
+    lib, tier = _checked_library("settle_filter_loglik", y, T, RQR, Z, H, d)
+    ll = _launch(lib, tier, True, y, T, RQR, Z, H, d, n_settle, lyap_iters)
+    if T.shape[0]:
+        _cuda.count_launch(settle_filter_loglik, tier != "small",
+                           tier == "workspace")
     return ll
 
 
@@ -253,7 +258,9 @@ def settle_filter_loglik(y, T, RQR, Z, H, d, n_settle: int = 32):
     raise ValueError(f"settle_filter_loglik: no kernel for {T.device}")
 
 
-#: launches of the CUDA kernel (either variant) since the count was last
-#: set to 0, and of its large-state variant alone
+#: launches of the CUDA kernel (any tier) since the count was last set to
+#: 0, of the tiers above the small-state plan, and of the device-memory
+#: tier alone
 settle_filter_loglik.launches = 0
 settle_filter_loglik.large_launches = 0
+settle_filter_loglik.workspace_launches = 0

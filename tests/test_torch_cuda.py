@@ -274,8 +274,8 @@ def test_settle_kernels_read_a_long_sample_from_device_memory(device):
 
 def test_settle_kernels_refuse_more_shared_memory_than_the_device_has(device):
     """A draw whose float64 layout exceeds the device's shared memory (this
-    shape raised before the large-state kernels): it runs the large-state
-    variant, within rel 1e-9 of the plain version."""
+    shape raised before the large-state kernels): it runs a tier above the
+    small-state plan, within rel 1e-9 of the plain version."""
     args = [torch.as_tensor(a, device=device)
             for a in _stable_system(96, 3, 2, 4, seed=1)]
     before = (settle_parts.large_launches, settle_filter_loglik.large_launches)
@@ -325,27 +325,134 @@ def test_settle_kernels_at_the_edge_of_the_small_state_plan(device, edge):
             assert _rel(g, r) < 1e-9, (name, n)
 
 
-def test_large_settle_kernels_nan_draw_poisons_only_itself(device):
-    """The large-state K2 and K5 (n = 90) on more draws than the persistent
-    grid holds at once, so that the NaN draw's workspace slot serves later
-    draws: every other draw is bitwise what it is without the NaN."""
+def _settle_tier(fn, call):
+    """The tier of the settle kernel that ``call()`` launched through the
+    wrapper ``fn``, read from its counters."""
+    before = (fn.launches, fn.large_launches, fn.workspace_launches)
+    out = call()
+    after = (fn.launches, fn.large_launches, fn.workspace_launches)
+    delta = tuple(a - b for a, b in zip(after, before))
+    tiers = {(1, 0, 0): "small", (1, 1, 0): "cluster", (1, 1, 1): "workspace"}
+    assert delta in tiers, delta
+    return out, tiers[delta]
+
+
+def _expected_tier(code, n, k, n_obs) -> str:
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    if lib.gcp_settle_fits(code, n, k, n_obs):
+        return "small"
+    return "cluster" if lib.gcp_settle_cluster_fits(code, n, k, n_obs) \
+        else "workspace"
+
+
+def _settle_edges(k, n_obs) -> dict:
+    """The n (float64) where the tiers meet: the last small-state n, the
+    first and the last n of the cluster plan, the first n of the
+    device-memory tier; and 104, SW-2007's filter state with year-on-year
+    inflation."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    small = _last_small_n(lambda m: lib.gcp_settle_fits(1, m, k, n_obs))
+    last = small + 1
+    assert lib.gcp_settle_cluster_fits(1, last, k, n_obs)
+    while lib.gcp_settle_cluster_fits(1, last + 1, k, n_obs):
+        last += 1
+    return {"last small": small, "first cluster": small + 1, "n = 104": 104,
+            "last cluster": last, "first workspace": last + 1}
+
+
+TIER_OF_EDGE = {"last small": "small", "first cluster": "cluster",
+                "n = 104": "cluster", "last cluster": "cluster",
+                "first workspace": "workspace"}
+
+
+@pytest.mark.parametrize("batch", ["3", "above the resident clusters"])
+@pytest.mark.parametrize("k", [7, 14])
+@pytest.mark.parametrize("edge", list(TIER_OF_EDGE))
+def test_settle_tiers_match_plain(device, edge, k, batch):
+    """K2 and K5 at the n where the three tiers meet (small-state, cluster,
+    device-memory) and at n = 104, k = 7 and 14, on 3 draws or on more
+    draws than the cluster plan's resident clusters (their persistent grid
+    strides over the batch): the tier the counters record is the one its
+    size takes, float64 within rel 1e-9 of the plain version with the same
+    finite draws, float32 I/O within 5e-4 of the plain version on the same
+    rounded inputs."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for name, n_obs, n_settle in (("settle_parts", 5, 5),
+                                  ("settle_filter_loglik", N_OBS, 5)):
+        n = _settle_edges(k, n_obs)[edge]
+        assert _expected_tier(1, n, k, n_obs) == TIER_OF_EDGE[edge]
+        resident = lib.gcp_settle_cluster_resident(
+            1, int(name == "settle_filter_loglik"), n, k, n_obs)
+        bn = 3 if batch == "3" else (
+            resident + 5 if TIER_OF_EDGE[edge] == "cluster" else 67)
+        args = [torch.as_tensor(a, device=device)
+                for a in _stable_system(n, k, bn, N_OBS, seed=n + k)]
+        args32 = [a.float() for a in args]
+        if name == "settle_parts":
+            fn = settle_parts
+            run = lambda a: settle_parts(a[0][:n_settle], *a[1:])  # noqa: E731
+            plain = lambda a: _settle_plain(  # noqa: E731
+                a[0][:n_settle], *a[1:], LYAP_ITERS)
+        else:
+            fn = settle_filter_loglik
+            run = lambda a: (settle_filter_loglik(  # noqa: E731
+                *a, n_settle=n_settle),)
+            plain = lambda a: (_settle_filter_plain(  # noqa: E731
+                *a, n_settle, LYAP_ITERS),)
+        got, tier = _settle_tier(fn, lambda: run(args))
+        assert tier == TIER_OF_EDGE[edge], (name, n, k)
+        for g, r in zip(got, plain(args)):
+            assert g.shape == r.shape and _rel(g, r) < 1e-9, (name, n, k)
+        got32, tier32 = _settle_tier(fn, lambda: run(args32))
+        assert tier32 == _expected_tier(0, n, k, n_obs), (name, n, k)
+        for g, r in zip(got32, plain(args32)):
+            assert g.dtype == torch.float32 and _rel(g, r) < 5e-4, (name, n, k)
+
+
+@pytest.mark.parametrize("tier", ["cluster", "workspace"])
+def test_large_settle_kernels_nan_draw_poisons_only_itself(device, tier):
+    """K2 and K5 above the small-state plan (k = 3): the cluster kernel at
+    n = 90 and the large-state kernel at the first n of its device-memory
+    tier, each on more draws than its persistent grid holds at once, so
+    that the NaN draw's cluster (or workspace slot) serves later draws:
+    every other draw is bitwise what it is without the NaN."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    if tier == "cluster":
+        n = 90
+        bn = max(lib.gcp_settle_cluster_resident(1, f, n, 3, N_OBS)
+                 for f in (0, 1)) + 40
+    else:
+        n = _settle_edges(3, N_OBS)["first workspace"]
+        bn = lib.gcp_settle_large_work_bytes(1, 1, n, 3, N_OBS, 1 << 20) \
+            // lib.gcp_settle_large_work_bytes(1, 1, n, 3, N_OBS, 1) + 40
+    assert _expected_tier(1, n, 3, 5) == _expected_tier(1, n, 3, N_OBS) == tier
     args = [torch.as_tensor(a, device=device)
-            for a in _stable_system(90, 3, 1100, N_OBS, seed=9)]
+            for a in _stable_system(n, 3, bn, N_OBS, seed=9)]
     y, T = args[0], args[1]
     T_bad = T.clone()
     T_bad[1, 0, 0] = float("nan")
-    keep = torch.arange(1100, device=device) != 1
-    before = settle_parts.large_launches
-    clean = settle_parts(y[:5], T, *args[2:])
-    got = settle_parts(y[:5], T_bad, *args[2:])
-    assert settle_parts.large_launches == before + 2
+    keep = torch.arange(bn, device=device) != 1
+    clean, t1 = _settle_tier(settle_parts,
+                             lambda: settle_parts(y[:5], T, *args[2:]))
+    got, t2 = _settle_tier(settle_parts,
+                           lambda: settle_parts(y[:5], T_bad, *args[2:]))
+    assert t1 == t2 == tier
     assert not torch.isfinite(got[0][1])
     for g, c in zip(got, clean):
         assert torch.equal(g[keep], c[keep])
-    before = settle_filter_loglik.large_launches
-    clean = settle_filter_loglik(y, T, *args[2:], n_settle=5)
-    got = settle_filter_loglik(y, T_bad, *args[2:], n_settle=5)
-    assert settle_filter_loglik.large_launches == before + 2
+    clean, t1 = _settle_tier(settle_filter_loglik, lambda: settle_filter_loglik(
+        y, T, *args[2:], n_settle=5))
+    got, t2 = _settle_tier(settle_filter_loglik, lambda: settle_filter_loglik(
+        y, T_bad, *args[2:], n_settle=5))
+    assert t1 == t2 == tier
     assert not torch.isfinite(got[1])
     assert torch.equal(got[keep], clean[keep])
 

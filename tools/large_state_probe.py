@@ -7,9 +7,11 @@ Run from the root of a checkout on a GPU:
 
 It builds the kernels, makes SW-2007's model and runs
 ``chip_smoke.large_state_phase`` (16a the sweep with each settle and 16b
-the value+grad at a filter state of 104, 16c each large-state kernel
-against its plain version), printing its lines and then the JSON rows of
-the four large-state variants.
+the value+grad at a filter state of 104, 16c each kernel above its
+small-state plan against its plain version, 16d the device-memory K2 and
+K5 on two such economies side by side, filter state 208), printing its
+lines and then the JSON rows of the large-state variants and of the
+cluster tier of K2 and K5.
 """
 
 import json
@@ -45,8 +47,9 @@ def main() -> int:
     def reset_counts():
         for fn in counted.values():
             fn.launches = 0
-            if hasattr(fn, "large_launches"):
-                fn.large_launches = 0
+            for tier in ("large_launches", "workspace_launches"):
+                if hasattr(fn, tier):
+                    setattr(fn, tier, 0)
 
     def read_counts():
         return {k: fn.launches for k, fn in counted.items()}
@@ -58,8 +61,7 @@ def main() -> int:
                 if p not in chip_smoke.SW_ESTIMATED]
     launches, report = chip_smoke.large_state_phase(
         chip_smoke.card_line(), reset_counts, read_counts, model, constant)
-    print(json.dumps({chip_smoke.LARGE_KERNELS[k]: dict(report[k],
-                                                        launches=launches[k])
+    print(json.dumps({k: dict(report[k], launches=launches[k])
                       for k in report}))
     return 0
 

@@ -3,19 +3,28 @@
 
 Run from the root of a checkout:
 
-    python3 tools/settle_variants.py [--batch 4096] VARIANT [VARIANT ...]
+    python3 tools/settle_variants.py [--n 26] [--batch 4096] VARIANT [...]
 
 A variant is a comma-separated list of settings of the compile-time
 constants ``GCP_SETTLE_<NAME>`` of ``geconpy_torch/csrc/settle.cu``, for
-example ``DRAWS=2`` or ``DRAWS=1,MIN_BLOCKS=5``; ``base`` is the source as
-it is.  Each variant is compiled on its own (all started together) into
-``build/settle_variants/``.  The inputs are synthetic stable systems at
-SW-2007's shapes (n = 26, k = 7, 32 settle steps of 200 periods, float32
-I/O) made from a seed.  Every variant is first held against the plain
-PyTorch version on 67 draws in float64 (rel 1e-9), then the variants are
-timed in turns, forwards and backwards, with CUDA events; the line of a
-variant gives its registers, its draws per block, its shared memory and the
-K2 and K5 times of both turns, with the card's name and power limit.
+example ``DRAWS=2``, ``DRAWS=1,MIN_BLOCKS=5`` or, for the cluster kernel,
+``PROBE=1`` (one draw's clocks by phase; the probe build puts a CTA barrier
+between T P and x_pred, so its schedule differs slightly from the one that
+ships); ``base`` is the source as it is.  Each variant is compiled on
+its own (all started together) into ``build/settle_variants/``.  The inputs
+are synthetic stable systems with n states (SW-2007's 26 by default; 104 is
+its filter state with year-on-year inflation), k = 7, 32 settle steps of
+200 periods, made from a seed.  The tiers the shape takes run: at n = 26
+the small-state kernel; above the small-state plan the cluster kernel where
+its plan fits and the large-state kernel on its device-memory workspace
+(``gcp_settle_large``, ``gcp_settle_filter_large``), both, side by side.
+Every variant's tiers are first held against the plain PyTorch version on
+67 draws in float64 (rel 1e-9), then timed in turns, forwards and
+backwards, with CUDA events at ``--batch`` draws in float32 I/O; the line
+of a variant gives its registers and spills, the plan (draws per block, or
+CTAs a cluster and the resident clusters), its shared memory and the K2
+and K5 times of both turns of each tier, with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -28,9 +37,13 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-N, K, N_SETTLE, N_OBS = 26, 7, 32, 200
+K, N_SETTLE, N_OBS = 7, 32, 200
 SETTLE_FNS = ("gcp_settle", "gcp_settle_filter", "gcp_settle_smem_bytes",
-              "gcp_settle_draws_per_block")
+              "gcp_settle_draws_per_block", "gcp_settle_fits",
+              "gcp_settle_large", "gcp_settle_filter_large",
+              "gcp_settle_large_work_bytes", "gcp_settle_cluster",
+              "gcp_settle_filter_cluster", "gcp_settle_cluster_ctas",
+              "gcp_settle_cluster_smem_bytes", "gcp_settle_cluster_resident")
 
 
 def stable_system(n, k, batch, n_obs, seed, device, dtype):
@@ -51,11 +64,34 @@ def stable_system(n, k, batch, n_obs, seed, device, dtype):
                  for a in (y, T, RQR, Z, H, d))
 
 
+def tier_calls(lib, n):
+    """{tier: (K2, K5)} for the tiers that shape ``n`` takes: functions of
+    the float32 or float64 inputs (y, T, R Q R', Z, H, d) that launch one
+    tier's kernel of ``lib`` through its C entry point and return its
+    outputs."""
+    from geconpy_torch.ops.batched_settle import _launch
+
+    def calls(tier):
+        return (lambda args: _launch(lib, tier, False, *args,
+                                     args[0].shape[0], LYAP),
+                lambda args: _launch(lib, tier, True, *args, N_SETTLE, LYAP))
+
+    if lib.gcp_settle_fits(1, n, K, N_OBS):
+        return {"small": calls("small")}
+    tiers = ("cluster", "workspace") \
+        if lib.gcp_settle_cluster_ctas(1, n, K, N_OBS) else ("workspace",)
+    return {tier: calls(tier) for tier in tiers}
+
+
+LYAP = 10
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
     parser.add_argument("variants", nargs="+")
+    parser.add_argument("--n", type=int, default=26)
     parser.add_argument("--batch", type=int, default=4096)
     parser.add_argument("--reps", type=int, default=10)
     opts = parser.parse_args()
@@ -68,6 +104,8 @@ def main() -> int:
                                                   _settle_filter_plain,
                                                   _settle_plain)
 
+    assert LYAP == LYAP_ITERS
+    n = opts.n
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -86,59 +124,52 @@ def main() -> int:
     for variant, lib_path, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            print(f"{variant}: nvcc failed\n{log[-3000:]}")
+            print(f"{variant}: nvcc failed\n{log[-6000:]}", flush=True)
             continue
         lib = ctypes.CDLL(str(lib_path))
         for name in SETTLE_FNS:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = _cuda._SIGNATURES[name]
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores", log)
-        libs[variant] = (lib, f"regs {'/'.join(regs)} spill {'/'.join(spills)}")
+        # registers and spills by kernel (ptxas lists each kernel's
+        # properties after its name)
+        info, kernel, spilled = [], None, "?"
+        for line in log.splitlines():
+            found = re.search(r"entry function '_ZN3gcp\d+(\w+?_kernel)"
+                              r"I(\w)Lb([01])E", line)
+            if found:
+                io = "f32" if found.group(2) == "f" else "f64"
+                fused = ", fused" if found.group(3) == "1" else ""
+                kernel = f"{found.group(1)}<{io}{fused}>"
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if spill:
+                spilled = spill.group(1)
+            regs = re.search(r"Used (\d+) registers", line)
+            if kernel and regs:
+                info.append(f"{kernel} regs {regs.group(1)} spill {spilled}")
+                kernel = None
+        libs[variant] = (lib, "; ".join(info))
 
     dev = torch.device("cuda", 0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def k2(lib, args):
-        y, T, RQR, Z, H, d = args
-        bn = T.shape[0]
-        code = _cuda.dtype_code(T.dtype)
-        new = lambda *s: torch.empty(s, dtype=T.dtype, device=dev)  # noqa: E731
-        outs = (new(bn), new(bn, N), new(bn, N, N), new(bn, N, K),
-                new(bn, K, K), new(bn))
-        rc = lib.gcp_settle(code, *(a.data_ptr() for a in (T, RQR, Z, H, d, y)),
-                            *(o.data_ptr() for o in outs), bn, N, K, N_SETTLE,
-                            LYAP_ITERS, stream)
-        assert rc == 0, rc
-        return outs
-
-    def k5(lib, args):
-        y, T, RQR, Z, H, d = args
-        bn = T.shape[0]
-        ll = torch.empty((bn,), dtype=T.dtype, device=dev)
-        rc = lib.gcp_settle_filter(
-            _cuda.dtype_code(T.dtype),
-            *(a.data_ptr() for a in (T, RQR, Z, H, d, y)), ll.data_ptr(), bn,
-            N, K, N_SETTLE, N_OBS, LYAP_ITERS, stream)
-        assert rc == 0, rc
-        return ll
 
     def rel(a, b):
-        return float(((a - b).abs() / (1 + b.abs())).max())
+        both = torch.isfinite(a) & torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        return float(((a - b).abs() / (1 + b.abs()))[both].max())
 
-    small = stable_system(N, K, 67, N_OBS, 0, dev, torch.float64)
+    small = stable_system(n, K, 67, N_OBS, 0, dev, torch.float64)
     head = (small[0][:N_SETTLE],) + small[1:]
     ref2 = _settle_plain(*head, LYAP_ITERS)
     ref5 = _settle_filter_plain(*small, N_SETTLE, LYAP_ITERS)
     for variant, (lib, _info) in libs.items():
-        e2 = max(rel(g, r) for g, r in zip(k2(lib, head), ref2))
-        e5 = rel(k5(lib, small), ref5)
-        torch.cuda.synchronize()
-        print(f"{variant}: float64 vs plain on 67 draws: K2 rel {e2:.2e}, "
-              f"K5 rel {e5:.2e}", flush=True)
-        assert e2 < 1e-9 and e5 < 1e-9
+        for tier, (k2, k5) in tier_calls(lib, n).items():
+            e2 = max(rel(g, r) for g, r in zip(k2(head), ref2))
+            e5 = rel(k5(small), ref5)
+            torch.cuda.synchronize()
+            print(f"{variant} {tier}: float64 vs plain on 67 draws at n = "
+                  f"{n}: K2 rel {e2:.2e}, K5 rel {e5:.2e}", flush=True)
+            assert e2 < 1e-9 and e5 < 1e-9, variant
 
-    big = stable_system(N, K, opts.batch, N_OBS, 1, dev, torch.float32)
+    big = stable_system(n, K, opts.batch, N_OBS, 1, dev, torch.float32)
     big_head = (big[0][:N_SETTLE],) + big[1:]
 
     def timed(fn):
@@ -152,19 +183,62 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / opts.reps
 
-    times = {v: [] for v in libs}
+    times = {}
     order = list(libs) + list(reversed(libs))
     for variant in order:
         lib = libs[variant][0]
-        times[variant].append((timed(lambda: k2(lib, big_head)),
-                               timed(lambda: k5(lib, big))))
-    for variant, (lib, info) in libs.items():
-        draws = lib.gcp_settle_draws_per_block(0, N, K, N_OBS)
-        smem = lib.gcp_settle_smem_bytes(0, N, K, N_OBS)
-        turns = "; ".join(f"K2 {a:.3f} K5 {b:.3f}" for a, b in times[variant])
-        print(f"{variant}: {info}; {draws} draws/block, {smem} B smem (K5); "
-              f"ms at batch {opts.batch}, float32 I/O, two turns: {turns} "
-              f"[{card}]", flush=True)
+        for tier, (k2, k5) in tier_calls(lib, n).items():
+            times.setdefault((variant, tier), []).append(
+                (timed(lambda: k2(big_head)), timed(lambda: k5(big))))
+    probe_labels = ["inputs", "Lyapunov A P", "Lyapunov P += (A P) A'",
+                    "Lyapunov A A", "T P", "P_pred", "P_pred Z'",
+                    "v, F, its elimination", "K", "I - K Z, K H, x",
+                    "(I - K Z) P_pred", "Joseph sum", "frozen gain", "tail",
+                    "x_pred", "T P of step 0"]
+    for variant, (lib, _info) in libs.items():
+        if not hasattr(lib, "gcp_settle_probe_read"):
+            continue
+        # built with GCP_SETTLE_PROBE=1: clocks by phase of the first draw
+        # of cluster 0, with the card's resident clusters busy and at
+        # --batch
+        lib.gcp_settle_probe_reset.restype = ctypes.c_int
+        lib.gcp_settle_probe_read.argtypes = [ctypes.c_void_p]
+        lib.gcp_settle_probe_read.restype = ctypes.c_int
+        k5 = tier_calls(lib, n)["cluster"][1]
+        resident = lib.gcp_settle_cluster_resident(0, 1, n, K, N_OBS)
+        for bn in (resident, opts.batch):
+            clocks = (ctypes.c_ulonglong * len(probe_labels))()
+            assert lib.gcp_settle_probe_reset() == 0
+            k5((big[0],) + tuple(a[:bn] for a in big[1:]))
+            torch.cuda.synchronize()
+            assert lib.gcp_settle_probe_read(clocks) == 0
+            total = sum(clocks)
+            parts = ", ".join(f"{lab} {c} ({c / total:.3f})"
+                              for lab, c in zip(probe_labels, clocks))
+            print(f"{variant} probe, K5 cluster at n = {n}, batch {bn}: "
+                  f"{total} clocks a draw: {parts} [{card}]", flush=True)
+
+    for (variant, tier), turns in times.items():
+        lib, info = libs[variant]
+        if tier == "small":
+            plan = (f"{lib.gcp_settle_draws_per_block(0, n, K, N_OBS)} draws "
+                    f"a block, {lib.gcp_settle_smem_bytes(0, n, K, N_OBS)} B "
+                    f"smem (K5)")
+        elif tier == "cluster":
+            plan = (f"{lib.gcp_settle_cluster_ctas(0, n, K, N_OBS)} CTAs a "
+                    f"cluster, "
+                    f"{lib.gcp_settle_cluster_smem_bytes(0, n, K, N_OBS)} B "
+                    f"smem a CTA, resident clusters K2 "
+                    f"{lib.gcp_settle_cluster_resident(0, 0, n, K, N_SETTLE)}"
+                    f", K5 {lib.gcp_settle_cluster_resident(0, 1, n, K, N_OBS)}")
+        else:
+            plan = (f"workspace "
+                    f"{lib.gcp_settle_large_work_bytes(0, 1, n, K, N_OBS, opts.batch)}"
+                    f" B (K5)")
+        ms = "; ".join(f"K2 {a:.3f} K5 {b:.3f}" for a, b in turns)
+        print(f"{variant} {tier}: {plan}; ms at n = {n}, batch {opts.batch}, "
+              f"float32 I/O, two turns: {ms} [{card}]", flush=True)
+        print(f"{variant} resources: {info}", flush=True)
     return 0
 
 
