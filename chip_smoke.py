@@ -293,8 +293,8 @@ Phases, one line each (plus one line per kernel in phase 3):
    at rel 1e-10 with equal regimes.  The phase prints its seconds;
 15. the rest of the reference (``checkpoint_mesh_phase``;
    ``tools/checkpoint_mesh_probe.py`` runs it alone), one line a part, each with
-   its seconds; 15d's first child process starts first and builds beside
-   15a-15c.  15a ``fit_with_checkpointing`` on 8a's configuration
+   its seconds; 15d's first child process starts before phase 13 and
+   builds beside phases 13-14 and 15a-15c.  15a ``fit_with_checkpointing`` on 8a's configuration
    (float64; ``CKPT_FIT``, two segments of ``CKPT_SEGMENT`` draws): the
    warmup once into a checkpoint, copied twice; one copy sampled
    unbroken, the other stopped after its first segment and called again;
@@ -354,33 +354,53 @@ Phases, one line each (plus one line per kernel in phase 3):
    launching the device-memory K2 or K5 once; >= 99% finite, the card
    rejecting the draws the CPU rejects of 8 held to the float64 CPU path
    at rel 5e-4; evals/s.
-17. the large-state K1 and K4 (``large_pencil_phase``;
-   ``tools/large_pencil_probe.py`` runs it alone; budget 60 s, printed
-   first): two SW-2007 economies side by side
-   (``tests/_gcn_fixtures/sw2007_two_economies.gcn``: the second economy
-   the first with every name suffixed ``_b``), whose dynamic core of
-   2 x 26 = 52 states is above the small-state K1/K4 plan (n <= 48); the
-   22 parameters of phase 4 estimated in each (44), the 7 observables of
-   each (14), 200 periods of ``data_from_prior`` (CUDA seed 0), draws that
-   draw + 0.05 N(0, 1) in float32.  17a ``build_batched_loglik(policy=
-   "pallas")`` at batch 4096 under each settle: the large-state K1 once a
-   sweep and the small-state K1 never, with K2 + K3, K5 or K3 as in phase
-   4; >= 99% finite, the first 512 draws within rel 5e-4 of the float64
-   CPU path; evals/s over 2 calls; K1's time on the ``"pallas"`` sweep's
-   own inputs (CUDA events) and its share of the call.  17b ``build_batched_logpost_and_grad(
-   settle="pallas")`` (stationary filter) at batch 512: the large-state
-   K4 once and K6; >= 99% finite, every gradient finite; of 64 draws the
-   card rejects those the CPU rejects, the rest within 5e-4 / 1e-3 of the
-   float64 CPU path; us/draw.  17c each large-state kernel against its
-   plain version at batch 256: float64 (``hold_to_plain``, rel 1e-9,
-   success flags equal) and float32 I/O (rel 5e-4 to the plain float64
-   outputs, success equal on >= 99%), K1 at n = 49 (the plan's first n
-   above it, printed for m = 7 and 14), 52, 64, 104 and 130 with m = 7
-   and 14, K4 at each n (n = 52 on 17a's and 17b's own inputs, the rest
-   synthetic, ``tools/cr_variants.py::stable_pencil``), and both at
-   n = 52 on more draws than the persistent grid's slots; each with its
-   time, bound and share (the plain version timed on the own inputs
-   only).
+17. K1 and K4 above their small-state plan (``large_pencil_phase``;
+   ``tools/large_pencil_probe.py`` runs it alone; budget 150 s, printed
+   first), in three tiers chosen by size (``cr_tier``): on-chip (one draw
+   a CTA in shared memory, n = 49..56 on an H100), cluster (a draw a
+   thread-block cluster of up to 8 CTAs, its eliminations in panels of
+   ``CR_PANEL`` pivots, n = 57..128), device-memory (beyond).  Two SW-2007
+   economies side by side (``tests/_gcn_fixtures/sw2007_two_economies.gcn``:
+   the second economy the first with every name suffixed ``_b``), whose
+   dynamic core of 2 x 26 = 52 states takes the on-chip tier; the 22
+   parameters of phase 4 estimated in each (44), the 7 observables of each
+   (14), 200 periods of ``data_from_prior`` (CUDA seed 0), draws that draw
+   + 0.05 N(0, 1) in float32.  17a ``build_batched_loglik(policy=
+   "pallas")`` at batch 4096 under each settle: K1 once a sweep, the
+   on-chip tier, with K2 + K3, K5 or K3 as in phase 4; >= 99% finite, the
+   first 512 draws within rel 5e-4 of the float64 CPU path; evals/s over 2
+   calls; K1's time on the ``"pallas"`` sweep's own inputs (CUDA events)
+   under the on-chip and the device-memory tier, its bound and its share
+   of the call.  17b ``build_batched_logpost_and_grad(settle="pallas")``
+   (stationary filter) at batch 512: K4 once, the on-chip tier, and K6;
+   >= 99% finite, every gradient finite; of 64 draws the card rejects those
+   the CPU rejects, the rest within 5e-4 / 1e-3 of the float64 CPU path;
+   us/draw.  17c each tier against its plain version (the cluster tier's in
+   panels) at batch 256, in the tier each size takes (the counters say
+   which): float64 (``hold_to_plain``, rel 1e-9, success flags equal) and
+   float32 I/O (rel 5e-4 to the plain float64 outputs, success equal on >=
+   99%), K1 at n = 49, 52, 64, 104, 130 with m = 7 and 14 and at each
+   tier's largest n and the next (printed) with m = 14, K4 at each n (n =
+   52 on 17a's and
+   17b's own inputs, the rest synthetic, ``tools/cr_variants.py::
+   stable_pencil``), K4 at batch 128 (phase 7's chains) on 17b's inputs;
+   each with its time, bound and share (2 launches) and, on the paths' own
+   inputs and at n = 104, m = 14, the device-memory tier's time on the same
+   inputs (the plain version timed on the own inputs only); each tier on
+   more draws than it holds at once
+   (n = 52, 104, 130), with a NaN draw there that poisons only itself.
+   17d SW-2007 economies side by side above the on-chip tier (the rule of
+   the fixture, ``sw_economies``): four (suffixes ``_b``, ``_c``, ``_d``:
+   a core of 104 states, 88 parameters, 28 observables, the size of a
+   four-region model), the cluster tier's path, and five (core 130, 110
+   parameters, 35 observables), the device-memory tier's: each through the
+   ``policy="pallas", settle="xla"`` sweep at batch 512 and the stationary
+   ``settle="pallas"`` value+grad at 128, each launching its tier's K1 or
+   K4 once; >= 99% finite, every gradient finite, the card rejecting the
+   draws the CPU rejects of 2 held to the float64 CPU path (5e-4, and 1e-3
+   for the gradient); then each kernel on its path's own inputs (batch 256
+   and 128) against its plain version, with its time, bound and share (the
+   cluster tier's beside the device-memory tier's).
 
 Any failure raises (nonzero exit).  Without a GPU, or without the rest of
 the repository beside it, the script fails and prints no result.  The last
@@ -393,9 +413,12 @@ and K6 are rows of their own (``*_large``: launches on 16a, 16b and 16d,
 error, times and bound at 16c's n = 104; for K2 and K5 the device-memory
 tier, whose path is 16d), so is the cluster tier of K2 and K5
 (``*_cluster``: launches on 16a, the rest at 16c's n = 104), and so are
-those of K1 and K4
-(launches on 17a and 17b, error, times and bound at 17c's n = 52 on the
-path's own inputs).
+the three tiers of K1 and K4 above their small-state plan (``*_onchip``:
+launches on 17a and 17b, error, times and bound at 17c's n = 52 on the
+path's own inputs; ``*_cluster``: launches on 17d's four economies, the
+rest at n = 104 on their own inputs; ``*_large``, the device-memory tier:
+launches on 17d's five economies, the rest at n = 130 on their own
+inputs).
 """
 
 from __future__ import annotations
@@ -610,16 +633,38 @@ CLUSTER_KERNELS = {"settle_parts": "settle_parts_cluster",
 # 2 x 26 = 52 states is above the small-state K1 and K4 plan (n <= 48);
 # the 22 parameters of SW_ESTIMATED estimated in each and the 7 SW_OBS of
 # each observed.  17c's pencils: each n with m = 7 and 14 (m is K1's
-# alone) at batch PENCIL_BATCH, each kernel timed PENCIL_REPS times; the
-# phase's budget in seconds
+# alone) at batch PENCIL_BATCH, each kernel timed PENCIL_REPS times, and K4
+# at phase 7's chain count; the phase's budget in seconds (150, not 60:
+# 17c holds three tiers at their edges, each beside the device-memory
+# tier, and 17d builds and runs two more models, of 104 and 130 states)
 TWO_SW_GCN = "tests/_gcn_fixtures/sw2007_two_economies.gcn"
 TWO_SW_ESTIMATED = SW_ESTIMATED + [p + "_b" for p in SW_ESTIMATED]
 TWO_SW_OBS = SW_OBS + [o + "_b" for o in SW_OBS]
 PENCIL_N, PENCIL_M = (49, 52, 64, 104, 130), (7, 14)
-PENCIL_BATCH, PENCIL_REPS, PENCIL_BUDGET_S = 256, 3, 60
-# the large-state K1 and K4 in the kernels' JSON line
-PENCIL_KERNELS = {"cycle_reduction_policy": "cycle_reduction_policy_large",
-                  "cycle_reduction": "cycle_reduction_large"}
+PENCIL_BATCH, PENCIL_REPS, PENCIL_BUDGET_S = 256, 2, 150
+PENCIL_CHAINS = NUTS_KW["num_chains"]
+# 17d: SW-2007 economies side by side (the rule of the fixture, with the
+# suffixes of MANY_SW): four, a dynamic core of 104 (the cluster tier's
+# path), and five, 130 (above the cluster tier: the device-memory tier's);
+# each through the sweep at MANY_SW_BATCH and the value+grad at
+# MANY_SW_VG_BATCH, held to the float64 CPU path on MANY_SW_CHECK draws
+MANY_SW = {"cluster": ("_b", "_c", "_d"),
+           "workspace": ("_b", "_c", "_d", "_e")}
+MANY_SW_BATCH, MANY_SW_VG_BATCH, MANY_SW_CHECK = 512, 128, 8
+# the K1 and K4 tiers above the small-state plan in the kernels' JSON line
+# (the device-memory tier's rows keep their name, ``*_large``)
+PENCIL_KERNELS = {
+    "cycle_reduction_policy": {"onchip": "cycle_reduction_policy_onchip",
+                               "cluster": "cycle_reduction_policy_cluster",
+                               "workspace": "cycle_reduction_policy_large"},
+    "cycle_reduction": {"onchip": "cycle_reduction_onchip",
+                        "cluster": "cycle_reduction_cluster",
+                        "workspace": "cycle_reduction_large"}}
+PENCIL_TIERS = ("onchip", "cluster", "workspace")
+# the two middle tiers' source (the other K1/K4 rows: KERNELS's)
+PENCIL_SOURCES = {row: "geconpy_torch/csrc/cycle_reduction_tiers.cu"
+                  for rows in PENCIL_KERNELS.values()
+                  for tier, row in rows.items() if tier != "workspace"}
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -759,8 +804,10 @@ def tail_fma(n: int, k: int, steps: int) -> int:
 def work(name: str, args, n_iter: int, lyap_iters: int) -> tuple[float, float, float]:
     """(flops, bytes, peak flop/s) of one call on ``args``: the operations
     of the kernel's fixed schedule (2 per multiply-add; a Gauss-Jordan
-    elimination of an r x w system is r * r * w), and each input read and
-    each output written once, at the call's element size."""
+    elimination of an r x w system is r * r * w; K1 and K4 at ``n_iter``
+    doublings, which the callers pass as the paths do: ``CR_ITERS`` = 14,
+    not the wrappers' default of 16), and each input read and each output
+    written once, at the call's element size."""
     from geconpy_torch.ops.batched_dare import HEWER_ITERS, INNER_ITERS
     from geconpy_torch.ops.batched_dare import LYAP_ITERS as DARE_LYAP
 
@@ -3193,6 +3240,30 @@ def _cache_child(cache_dir, out_npy):
         text=True)
 
 
+def start_cache_run():
+    """15d's scratch directory under ``build/`` and its first child
+    process, which builds the kernels into a fresh cache there (started
+    before phase 13, so that the build runs beside phases 13-14 and
+    15a-15c); :func:`stop_cache_run` ends both."""
+    import tempfile
+
+    scratch = pathlib.Path(tempfile.mkdtemp(prefix="phase15_",
+                                            dir=ROOT / "build"))
+    return scratch, _cache_child(scratch / "cache", scratch / "k4_first.npy")
+
+
+def stop_cache_run(cache_run) -> None:
+    """Kill 15d's first child if it still runs and remove the scratch
+    directory (a second call does nothing)."""
+    import shutil
+
+    scratch, first = cache_run
+    if first.poll() is None:
+        first.kill()
+        first.wait()
+    shutil.rmtree(scratch, ignore_errors=True)
+
+
 def _child_result(proc, tag) -> dict:
     out, err = proc.communicate(timeout=600)
     if proc.returncode != 0:
@@ -3202,27 +3273,22 @@ def _child_result(proc, tag) -> dict:
 
 
 def checkpoint_mesh_phase(card, reset_counts, read_counts, sw_model, ss, data32,
-                  batch, sweep, smc_ref, peak4) -> dict:
+                  batch, sweep, smc_ref, peak4, cache_run) -> dict:
     """Phase 15 (15a-15d, see the module docstring).  ``ss``, ``data32``,
     ``batch`` and ``sweep`` are phase 4's SW-2007 sweep configuration,
     draws and ``"pallas"`` sweep; ``smc_ref`` phase 6's (result, seconds);
     ``peak4`` phase 4's (max_memory_allocated, memory_allocated before) of
-    that sweep.  Returns the kernel launches of 15b's path."""
-    import shutil
-    import tempfile
-
+    that sweep; ``cache_run`` 15d's :func:`start_cache_run`, whose first
+    child has been building the kernels since.  Returns the kernel
+    launches of 15b's path."""
     import numpy as np
 
     t_phase = time.perf_counter()
-    scratch = pathlib.Path(tempfile.mkdtemp(prefix="phase15_",
-                                            dir=ROOT / "build"))
+    scratch, first = cache_run
     print(f"phase 15 budget: {PHASE15_BUDGET_S:.0f} s asked (15a checkpointed "
           f"NUTS ~45 s, 15b ~5 s, 15c ~5 s, 15d's first child builds the "
-          f"kernels beside 15a-15c) [{card}]", flush=True)
-    # 15d's first process builds the kernels into a fresh cache while
-    # 15a-15c run
+          f"kernels, started before 15a) [{card}]", flush=True)
     cache_dir = scratch / "cache"
-    first = _cache_child(cache_dir, scratch / "k4_first.npy")
     try:
         launches = _phase15_abc(card, reset_counts, read_counts, sw_model, ss,
                                 data32, batch, sweep, smc_ref, peak4, scratch)
@@ -3248,16 +3314,13 @@ def checkpoint_mesh_phase(card, reset_counts, read_counts, sw_model, ss, data32,
         print(f"phase 15d compile cache (GECONPY_TORCH_CACHE_DIR, a fresh "
               f"directory): the first process built the kernels there "
               f"({one['builds']} nvcc build, {one['seconds']:.1f} s, started "
-              f"beside 15a-15c), the second loaded them ({two['builds']} "
+              f"before 15a), the second loaded them ({two['builds']} "
               f"builds, nvcc.log unchanged, {two['seconds']:.1f} s); both "
               f"launched K4 once on a {CACHE_PENCIL[0]}-state pencil at batch "
               f"{CACHE_PENCIL[2]}, bitwise equal; step "
               f"{time.perf_counter() - t_step:.1f} s [{card}]", flush=True)
     finally:
-        if first.poll() is None:
-            first.kill()
-            first.wait()
-        shutil.rmtree(scratch, ignore_errors=True)
+        stop_cache_run(cache_run)
     wall = time.perf_counter() - t_phase
     print(f"phase 15: {wall:.1f} s (budget {PHASE15_BUDGET_S:.0f} s) "
           f"[{card}]", flush=True)
@@ -3484,8 +3547,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
     draws per block and shared memory are the library's own answer for the
     path's launch: four warps a draw for K1, K2, K4, K5 and K6, one for K3.
     Instances that the path does not launch (K1/K4 for n > 32, K3 for other
-    n and k, the large-state and cluster kernels) get their registers and
-    spills only.
+    n and k, the large-state, on-chip and cluster kernels) get their
+    registers and spills only.
     Spills of functions that are not kernels are listed last."""
     import re
 
@@ -3508,6 +3571,7 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
             switches = re.findall(r"Lb([01])E", template)
             ints = [int(v) for v in re.findall(r"Li(\d+)E", template)]
             tag = {"cr_kernel": "+sel", "cr_large_kernel": "+sel",
+                   "cr_onchip_kernel": "+sel", "cr_cluster_kernel": "+sel",
                    "settle_kernel": "+tail",
                    "settle_large_kernel": "+tail",
                    "settle_cluster_kernel": "+tail"}.get(
@@ -3522,8 +3586,8 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
                     + " memory"
             current = f"{name}{tag}<{io}{extra}>"
             if (extra and current != f"filter_tail_kernel<{io}, 1 row a "
-                    f"lane, k <= 8>") or name.endswith(("_large_kernel",
-                                                        "_cluster_kernel")):
+                    f"lane, k <= 8>") or name.endswith(
+                        ("_large_kernel", "_onchip_kernel", "_cluster_kernel")):
                 off_path.add(current)
             labels[found.group(1)] = current
         owner = re.search(r"Function properties for (\S+)", line)
@@ -3620,7 +3684,8 @@ def main() -> int:
     def reset_counts():
         for fn in counted.values():
             fn.launches = 0
-            for tier in ("large_launches", "workspace_launches"):
+            for tier in ("large_launches", "onchip_launches",
+                         "cluster_launches", "workspace_launches"):
                 if hasattr(fn, tier):
                     setattr(fn, tier, 0)
 
@@ -4152,20 +4217,26 @@ def main() -> int:
     posterior_tools_phase(card, reset_counts, read_counts, model, ss_vg,
                           ss_vg_cpu, nuts_res, nuts_data)
 
-    # ---- phase 13: second order, at nk_sw's width, and GIRF bands
-    second_order_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
-                       nuts_res)
+    # 15d's first child builds the kernels into a fresh cache from here on
+    cache_run = start_cache_run()
+    try:
+        # ---- phase 13: second order, at nk_sw's width, and GIRF bands
+        second_order_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
+                           nuts_res)
 
-    # ---- phase 14: the other estimators and the deterministic paths
-    estimators_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
-                     vg_data)
+        # ---- phase 14: the other estimators and the deterministic paths
+        estimators_phase(card, reset_counts, read_counts, ss_vg, ss_vg_cpu,
+                         vg_data)
 
-    # ---- phase 15: checkpointed NUTS, the mesh, profiler and memory
-    # tables, the compile cache
-    for name, n in checkpoint_mesh_phase(card, reset_counts, read_counts, model, ss,
-                                 data32, batch, sweep, smc_ref,
-                                 (peaks["pallas"], bases["pallas"])).items():
-        path_launches[name] += n
+        # ---- phase 15: checkpointed NUTS, the mesh, profiler and memory
+        # tables, the compile cache
+        for name, n in checkpoint_mesh_phase(
+                card, reset_counts, read_counts, model, ss, data32, batch,
+                sweep, smc_ref, (peaks["pallas"], bases["pallas"]),
+                cache_run).items():
+            path_launches[name] += n
+    finally:
+        stop_cache_run(cache_run)
 
     # ---- phase 16: the large-state kernels at a filter state of 104
     large_launches, large_report = large_state_phase(
@@ -4182,12 +4253,12 @@ def main() -> int:
             if name in extra:
                 rows.append((extra[name], large_report[extra[name]],
                              large_launches[extra[name]]))
-        if name in PENCIL_KERNELS:
-            rows.append((PENCIL_KERNELS[name], pencil_report[name],
-                         pencil_launches[name]))
+        for row in PENCIL_KERNELS.get(name, {}).values():
+            rows.append((row, pencil_report[row], pencil_launches[row]))
         for row_name, entry, launches in rows:
             kernels.append({
-                "name": row_name, "route": "cuda", "source": src,
+                "name": row_name, "route": "cuda",
+                "source": PENCIL_SOURCES.get(row_name, src),
                 "replaces": tpu, "launches": launches,
                 "max_abs_err": entry["abs_f64"], "ms": entry["ms"],
                 "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
@@ -4757,20 +4828,65 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     return row_launches, report
 
 
+def sw_economies(suffixes) -> str:
+    """SW-2007's GCN text with one more copy of the economy for each suffix
+    in ``suffixes``: every variable, parameter and shock name of a copy
+    suffixed, its blocks renamed with the suffix in capitals, and all the
+    copies' steady-state identities in the one STEADY_STATE block (the
+    rule of ``tests/test_torch_large_pencil.py::two_economies``, which
+    made phase 17's fixture)."""
+    import re
+
+    import geconpy_torch
+
+    src = geconpy_torch.get_example_gcn("sw2007")
+    ss = re.search(r"block STEADY_STATE\n\{\n    identities\n    \{\n"
+                   r"(.*?\n)    \};\n\};\n", src, re.S)
+    head, identities, blocks = src[:ss.start()], ss.group(1), src[ss.end():]
+    names = set(re.findall(r"\b([A-Za-z_]\w*)\[", src)) | set(
+        re.findall(r"^\s*([A-Za-z_]\w*)\s*[~=]", blocks, re.M))
+    pattern = re.compile(
+        r"\b(" + "|".join(sorted(names, key=len, reverse=True)) + r")\b")
+    ids, body = identities, blocks
+    for sfx in suffixes:
+        ids += pattern.sub(r"\1" + sfx, identities)
+        body += re.sub(r"^block (\w+)$", r"block \1" + sfx.upper(),
+                       pattern.sub(r"\1" + sfx, blocks), flags=re.M)
+    return (head + "block STEADY_STATE\n{\n    identities\n    {\n" + ids
+            + "    };\n};\n" + body)
+
+
+def cr_tier_call(name: str, tier: str, args):
+    """K1 (``name`` ``"cycle_reduction_policy"``) or K4 on ``args`` through
+    ``tier``'s C entry point (``batched_cycle_reduction._launch``: the
+    device-memory tier's workspace included), whatever tier the wrappers
+    would take for that shape: one tier beside another on the same inputs.
+    Returns the raw outputs; counts no launch."""
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_cycle_reduction import _launch
+    from geconpy_torch.stats.statespace import CR_ITERS
+
+    A, B, C = args[:3]
+    D = args[3] if name == "cycle_reduction_policy" else None
+    return _launch(_cuda.library(), tier, A, B, C, D, CR_ITERS)
+
+
 def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
-    """Phase 17: the large-state K1 and K4 at the dynamic core of 52 states
-    of two SW-2007 economies side by side (17a the sweep with each settle,
-    17b the value+grad), and each of them against its plain version at
-    17c's pencils (see the module docstring).  Returns ({wrapper name:
-    large-state launches on 17a/17b}, {wrapper name: its JSON entry's
-    numbers at 17c's n = 52 on the path's own inputs}); raises on a
-    failure."""
+    """Phase 17: K1 and K4 above their small-state plan.  17a the sweep
+    and 17b the value+grad at the dynamic core of 52 states of two SW-2007
+    economies (the on-chip tier), 17c each tier against its plain version at
+    17c's pencils and its edges, 17d four economies (a core of 104, the
+    device-memory tier) (see the module docstring).  Returns ({JSON row
+    name: launches on 17a, 17b and 17d}, {JSON row name: its entry's
+    numbers: the on-chip rows at n = 52 on 17a's and 17b's own inputs, the
+    device-memory rows at n = 104 on 17d's}); raises on a failure."""
     import torch
 
     import geconpy_torch
     from geconpy_torch.ops import _cuda
     from geconpy_torch.ops.batched_cycle_reduction import (
-        cr_policy_raw, cycle_reduction, cycle_reduction_policy)
+        CR_PANEL, _cr_plain, _cr_policy_plain, cr_tier, cycle_reduction,
+        cycle_reduction_policy)
     from geconpy_torch.ops.batched_settle import LYAP_ITERS
     from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
@@ -4780,17 +4896,28 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
     dev = torch.device("cuda", 0)
     t_phase = time.perf_counter()
     print(f"phase 17 budget: {PENCIL_BUDGET_S} s (two SW-2007 economies, "
-          f"dynamic core 52)", flush=True)
-    # 17c's synthetic pencils (numpy, ~7 s of eigenvalues on the host) are
-    # made on a thread of their own while 17a and 17b run
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    pencils = {n: pool.submit(stable_pencil, n, max(PENCIL_M), PENCIL_BATCH,
-                              n) for n in PENCIL_N}
+          f"dynamic core 52; four and five, cores 104 and 130)", flush=True)
+    lib = _cuda.library()
+    optin = lib.gcp_smem_optin()
+
+    def tier(n: int, m: int) -> str:
+        return cr_tier(n, m, optin)
+
+    # each tier's largest n (K1 at m = 14 and K4 take the same) and the
+    # next, the next tier's first
+    top = {t_: max(n for n in range(1, 200) if tier(n, 14) == t_)
+           for t_ in ("onchip", "cluster")}
+    if any(tier(n, 0) != tier(n, 14) for n in range(40, 200)) \
+            or tier(52, 14) != "onchip" or tier(104, 14) != "cluster" \
+            or tier(top["onchip"] + 1, 14) != "cluster" \
+            or tier(top["cluster"] + 1, 14) != "workspace":
+        raise AssertionError(f"17: tiers end at {top}")
     wrappers = {"cycle_reduction_policy": cycle_reduction_policy,
                 "cycle_reduction": cycle_reduction}
 
-    def large_counts() -> dict:
-        return {k_: fn.large_launches for k_, fn in wrappers.items()}
+    def tier_counts() -> dict:
+        return {(k_, t_): getattr(fn, f"{t_}_launches")
+                for k_, fn in wrappers.items() for t_ in PENCIL_TIERS}
 
     model = geconpy_torch.model_from_gcn((ROOT / TWO_SW_GCN).read_text(),
                                          verbose=False)
@@ -4817,9 +4944,28 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
                                       policy="pallas", settle="pallas")(
         batch[:N_CHECK].double().cpu())
     cpu_s = time.perf_counter() - t0
+    # 17c's synthetic pencils (numpy, ~10 s of eigenvalues on the host) are
+    # made on a thread of their own while 17a and 17b run on the card (not
+    # beside the CPU path above, whose threads they would slow)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pencil_n = sorted({*PENCIL_N, *top.values(),
+                       *(t + 1 for t in top.values())})
+    pencils = {n: pool.submit(stable_pencil, n, max(PENCIL_M), PENCIL_BATCH,
+                              n) for n in pencil_n}
+    row_launches = {row: 0 for rows in PENCIL_KERNELS.values()
+                    for row in rows.values()}
 
-    # ---- 17a: the sweep with each settle, the large-state K1 once a call
-    path_large = dict.fromkeys(wrappers, 0)
+    def expect_tier(label, name, want):
+        """The counted launches of ``name`` since the last reset took the
+        tier ``want`` once, and no other tier."""
+        got = tier_counts()
+        others = {t_: got[(name, t_)] for t_ in PENCIL_TIERS if t_ != want}
+        if got[(name, want)] != 1 or any(others.values()):
+            raise AssertionError(f"{label}: expected the {want} "
+                                 f"{KERNELS[name][0]} once, got {got}")
+        row_launches[PENCIL_KERNELS[name][want]] += 1
+
+    # ---- 17a: the sweep with each settle, the on-chip K1 once a call
     rec: dict = {}
     paths = {"pallas": ("cycle_reduction_policy", "settle_parts",
                         "filter_tail"),
@@ -4832,15 +4978,14 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         out = sweep(batch)
         torch.cuda.synchronize()
-        launches, large = read_counts(), large_counts()
+        launches = read_counts()
         if launches["cycle_reduction_policy"] != 1 \
-                or large["cycle_reduction_policy"] != 1 \
                 or any(launches[k_] < 1 for k_ in path) \
                 or any(launches[k_] for k_ in launches if k_ not in path):
-            raise AssertionError(f"17a settle={settle}: expected the "
-                                 f"large-state K1 once and {path}, got "
-                                 f"{launches}, large {large}")
-        path_large["cycle_reduction_policy"] += large["cycle_reduction_policy"]
+            raise AssertionError(f"17a settle={settle}: expected K1 once "
+                                 f"and {path}, got {launches}")
+        expect_tier(f"17a settle={settle}", "cycle_reduction_policy",
+                    "onchip")
         if out.shape != (BATCH,) or out.dtype != torch.float32:
             raise AssertionError(f"17a output {tuple(out.shape)} {out.dtype}")
         frac = float(torch.isfinite(out).float().mean())
@@ -4861,23 +5006,32 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
         wall = (time.perf_counter() - t0) / 2
         k1 = ""
         if settle == "pallas":
-            # K1 on this sweep's own inputs, its share of the call
+            # K1 on this sweep's own inputs under each tier, its share of
+            # the call
             rec_call: dict = {}
             sweep(batch, record=rec_call)
-            k1_ms = cuda_time_ms(lambda: cr_policy_raw(
-                *rec_call["cycle_reduction_policy"], CR_ITERS), 1)
-            k1 = (f"; K1 on the call's own inputs {k1_ms:.1f} ms "
-                  f"({k1_ms / (wall * 1e3):.3f} of the call)")
+            own = rec_call["cycle_reduction_policy"]
+            k1_ms = {t_: cuda_time_ms(lambda: cr_tier_call(
+                "cycle_reduction_policy", t_, own), 1)
+                for t_ in ("onchip", "workspace")}
+            b_ms, b_by = bound("cycle_reduction_policy", own, CR_ITERS,
+                               LYAP_ITERS)
+            k1 = (f"; K1 on the call's own inputs {k1_ms['onchip']:.3f} ms "
+                  f"on-chip ({k1_ms['onchip'] / (wall * 1e3):.3f} of the "
+                  f"call; device-memory tier {k1_ms['workspace']:.3f} ms), "
+                  f"bound {b_ms:.3f} ms ({b_by}), share "
+                  f"{b_ms / k1_ms['onchip']:.4f} / "
+                  f"{b_ms / k1_ms['workspace']:.4f}")
             sweep(batch[:PENCIL_BATCH].double(), record=rec)
         names = ", ".join(f"{KERNELS[k_][0]} {launches[k_]}" for k_ in path)
         print(f"phase 17a sweep settle={settle}: launches {names} (K1 the "
-              f"large-state variant); finite {frac:.4f}; rel vs float64 CPU "
-              f"path {rel:.3e} on {int(both.sum())}/{N_CHECK} (CPU "
-              f"{cpu_s:.1f} s); {BATCH / wall:.1f} evals/s (2 calls of batch "
-              f"{BATCH}, {wall * 1e3:.1f} ms a call){k1}; step "
+              f"on-chip tier); finite {frac:.4f}; rel vs float64 CPU path "
+              f"{rel:.3e} on {int(both.sum())}/{N_CHECK} (CPU {cpu_s:.1f} "
+              f"s); {BATCH / wall:.1f} evals/s (2 calls of batch {BATCH}, "
+              f"{wall * 1e3:.1f} ms a call){k1}; step "
               f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
-    # ---- 17b: value+grad on the stationary filter, the large-state K4
+    # ---- 17b: value+grad on the stationary filter, the on-chip K4
     ss_vg = DSGEStateSpace(model, device="cuda").configure(
         filter_type="stationary", **kw)
     ss_vg_cpu = DSGEStateSpace(model, device="cpu").configure(
@@ -4888,12 +5042,10 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     vals, grads = vag(vg_batch)
     torch.cuda.synchronize()
-    launches, large = read_counts(), large_counts()
-    if launches["cycle_reduction"] != 1 or large["cycle_reduction"] != 1 \
-            or launches["dare_settle"] < 1:
-        raise AssertionError(f"17b: expected the large-state K4 once and K6, "
-                             f"got {launches}, large {large}")
-    path_large["cycle_reduction"] = large["cycle_reduction"]
+    launches = read_counts()
+    if launches["cycle_reduction"] != 1 or launches["dare_settle"] < 1:
+        raise AssertionError(f"17b: expected K4 once and K6, got {launches}")
+    expect_tier("17b", "cycle_reduction", "onchip")
     frac = float(torch.isfinite(vals).float().mean())
     if vals.shape != (VG_BATCH,) or frac < 0.99 \
             or not bool(torch.isfinite(grads).all()):
@@ -4928,63 +5080,104 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
     ss_vg.build_batched_logpost(data, settle="pallas")(
         vg_batch[:PENCIL_BATCH].double(), record=vg_rec)
     print(f"phase 17b value+grad settle=pallas: launches K4 "
-          f"{launches['cycle_reduction']} (large-state variant), K6 "
+          f"{launches['cycle_reduction']} (the on-chip tier), K6 "
           f"{launches['dare_settle']}; finite {frac:.4f}, every gradient "
           f"finite; vs float64 CPU path on {int(both.sum())}/{VG_CHECK}: "
           f"value rel {rel_v:.3e}, gradient rel {rel_g:.3e} (CPU "
           f"{cpu_s:.1f} s); {us:.2f} us/draw (2 calls of batch {VG_BATCH}); "
           f"step {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
-    # ---- 17c: each large-state kernel against its plain version
-    lib = _cuda.library()
+    # ---- 17d's models are built on the thread while 17c runs
+    def economies(suffixes):
+        many = geconpy_torch.model_from_gcn(sw_economies(suffixes),
+                                            verbose=False)
+        sfx = ("", *suffixes)
+        est = [p + x for x in sfx for p in SW_ESTIMATED]
+        return many, dict(
+            observed_states=[o + x for x in sfx for o in SW_OBS],
+            constant_params=[p for p in many.param_names if p not in est],
+            kalman_settle=N_SETTLE)
+
+    many_models = {t_: pool.submit(economies, sfx)
+                   for t_, sfx in MANY_SW.items()}
+
+    # ---- 17c: each tier above the small-state plan against its plain
+    # version
     kernel, plain, outputs = kernel_checks()
-
-    def first_large(m: int) -> int:
-        n = 1
-        while lib.gcp_cr_fits(n, m):
-            n += 1
-        return n
-
-    def slots(n: int, m: int) -> int:
-        return (lib.gcp_cr_large_work_bytes(1, 1, n, m, 1 << 20)
-                // lib.gcp_cr_large_work_bytes(1, 1, n, m, 1))
-
-    # more draws than the persistent grid holds at once: the slots stride
-    over = slots(52, 14) + 64
-    over_pencil = pool.submit(stable_pencil, 52, 14, over, 5214)
-    pool.shutdown(wait=False)
-
-    edges = {m: first_large(m) for m in (0, *PENCIL_M)}
-    print(f"phase 17c the small-state plan's first n that does not fit: "
-          f"{edges[7]} (m = 7), {edges[14]} (m = 14), {edges[0]} (K4); "
-          f"persistent grid at n = 52, m = 14: {slots(52, 14)} draw slots "
-          f"[{card}]", flush=True)
+    # more draws than each tier holds at once, at its n (52, 104 and 130)
+    over_n = {"onchip": 52, "cluster": 104, "workspace": 130}
+    resident = {"onchip": lib.gcp_cr_onchip_resident(1, 1, 52, 14),
+                "cluster": lib.gcp_cr_cluster_resident(1, 1, 104, 14),
+                "workspace": lib.gcp_cr_large_work_bytes(1, 1, 130, 14, 1 << 20)
+                // lib.gcp_cr_large_work_bytes(1, 1, 130, 14, 1)}
+    over_pencil = {t_: pool.submit(stable_pencil, n, 14, resident[t_] + 64,
+                                   5000 + n) for t_, n in over_n.items()}
+    edges = {m: min(n for n in range(1, 200) if tier(n, m) != "small")
+             for m in (0, *PENCIL_M)}
+    print(f"phase 17c tiers: the small-state plan's first n that does not "
+          f"fit {edges[7]} (m = 7), {edges[14]} (m = 14), {edges[0]} (K4); "
+          f"the on-chip tier n = {edges[14]}..{top['onchip']} (one draw a CTA "
+          f"of {lib.gcp_cr_onchip_block_threads()} threads, "
+          f"{resident['onchip']} resident CTAs, "
+          f"{lib.gcp_cr_onchip_smem_bytes(52, 14)} B at n = 52, m = 14; "
+          f"opt-in {optin} B a block); the cluster tier n = "
+          f"{top['onchip'] + 1}..{top['cluster']} (at n = 104, m = 14 "
+          f"{lib.gcp_cr_cluster_ctas(104, 14)} CTAs of "
+          f"{lib.gcp_cr_cluster_rows(104, 14)} rows, "
+          f"{lib.gcp_cr_cluster_smem_bytes(104, 14)} B a CTA, "
+          f"{resident['cluster']} resident clusters; panels of {CR_PANEL} "
+          f"pivots); the device-memory tier from n = {top['cluster'] + 1} "
+          f"({resident['workspace']} draw slots at n = 130) [{card}]",
+          flush=True)
     cases = []   # (wrapper name, label, float64 args)
-    for n in PENCIL_N:
+    for n in pencil_n:
         # one pencil an n; D's first m columns for each m
         pencil = tuple(torch.as_tensor(a, device=dev)
                        for a in pencils[n].result())
-        for m in PENCIL_M:
+        edge = next((f" (the {t_} tier's largest n)" for t_, n_ in top.items()
+                     if n == n_), "") or next(
+            (f" (the first n above the {t_} tier)" for t_, n_ in top.items()
+             if n == n_ + 1), "")
+        # the tiers' edges (not in PENCIL_N) at m = 14 alone
+        for m in PENCIL_M if n in PENCIL_N else (max(PENCIL_M),):
             if (n, m) == (52, 14):
                 cases.append(("cycle_reduction_policy", "n = 52, m = 14, "
                               "17a's own inputs", rec["cycle_reduction_policy"]))
                 continue
-            cases.append(("cycle_reduction_policy", f"n = {n}, m = {m}, "
+            cases.append(("cycle_reduction_policy", f"n = {n}{edge}, m = {m}, "
                           "synthetic", (*pencil[:3],
                                         pencil[3][..., :m].contiguous())))
-        cases.append(("cycle_reduction", f"n = {n}, 17b's own inputs"
-                      if n == 52 else f"n = {n}, synthetic",
+        cases.append(("cycle_reduction", f"n = {n}{edge}, 17b's own inputs"
+                      if n == 52 else f"n = {n}{edge}, synthetic",
                       vg_rec["cycle_reduction"] if n == 52 else pencil[:3]))
-    pencil = tuple(torch.as_tensor(a, device=dev)
-                   for a in over_pencil.result())
-    cases += [("cycle_reduction_policy", f"n = 52, m = 14, batch {over} "
-               "(above the slots), synthetic", pencil),
-              ("cycle_reduction", f"n = 52, batch {over} (above the slots), "
-               "synthetic", pencil[:3])]
+    chains = tuple(X[:PENCIL_CHAINS] for X in vg_rec["cycle_reduction"])
+    cases.append(("cycle_reduction", f"n = 52, batch {PENCIL_CHAINS} "
+                  "(phase 7's chains), 17b's own inputs", chains))
     report = {}
+
+    def tier_ms(name, t_, args):
+        """ms of one launch of ``t_`` on ``args`` (the wrappers' own
+        choice, counted, where that is the tier the shape takes)."""
+        if t_ == tier(args[0].shape[-1], args[3].shape[-1]
+                      if name == "cycle_reduction_policy" else 0):
+            return cuda_time_ms(lambda: kernel[name](*args), PENCIL_REPS)
+        return cuda_time_ms(lambda: cr_tier_call(name, t_, args), PENCIL_REPS)
+
+    def panel_plain(name, t_):
+        """The plain version a tier is held to: the cluster tier's is in
+        panels (``_cr_recursion(..., panel=CR_PANEL)``)."""
+        if t_ != "cluster":
+            return plain[name]
+        if name == "cycle_reduction_policy":
+            return lambda *a: _cr_policy_plain(*a, CR_ITERS, CR_PANEL)
+        return lambda *a: _cr_plain(*a, CR_ITERS, CR_PANEL)
+
     for name, label, args in cases:
-        before = wrappers[name].large_launches
-        ref64 = plain[name](*args)
+        n = args[0].shape[-1]
+        m = args[3].shape[-1] if name == "cycle_reduction_policy" else 0
+        t_ = tier(n, m)
+        before = tier_counts()
+        ref64 = panel_plain(name, t_)(*args)
         part = hold_to_plain(name, args, phase="17c", ref=ref64)
         # float32 I/O: T (and R) within 5e-4 of the plain version's float64
         # outputs on the draws both accept
@@ -5000,41 +5193,213 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
         if agree < 0.99 or rel32 > 5e-4:
             raise AssertionError(f"17c {name} at {label} float32 I/O: rel "
                                  f"{rel32:.3e}, success agrees on {agree:.4f}")
-        if wrappers[name].large_launches != before + 2:
+        after = tier_counts()
+        if after[(name, t_)] != before[(name, t_)] + 2:
             raise AssertionError(f"17c {name} at {label}: expected the "
-                                 f"large-state kernel")
+                                 f"{t_} tier")
         # timed at the path's I/O: the sweep's float32 (K1), float64 (K4);
-        # the plain version (launch-bound, ~0.3-1 s) on the path's own
+        # the device-memory tier beside the on-chip one on the same inputs;
+        # the plain version (launch-bound, ~0.3-1 s) on the paths' own
         # inputs only
         timed = args32 if name == "cycle_reduction_policy" else args
-        ms = cuda_time_ms(lambda: kernel[name](*timed), PENCIL_REPS)
+        ms = tier_ms(name, t_, timed)
         bound_ms, bound_by = bound(name, timed, CR_ITERS, LYAP_ITERS)
-        plain_part = ""
-        if "own inputs" in label:
+        extra = ""
+        # the device-memory tier beside the others on the paths' own inputs
+        # and at n = 104, m = 14
+        if t_ != "workspace" and ("own inputs" in label or (n, m) == (104, 14)):
+            ws_ms = tier_ms(name, "workspace", timed)
+            extra = (f"; device-memory tier {ws_ms:.3f} ms, share "
+                     f"{bound_ms / ws_ms:.4f}")
+        if "own inputs" in label and "chains" not in label:
             plain_ms = cuda_time_ms(lambda: plain[name](*timed), 1)
-            plain_part = f", plain {plain_ms:.3f} ms"
+            extra += f"; plain {plain_ms:.3f} ms"
             got, want = kernel[name](*args), ref64
             ok = cr_success(got[-1], torch.float64) \
                 & cr_success(want[-1], torch.float64)
             abs_err = max(float((g[ok] - w[ok]).abs().max())
                           for g, w in zip(got[:-1], want[:-1]))
-            report[name] = {"abs_f64": abs_err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by}
+            report[PENCIL_KERNELS[name]["onchip"]] = {
+                "abs_f64": abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"phase 17c {part}, float32 I/O rel {rel32:.2e}, at {label}, "
-              f"batch {args[0].shape[0]}, large-state kernel "
-              f"({timed[0].dtype} I/O): {ms:.3f} ms{plain_part}, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4f}; "
-              f"step {time.perf_counter() - t_phase:.1f} s [{card}]",
+              f"batch {args[0].shape[0]}, {t_} tier ({timed[0].dtype} I/O, "
+              f"{CR_ITERS} doublings): "
+              f"{ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / ms:.4f}{extra}; step "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+    # each tier on more draws than it holds at once, at its n, held to its
+    # plain version; a NaN draw there poisons only itself
+    for t_, n in over_n.items():
+        pencil = tuple(torch.as_tensor(a, device=dev)
+                       for a in over_pencil[t_].result())
+        over = pencil[0].shape[0]
+        for name in wrappers:
+            args = pencil if name == "cycle_reduction_policy" else pencil[:3]
+            before = tier_counts()
+            part = hold_to_plain(name, args, phase="17c",
+                                 ref=panel_plain(name, t_)(*args))
+            bad = tuple(X.clone() for X in args)
+            bad[0][7, 0, 0] = float("nan")
+            clean = kernel[name](*args)
+            poisoned = kernel[name](*bad)
+            keep = torch.ones(over, dtype=torch.bool, device=dev)
+            keep[7] = False
+            confined = all(torch.equal(g[keep], c[keep])
+                           for g, c in zip(poisoned, clean)) \
+                and not bool(torch.isfinite(poisoned[0][7]).all()) \
+                and not bool(cr_success(poisoned[-1], torch.float64)[7])
+            if not confined:
+                raise AssertionError(f"17c {name} {t_} tier: the NaN draw "
+                                     f"reaches others")
+            if tier_counts()[(name, t_)] != before[(name, t_)] + 3:
+                raise AssertionError(f"17c {name} at n = {n}: expected the "
+                                     f"{t_} tier")
+            print(f"phase 17c {part} at n = {n}, batch {over} (above the "
+                  f"{resident[t_]} draws the {t_} tier holds at once), "
+                  f"synthetic; a NaN draw there non-finite and rejected, "
+                  f"every other draw bitwise unchanged [{card}]", flush=True)
+
+    # ---- 17d: SW-2007 economies side by side above the on-chip tier:
+    # four (a core of 104, the cluster tier) and five (130, the
+    # device-memory tier), each tier's K1 and K4 on their own path
+    for t_, future in many_models.items():
+        many, kw_m = future.result()
+        ssm = DSGEStateSpace(many, device="cuda").configure(
+            filter_type="steady_state", **kw_m)
+        ssm_cpu = DSGEStateSpace(many, device="cpu").configure(
+            filter_type="steady_state", **kw_m)
+        data_m, draw_m = ssm.data_from_prior(
+            torch.Generator(device="cuda").manual_seed(0), periods=PERIODS)
+        data_m32 = data_m.astype("float32")
+        u_m = ssm.unconstrain(draw_m).to(torch.float32)
+        n_m = len(ssm._filter_core)
+        if tier(n_m, 0) != t_:
+            raise AssertionError(f"17d: core {n_m} is not the {t_} tier's")
+        batch_m = u_m[None, :] + 0.05 * torch.randn(
+            (MANY_SW_BATCH, u_m.shape[0]), device=dev, dtype=torch.float32,
+            generator=torch.Generator(device="cuda").manual_seed(1))
+        t0 = time.perf_counter()
+        ref_m = ssm_cpu.build_batched_loglik(
+            data_m32, n_settle=N_SETTLE, policy="pallas", settle="xla")(
+            batch_m[:MANY_SW_CHECK].double().cpu())
+        cpu_s = time.perf_counter() - t0
+        sweep = ssm.build_batched_loglik(data_m32, n_settle=N_SETTLE,
+                                         policy="pallas", settle="xla")
+        reset_counts()
+        torch.cuda.synchronize()
+        out = sweep(batch_m)
+        torch.cuda.synchronize()
+        expect_tier(f"17d {t_} sweep", "cycle_reduction_policy", t_)
+        frac = float(torch.isfinite(out).float().mean())
+        got = out[:MANY_SW_CHECK].double().cpu()
+        both = torch.isfinite(ref_m) & torch.isfinite(got)
+        rel = float(((got - ref_m).abs() / (1.0 + ref_m.abs()))[both].max()) \
+            if bool(both.any()) else math.inf
+        if frac < 0.99 or rel >= 5e-4 or not torch.equal(
+                torch.isfinite(ref_m), torch.isfinite(got)):
+            raise AssertionError(f"17d {t_} sweep: {frac:.4f} finite, "
+                                 f"{int(both.sum())}/{MANY_SW_CHECK} in both, "
+                                 f"rel {rel:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(batch_m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec_m: dict = {}
+        sweep(batch_m[:PENCIL_BATCH].double(), record=rec_m)
+        print(f"phase 17d {len(MANY_SW[t_]) + 1} SW-2007 economies (core "
+              f"{n_m}, {len(kw_m['observed_states'])} observables, "
+              f"{u_m.shape[0]} parameters), sweep policy=pallas settle=xla "
+              f"at batch {MANY_SW_BATCH}: K1 the {t_} tier once; finite "
+              f"{frac:.4f}; rel vs float64 CPU path {rel:.3e} on "
+              f"{int(both.sum())}/{MANY_SW_CHECK} (CPU {cpu_s:.1f} s); "
+              f"{MANY_SW_BATCH / wall:.1f} evals/s ({wall * 1e3:.1f} ms a "
+              f"call); step {time.perf_counter() - t_phase:.1f} s [{card}]",
               flush=True)
-    work = {"K1": lib.gcp_cr_large_work_bytes(0, 1, 52, 14, BATCH),
-            "K4": lib.gcp_cr_large_work_bytes(1, 0, 52, 0, VG_BATCH)}
-    print(f"phase 17 large-state workspaces at n = 52 (17a's batch {BATCH}, "
-          f"17b's {VG_BATCH}): {work} B", flush=True)
+        ssm_vg = DSGEStateSpace(many, device="cuda").configure(
+            filter_type="stationary", **kw_m)
+        ssm_vg_cpu = DSGEStateSpace(many, device="cpu").configure(
+            filter_type="stationary", **kw_m)
+        vb = batch_m[:MANY_SW_VG_BATCH]
+        vag_m = ssm_vg.build_batched_logpost_and_grad(data_m, settle="pallas")
+        reset_counts()
+        torch.cuda.synchronize()
+        vals, grads = vag_m(vb)
+        torch.cuda.synchronize()
+        expect_tier(f"17d {t_} value+grad", "cycle_reduction", t_)
+        t0 = time.perf_counter()
+        v_ref, g_ref = ssm_vg_cpu.build_batched_logpost_and_grad(
+            data_m, settle="pallas")(vb[:MANY_SW_CHECK].double().cpu())
+        cpu_s = time.perf_counter() - t0
+        v_got = vals[:MANY_SW_CHECK].double().cpu()
+        g_got = grads[:MANY_SW_CHECK].double().cpu()
+        both = torch.isfinite(v_ref) & torch.isfinite(v_got)
+        frac = float(torch.isfinite(vals).float().mean())
+        if frac < 0.99 or not bool(torch.isfinite(grads).all()) \
+                or not torch.equal(torch.isfinite(v_ref),
+                                   torch.isfinite(v_got)):
+            raise AssertionError(f"17d {t_} value+grad: {frac:.4f} finite, "
+                                 f"gradients finite "
+                                 f"{bool(torch.isfinite(grads).all())}")
+        rel_v = float(((v_got - v_ref).abs()
+                       / (1.0 + v_ref.abs()))[both].max())
+        rel_g = float(((g_got - g_ref).abs().amax(dim=-1)
+                       / (1.0 + g_ref.abs().amax(dim=-1)))[both].max())
+        if rel_v > 5e-4 or rel_g > 1e-3:
+            raise AssertionError(f"17d {t_} value+grad off the float64 CPU "
+                                 f"path: value rel {rel_v:.3e}, gradient rel "
+                                 f"{rel_g:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vag_m(vb)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / MANY_SW_VG_BATCH * 1e6
+        vg_rec_m: dict = {}
+        ssm_vg.build_batched_logpost(data_m, settle="pallas")(
+            vb.double(), record=vg_rec_m)
+        print(f"phase 17d value+grad settle=pallas at batch "
+              f"{MANY_SW_VG_BATCH} (phase 7's chains): K4 the {t_} tier once; "
+              f"finite {frac:.4f}, every gradient finite; vs float64 CPU path "
+              f"on {int(both.sum())}/{MANY_SW_CHECK}: value rel {rel_v:.3e}, "
+              f"gradient rel {rel_g:.3e} (CPU {cpu_s:.1f} s); {us:.2f} "
+              f"us/draw [{card}]", flush=True)
+        # the tier's rows: each kernel on its path's own inputs
+        for name, args in (("cycle_reduction_policy",
+                            rec_m["cycle_reduction_policy"]),
+                           ("cycle_reduction", vg_rec_m["cycle_reduction"])):
+            ref64 = panel_plain(name, t_)(*args)
+            part = hold_to_plain(name, args, phase="17d", ref=ref64)
+            timed = tuple(X.float() for X in args) \
+                if name == "cycle_reduction_policy" else args
+            ms = cuda_time_ms(lambda: kernel[name](*timed), PENCIL_REPS)
+            plain_ms = cuda_time_ms(lambda: plain[name](*timed), 1)
+            bound_ms, bound_by = bound(name, timed, CR_ITERS, LYAP_ITERS)
+            got = kernel[name](*args)
+            ok = cr_success(got[-1], torch.float64) \
+                & cr_success(ref64[-1], torch.float64)
+            abs_err = max(float((g[ok] - w_[ok]).abs().max())
+                          for g, w_ in zip(got[:-1], ref64[:-1]))
+            report[PENCIL_KERNELS[name][t_]] = {
+                "abs_f64": abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            extra = ""
+            if t_ != "workspace":
+                ws_ms = tier_ms(name, "workspace", timed)
+                extra = (f"; device-memory tier {ws_ms:.3f} ms, share "
+                         f"{bound_ms / ws_ms:.4f}")
+            print(f"phase 17d {part} at n = {args[0].shape[-1]}, batch "
+                  f"{args[0].shape[0]}, 17d's own inputs, {t_} tier "
+                  f"({timed[0].dtype} I/O, {CR_ITERS} doublings): {ms:.3f} "
+                  f"ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"share {bound_ms / ms:.4f}{extra} [{card}]", flush=True)
+    pool.shutdown()
     wall = time.perf_counter() - t_phase
     print(f"phase 17 seconds: {wall:.1f} (budget {PENCIL_BUDGET_S})",
           flush=True)
-    return path_large, report
+    return row_launches, report
 
 
 def nuts_phase(ss, ss_cpu, card, reset_counts, read_counts, num_warmup: int,

@@ -62,9 +62,15 @@
 // workspace in device memory instead, read through L1 and L2.  The grid is
 // persistent (as many blocks as are resident, each draw slot striding over
 // the batch), so the workspace is the card's resident draws times one
-// layout, not the batch's.  The wrappers pick the small-state kernel
-// wherever its plan fits one draw a block (gcp_cr_fits), the large-state
-// one elsewhere.
+// layout, not the batch's.
+//
+// Four tiers, chosen by size alone (ops/batched_cycle_reduction.py::
+// cr_tier): the small-state kernel wherever its plan fits one draw a block
+// (gcp_cr_fits, n <= 48); the on-chip kernel (cr_onchip_kernel, one draw a
+// CTA, n = 49..56); the cluster kernel (cr_cluster_kernel, a draw a
+// thread-block cluster, n = 57..128); the device-memory cr_large_kernel
+// beyond.  The two middle tiers are in cycle_reduction_tiers.cu (built
+// apart, so that nvcc compiles them beside this file).
 #include "small_linalg.cuh"
 
 #ifndef GCP_CR_DRAWS
@@ -109,7 +115,8 @@ constexpr int kCrScal = 84;   // scalars a draw (see the kernel)
 // then A2 Q0.  Above (cr_eliminate): five matrices and the augmented system
 // aug (ceil16(n) rows; column blocks of width ceil8(n) at 0, ceil8(n) and
 // 2 ceil8(n), or the m columns of D from ceil8(n)), its spent left block
-// receiving A2 Q0.  Then kCrScal scalars.
+// receiving A2 Q0.  Then kCrScal scalars.  Mirrored for the tier choice by
+// ops/batched_cycle_reduction.py::cr_layout_bytes (_CR_SCAL).
 struct CrLayout {
   bool regs;
   int nr, n8, ld, lda;
@@ -165,13 +172,6 @@ inline CrPlan cr_plan(int n, int m) {
 // Barrier over the kCrThreads threads of one draw (ids 1..draws).
 __device__ __forceinline__ void cr_barrier(int draw) {
   asm volatile("bar.sync %0, %1;" ::"r"(draw + 1), "r"(kCrThreads) : "memory");
-}
-
-// Per-lane value to the warp's max (NaN-propagating), stored by lane 0.
-__device__ __forceinline__ void warp_max_to(double v, double* slot, int lane) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (lane == 0) *slot = v;
 }
 
 __device__ __forceinline__ double max4(const double* r) {

@@ -43,6 +43,13 @@ __device__ __forceinline__ bool pivot_wins(S v, int i, S best, int bi) {
   return v > best || (v == best && i < bi);
 }
 
+// Per-lane value to the warp's max (NaN-propagating), stored by lane 0.
+__device__ __forceinline__ void warp_max_to(double v, double* slot, int lane) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (lane == 0) *slot = v;
+}
+
 // ---------------------------------------------------------------------------
 // The warp-level helpers.
 //

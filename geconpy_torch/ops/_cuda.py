@@ -61,6 +61,20 @@ _SIGNATURES = {
                      ctypes.c_int),
     "gcp_cr_fits": ([_I, _I], ctypes.c_int),
     "gcp_cr_large_work_bytes": ([_I, _I, _I, _I, _I], ctypes.c_size_t),
+    "gcp_cr_policy_onchip": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P], ctypes.c_int),
+    "gcp_cr_onchip": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_cr_onchip_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_cr_onchip_block_threads": ([], ctypes.c_int),
+    "gcp_cr_onchip_resident": ([_I, _I, _I, _I], ctypes.c_int),
+    "gcp_smem_optin": ([], ctypes.c_int),
+    "gcp_cr_policy_cluster": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P], ctypes.c_int),
+    "gcp_cr_cluster": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+    "gcp_cr_cluster_ctas": ([_I, _I], ctypes.c_int),
+    "gcp_cr_cluster_rows": ([_I, _I], ctypes.c_int),
+    "gcp_cr_cluster_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_cr_cluster_resident": ([_I, _I, _I, _I], ctypes.c_int),
     "gcp_dare": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                  ctypes.c_int),
     "gcp_dare_smem_bytes": ([_I, _I], ctypes.c_size_t),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gj_eliminate", "gj_solve", "gj_inverse"]
+__all__ = ["gj_eliminate", "gj_eliminate_panels", "gj_solve", "gj_inverse"]
 
 
 def gj_eliminate(A: torch.Tensor, RHS: torch.Tensor):
@@ -55,6 +55,83 @@ def gj_eliminate(A: torch.Tensor, RHS: torch.Tensor):
         minpiv = torch.minimum(minpiv, piv.abs())
         logdet = logdet + torch.log(piv.abs())
     return aug[..., n:], minpiv, logdet
+
+
+def gj_eliminate_panels(A: torch.Tensor, RHS: torch.Tensor, panel: int,
+                        pivots: list | None = None):
+    """:func:`gj_eliminate`'s pivots in panels of ``panel`` columns, the
+    schedule of the cluster-tier K1/K4 (``csrc/cycle_reduction_tiers.cu``):
+    (..., n, n), (..., n, m) -> (A^{-1} RHS, min|pivot|).
+
+    Rows are never moved: logical positions follow the swaps (``lpos``,
+    and ``plog``, the physical row at each position), and each step pivots
+    on the first maximal |entry| of its column in logical order (NaN
+    largest), as ``_gj_solve`` does.  A panel's ``b`` columns are
+    eliminated step by step on their own (r = row_P * (1 / pivot), the
+    other rows x - c r), which fixes the pivots P_t, their reciprocals and
+    the multiplier columns c_t (column t of the panel when its step
+    starts).  The pivot rows of the whole system then give r_t = ((x_P_t -
+    c_0[P_t] r_0) - ... - c_{t-1}[P_t] r_{t-1}) / pivot_t, in that order;
+    every other row becomes x - C r (one product of depth b), and row P_t
+    r_t - c_{t+1}[P_t] r_{t+1} - ..., in that order.  ``panel = 1`` is
+    :func:`gj_eliminate`'s sequence of operations, but for 1 / pivot.
+    ``pivots``, if given, receives each step's physical pivot rows.
+    """
+    aug = torch.cat([A, RHS], dim=-1)
+    n = A.shape[-1]
+    batch = aug.shape[:-2]
+    rows = torch.arange(n, device=A.device)
+    plog = rows.expand(batch + (n,)).clone()
+    lpos = plog.clone()
+    minpiv = torch.full(batch, float("inf"), dtype=A.dtype, device=A.device)
+
+    def at(X, i):   # X[..., i[...], :] for a row index per draw
+        return torch.take_along_dim(X, i[..., None, None], dim=-2)[..., 0, :]
+
+    for k0 in range(0, n, panel):
+        bb = min(panel, n - k0)
+        pn = aug[..., k0:k0 + bb].clone()
+        P, pinv = [], []
+        for j in range(bb):
+            k = k0 + j
+            col = pn[..., j]
+            mag = torch.where(lpos >= k, col.abs(), torch.full_like(col, -1.0))
+            bl = torch.argmax(torch.take_along_dim(mag, plog, dim=-1), dim=-1)
+            Pj = torch.take_along_dim(plog, bl[..., None], dim=-1)[..., 0]
+            Rk = plog[..., k].clone()
+            plog.scatter_(-1, bl[..., None], Rk[..., None])
+            plog[..., k] = Pj
+            lpos.scatter_(-1, Pj[..., None], torch.full_like(Pj[..., None], k))
+            lpos.scatter_(-1, Rk[..., None], bl[..., None])
+            pv = torch.take_along_dim(col, Pj[..., None], dim=-1)[..., 0]
+            pi = 1.0 / pv
+            minpiv = torch.minimum(minpiv, pv.abs())
+            if j + 1 < bb:
+                r = at(pn[..., j + 1:], Pj) * pi[..., None]
+                upd = pn[..., j + 1:] - pn[..., j:j + 1] * r[..., None, :]
+                is_p = (rows == Pj[..., None])[..., None]
+                pn[..., j + 1:] = torch.where(is_p, r[..., None, :], upd)
+            P.append(Pj)
+            pinv.append(pi)
+        if pivots is not None:
+            pivots.extend(P)
+        cP = [at(pn, Pt) for Pt in P]      # cP[t][..., s] = c_s[P_t]
+        r = []
+        for t in range(bb):
+            v = at(aug, P[t])
+            for s in range(t):
+                v = v - cP[t][..., s, None] * r[s]
+            r.append(v * pinv[t][..., None])
+        new = aug - pn @ torch.stack(r, dim=-2)
+        for t in range(bb):
+            v = r[t]
+            for s in range(t + 1, bb):
+                v = v - cP[t][..., s, None] * r[s]
+            is_p = (rows == P[t][..., None])[..., None]
+            new = torch.where(is_p, v[..., None, :], new)
+        aug = new
+    sol = torch.take_along_dim(aug[..., n:], plog[..., None], dim=-2)
+    return sol, minpiv
 
 
 class _GJSolve(torch.autograd.Function):

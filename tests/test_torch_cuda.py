@@ -15,8 +15,9 @@ K5 and K6 also run at state sizes beyond their small-state kernels (the
 large-state variants: either side of each small-state plan's edge, the
 filter state of 104, k > 32 for K3), at the same bars, and a NaN draw
 there poisons only itself, also where its workspace slot serves later
-draws; so do K1 and K4 beyond their small-state plan (n = 49 to 104, the
-two-economy SW-2007 core of 52 among them).  The
+draws; so do K1 and K4 beyond their small-state plan (n = 49 to 130, the
+two-economy SW-2007 core of 52 among them) in each of their three tiers
+there (on-chip, cluster, device-memory), each held to its plain version.  The
 numeric steady state of ``open_rbc`` runs on the card as on the CPU (the
 same iterations and flags, x_ss at rel 1e-10), and its implicit gradient
 is finite inside the value+grad path at batch 512.
@@ -480,18 +481,48 @@ def _pencil(device, n, m, batch, seed):
             for a in _stable_pencil(n, m, batch, seed)]
 
 
+def _cr_tier_raw(tier):
+    """K1 and K4 of ``tier`` as raw calls, ``(args, n_iter) -> outputs``:
+    ``"chosen"`` the wrappers' own choice (counted), else that tier's C
+    entry point whatever the shape (``_launch``, not counted)."""
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_cycle_reduction import _launch
+
+    if tier == "chosen":
+        return cr_policy_raw, cr_raw
+    lib = _cuda.library()
+    return (lambda A, B, C, D, it: _launch(lib, tier, A, B, C, D, it),
+            lambda A, B, C, it: _launch(lib, tier, A, B, C, None, it))
+
+
+def _cr_tier_plain(tier):
+    """The plain K1 and K4 a tier is held to: the cluster tier's in panels
+    of ``CR_PANEL`` pivots, every other tier's the plain recursion."""
+    from geconpy_torch.ops.batched_cycle_reduction import CR_PANEL
+
+    panel = CR_PANEL if tier == "cluster" else None
+    return (lambda A, B, C, D, it: _cr_policy_plain(A, B, C, D, it, panel),
+            lambda A, B, C, it: _cr_plain(A, B, C, it, panel))
+
+
+@pytest.mark.parametrize("tier", ["chosen", "onchip", "cluster"])
 @pytest.mark.parametrize("batch", [1, 5, 67])
 @pytest.mark.parametrize("n,m", CR_NM)
 def test_cycle_reduction_kernels_match_plain_on_ragged_shapes(device, n, m,
-                                                              batch):
+                                                              batch, tier):
+    """The tier the wrappers choose (the small-state kernel at these n),
+    and the on-chip and cluster tiers' kernels on the same ragged shapes
+    (their schedules take any n their layouts fit)."""
+    k1, k4 = _cr_tier_raw(tier)
+    p1, p4 = _cr_tier_plain(tier)
     args = _pencil(device, n, m, batch, seed=100 * n + m)
-    T, R, flags = cr_policy_raw(*args, CR_ITERS)
-    T0, R0, flags0 = _cr_policy_plain(*args, CR_ITERS)
+    T, R, flags = k1(*args, CR_ITERS)
+    T0, R0, flags0 = p1(*args, CR_ITERS)
     assert T.shape == T0.shape and R.shape == R0.shape
     assert _rel(T, T0) < 1e-9 and _rel(R, R0) < 1e-9
     assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
-    T4, flags4 = cr_raw(*args[:3], CR_ITERS)
-    T40, flags40 = _cr_plain(*args[:3], CR_ITERS)
+    T4, flags4 = k4(*args[:3], CR_ITERS)
+    T40, flags40 = p4(*args[:3], CR_ITERS)
     assert _rel(T4, T40) < 1e-9 and _rel(flags4[:, 1:], flags40[:, 1:]) < 1e-9
     # every draw is solved
     assert bool(cycle_reduction_policy(*args, n_iter=CR_ITERS)[2].all())
@@ -523,87 +554,154 @@ def test_cycle_reduction_kernels_nan_draw_poisons_only_itself(device, n):
     assert not ok4[1] and not ok4[4] and bool(ok4[keep].all())
 
 
-def _cr_slots(n, m) -> int:
-    """Draw slots of the large-state K1's persistent grid at (n, m): the
-    draws it holds at once."""
+def _cr_slots(n, m, tier="workspace") -> int:
+    """Draws K1 holds at once at (n, m) in ``tier``: the draw slots of the
+    device-memory tier's persistent grid, or the on-chip tier's resident
+    CTAs."""
     from geconpy_torch.ops import _cuda
 
     lib = _cuda.library()
+    if tier == "onchip":
+        return lib.gcp_cr_onchip_resident(1, 1, n, m)
+    if tier == "cluster":
+        return lib.gcp_cr_cluster_resident(1, 1, n, m)
     return (lib.gcp_cr_large_work_bytes(1, 1, n, m, 1 << 20)
             // lib.gcp_cr_large_work_bytes(1, 1, n, m, 1))
 
 
 # the large-state K1 and K4: the first n above the small-state plan (49),
-# the two-economy SW-2007 core (52), 64 and 104
-LARGE_CR_NM = [(n, m) for n in (49, 52, 64, 104) for m in (7, 14)]
+# the two-economy SW-2007 core (52), 64, 104 and 130
+LARGE_CR_NM = [(n, m) for n in (49, 52, 64, 104, 130) for m in (7, 14)]
 
 
+@pytest.mark.parametrize("tier", ["onchip", "cluster", "workspace"])
 @pytest.mark.parametrize("batch", ["3", "above the slots"])
 @pytest.mark.parametrize("n,m", LARGE_CR_NM)
 def test_cycle_reduction_kernels_refuse_more_shared_memory_than_the_device_has(
-        device, n, m, batch):
-    """A pencil whose float64 layout exceeds the device's shared memory (n =
-    49 raised here before the large-state kernels): K1 and K4 run their
-    large-state variant, float64 within rel 1e-9 of the plain version with
-    every draw solved, float32 I/O within 5e-4; at 3 draws, and at more
-    draws than the persistent grid holds at once, so that slots stride."""
+        device, n, m, batch, tier):
+    """A pencil whose float64 layout exceeds the device's shared memory
+    under the small-state plan (n = 49 raised there before the large-state
+    tiers).  Where ``tier`` is the one the shape takes (``cr_tier``), K1
+    and K4 launch it through the wrappers, which count it; the device-memory
+    tier also runs below its edge through its entry point.  Float64 within
+    rel 1e-9 of the plain version with every draw solved, float32 I/O within
+    5e-4; at 3 draws, and at more draws than the tier holds at once, so
+    that slots or CTAs stride.  Where a tier's layout does not fit (the
+    on-chip one from n = 57 on an H100, the cluster one from 129) its entry
+    point refuses to launch and raises."""
     from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_cycle_reduction import cr_tier
 
-    assert not _cuda.library().gcp_cr_fits(n, m)
-    assert not _cuda.library().gcp_cr_fits(n, 0)
-    Bn = 3 if batch == "3" else _cr_slots(n, m) + 5
+    lib = _cuda.library()
+    assert not lib.gcp_cr_fits(n, m) and not lib.gcp_cr_fits(n, 0)
+    chosen = cr_tier(n, m, lib.gcp_smem_optin())
+    assert chosen == cr_tier(n, 0, lib.gcp_smem_optin()) != "small"
+    k1, k4 = _cr_tier_raw("chosen" if tier == chosen else tier)
+    p1, p4 = _cr_tier_plain(tier)
+    fits = {"onchip": chosen == "onchip",
+            "cluster": lib.gcp_cr_cluster_ctas(n, m) > 0,
+            "workspace": True}
+    if not fits[tier]:
+        args = _pencil(device, n, m, 3, seed=100 * n + m)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k1(*args, CR_ITERS)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k4(*args[:3], CR_ITERS)
+        return
+    Bn = 3 if batch == "3" else _cr_slots(n, m, tier) + 5
     args = _pencil(device, n, m, Bn, seed=100 * n + m)
+    counter = f"{tier}_launches"
     before = (cycle_reduction_policy.large_launches,
-              cycle_reduction.large_launches)
-    T, R, flags = cr_policy_raw(*args, CR_ITERS)
-    T0, R0, flags0 = _cr_policy_plain(*args, CR_ITERS)
+              cycle_reduction.large_launches,
+              getattr(cycle_reduction_policy, counter),
+              getattr(cycle_reduction, counter))
+    T, R, flags = k1(*args, CR_ITERS)
+    T0, R0, flags0 = p1(*args, CR_ITERS)
     assert _rel(T, T0) < 1e-9 and _rel(R, R0) < 1e-9
     assert _rel(flags[:, 1:], flags0[:, 1:]) < 1e-9
-    T4, flags4 = cr_raw(*args[:3], CR_ITERS)
-    T40, flags40 = _cr_plain(*args[:3], CR_ITERS)
+    T4, flags4 = k4(*args[:3], CR_ITERS)
+    T40, flags40 = p4(*args[:3], CR_ITERS)
     assert _rel(T4, T40) < 1e-9 and _rel(flags4[:, 1:], flags40[:, 1:]) < 1e-9
+    step = int(tier == chosen)
     assert (cycle_reduction_policy.large_launches,
-            cycle_reduction.large_launches) == (before[0] + 1, before[1] + 1)
+            cycle_reduction.large_launches,
+            getattr(cycle_reduction_policy, counter),
+            getattr(cycle_reduction, counter)) == tuple(
+                b + step for b in before)
     assert bool(cycle_reduction_policy(*args, n_iter=CR_ITERS)[2].all())
     assert bool(cycle_reduction(*args[:3], n_iter=CR_ITERS)[1].all())
     args32 = [a.float() for a in args]
-    for got, want in ((cr_policy_raw(*args32, CR_ITERS),
-                       _cr_policy_plain(*args32, CR_ITERS)),
-                      (cr_raw(*args32[:3], CR_ITERS),
-                       _cr_plain(*args32[:3], CR_ITERS))):
+    for got, want in ((k1(*args32, CR_ITERS), p1(*args32, CR_ITERS)),
+                      (k4(*args32[:3], CR_ITERS), p4(*args32[:3], CR_ITERS))):
         for g, w in zip(got[:-1], want[:-1]):
             assert g.dtype == torch.float32 and _rel(g, w) < 5e-4
 
 
-def test_large_cycle_reduction_kernels_nan_draw_poisons_only_itself(device):
-    """The large-state K1 and K4 (n = 52, m = 14) on more draws than the
-    persistent grid holds at once, with a NaN draw and a draw whose first
-    pivot column is zero: both are flagged, not raised, and every other
-    draw, also those that reuse their workspace slots, is bitwise what it
-    is without them."""
-    Bn = _cr_slots(52, 14) + 5
+@pytest.mark.parametrize("tier", ["onchip", "cluster", "workspace"])
+def test_large_cycle_reduction_kernels_nan_draw_poisons_only_itself(device,
+                                                                    tier):
+    """K1 and K4 above the small-state plan (n = 52, m = 14) in each tier:
+    the on-chip one, which the wrappers take there, and the cluster and
+    device-memory ones through their entry points.  On more draws than the
+    tier holds at once,
+    with a NaN draw and a draw whose first pivot column is zero: both are
+    flagged, not raised, and every other draw, also those that reuse a slot
+    or a CTA's shared memory, is bitwise what it is without them."""
+    k1, k4 = _cr_tier_raw("chosen" if tier == "onchip" else tier)
+    Bn = _cr_slots(52, 14, tier) + 5
     args = _pencil(device, 52, 14, Bn, seed=7)
     bad = [a.clone() for a in args]
     bad[0][1, 0, 0] = float("nan")
     bad[1][4, :, 0] = 0.0          # B's first column: a zero pivot
     keep = torch.ones(Bn, dtype=torch.bool, device=device)
     keep[[1, 4]] = False
-    before = (cycle_reduction_policy.large_launches,
-              cycle_reduction.large_launches)
-    clean, got = cr_policy_raw(*args, CR_ITERS), cr_policy_raw(*bad, CR_ITERS)
+    before = (cycle_reduction_policy.onchip_launches,
+              cycle_reduction.onchip_launches)
+    clean, got = k1(*args, CR_ITERS), k1(*bad, CR_ITERS)
     for g, c in zip(got, clean):
         assert torch.equal(g[keep], c[keep])
     assert not torch.isfinite(got[0][1]).all()
     assert not bool(got[2][4, 0] > 1e-7)   # min |pivot|: 0, or NaN after it
     ok = cycle_reduction_policy(*bad, n_iter=CR_ITERS)[2]
     assert not ok[1] and not ok[4] and bool(ok[keep].all())
-    clean4, got4 = cr_raw(*args[:3], CR_ITERS), cr_raw(*bad[:3], CR_ITERS)
+    clean4, got4 = k4(*args[:3], CR_ITERS), k4(*bad[:3], CR_ITERS)
     for g, c in zip(got4, clean4):
         assert torch.equal(g[keep], c[keep])
     ok4 = cycle_reduction(*bad[:3], n_iter=CR_ITERS)[1]
     assert not ok4[1] and not ok4[4] and bool(ok4[keep].all())
-    assert (cycle_reduction_policy.large_launches,
-            cycle_reduction.large_launches) == (before[0] + 3, before[1] + 3)
+    own = 2 if tier == "onchip" else 0
+    assert (cycle_reduction_policy.onchip_launches,
+            cycle_reduction.onchip_launches) == (before[0] + own + 1,
+                                                 before[1] + own + 1)
+
+
+def test_cycle_reduction_tiers_follow_the_library(device):
+    """``cr_tier``'s reckoning of the two shared-memory layouts equals the
+    library's (``gcp_cr_policy_smem_bytes``, ``gcp_cr_onchip_smem_bytes``),
+    and its small-state edge is ``gcp_cr_fits``, at every n to 130 and m of
+    0, 7, 14 and 120; so does :func:`cr_cluster_plan` the cluster launch's
+    cut (``gcp_cr_cluster_ctas``, ``_rows``, ``_smem_bytes``)."""
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_cycle_reduction import (cr_cluster_plan,
+                                                           cr_layout_bytes,
+                                                           cr_tier)
+
+    lib = _cuda.library()
+    limit = lib.gcp_smem_optin()
+    assert limit == torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    for n in range(1, 131):
+        for m in (0, 7, 14, 120):
+            size = cr_layout_bytes(n, m)
+            assert size["onchip"] == lib.gcp_cr_onchip_smem_bytes(n, m)
+            if lib.gcp_cr_draws_per_block(n, m) == 1:
+                assert size["small"] == lib.gcp_cr_policy_smem_bytes(n, m)
+            assert (cr_tier(n, m, limit) == "small") == bool(
+                lib.gcp_cr_fits(n, m))
+            plan = cr_cluster_plan(n, m, limit) or (0, 0, 0)
+            assert plan == (lib.gcp_cr_cluster_ctas(n, m),
+                            lib.gcp_cr_cluster_rows(n, m),
+                            lib.gcp_cr_cluster_smem_bytes(n, m))
 
 
 # ---- K3 on ragged shapes: synthetic stable tails from a seed

@@ -91,8 +91,15 @@ def main() -> int:
     print(f"phase 6's SMC: {len(smc.phi_schedule)} stages, log evidence "
           f"{smc.log_evidence:.3f}, {wall:.3f} s; the sweep's peak {peak} B "
           f"from {base} B [{card}]", flush=True)
-    chip_smoke.checkpoint_mesh_phase(card, reset_counts, read_counts, model, ss,
-                             data32, batch, sweep, (smc, wall), (peak, base))
+    # 15d's first child starts here, beside 15a-15c only (the full script
+    # starts it before phase 13)
+    cache_run = chip_smoke.start_cache_run()
+    try:
+        chip_smoke.checkpoint_mesh_phase(card, reset_counts, read_counts,
+                                         model, ss, data32, batch, sweep,
+                                         (smc, wall), (peak, base), cache_run)
+    finally:
+        chip_smoke.stop_cache_run(cache_run)
     return 0
 
 

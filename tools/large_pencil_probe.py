@@ -5,12 +5,13 @@ Run from the root of a checkout on a GPU:
 
     python3 tools/large_pencil_probe.py
 
-It builds the kernels and runs ``chip_smoke.large_pencil_phase`` on two
-SW-2007 economies side by side (a dynamic core of 52 states): 17a the
-sweep with each settle and 17b the value+grad, both through the
-large-state K1 or K4, and 17c each large-state kernel against its plain
-version at n = 49 to 130, printing its lines and then the JSON rows of the
-two large-state variants.
+It builds the kernels and runs ``chip_smoke.large_pencil_phase``: on two
+SW-2007 economies side by side (a dynamic core of 52 states) 17a the sweep
+with each settle and 17b the value+grad, both through the on-chip K1 or
+K4; 17c each tier above the small-state plan against its plain version at
+n = 49 to 130 and at the on-chip tier's edges; 17d four economies (a core
+of 104) through the device-memory K1 and K4.  It prints the phase's lines
+and then the JSON rows of the four tier rows.
 """
 
 import json
@@ -45,7 +46,10 @@ def main() -> int:
     def reset_counts():
         for fn in counted.values():
             fn.launches = 0
-            fn.large_launches = 0
+            for tier in ("large_launches", "onchip_launches",
+                         "cluster_launches", "workspace_launches"):
+                if hasattr(fn, tier):
+                    setattr(fn, tier, 0)
 
     def read_counts():
         return {k: fn.launches for k, fn in counted.items()}
@@ -53,9 +57,8 @@ def main() -> int:
     _cuda.library()
     launches, report = chip_smoke.large_pencil_phase(
         chip_smoke.card_line(), reset_counts, read_counts)
-    print(json.dumps({chip_smoke.PENCIL_KERNELS[k]: dict(report[k],
-                                                         launches=launches[k])
-                      for k in report}))
+    print(json.dumps({row: dict(report[row], launches=launches[row])
+                      for row in report}))
     return 0
 
 
