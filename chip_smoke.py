@@ -330,24 +330,29 @@ Phases, one line each (plus one line per kernel in phase 3):
    and the device-memory tier (its C entry point), each with its share of
    the call and its bound.  16b ``build_batched_logpost_and_grad(
    settle="pallas")`` at batch 512 with a fixed measurement-error std of
-   0.002 on each observable: K4 and the large-state K6, >= 99% finite,
-   every gradient finite; of 64 draws the card rejects those the CPU
-   rejects, and the rest are within 5e-4 / 1e-3 of the float64 CPU path;
-   us/draw; then once without measurement error, where the
-   reference's fixed DARE schedule leaves draws unsettled: the share it
-   accepts.  16c each kernel above its small-state plan against its
-   plain version (``hold_to_plain``, rel 1e-9, flags equal) in float64 at
-   batch 256, in the tier each size takes (the counters say which): K2,
-   K5 and K6 at n = 66, 104 and the first n above each one's small-state
-   plan, K2 and K5 also at 130, at the largest n of the cluster plan and
-   the first n above it (the device-memory tier), K3 at n = 65, 104, 130
-   and at n = 40, k = 33 (k = 7 otherwise; n = 104 on the sweep's and
+   0.002 on each observable: K4 and the cluster K6 once each, >= 99%
+   finite, every gradient finite; of 64 draws the card rejects those the
+   CPU rejects, and the rest are within 5e-4 / 1e-3 of the float64 CPU
+   path; us/draw; K6 on the call's own 512 draws under the cluster tier
+   (the wrapper) and the device-memory tier (its C entry point), each with
+   its share of the call and its bound; then once without measurement
+   error (the cluster K6 once), where the reference's fixed DARE schedule
+   leaves draws unsettled: the share it accepts.  16c each kernel above
+   its small-state plan against its plain version (``hold_to_plain``, rel
+   1e-9, flags equal) in float64 at batch 256, in the tier each size takes
+   (the counters say which): K2, K5 and K6 at n = 66, 104, 130 and the
+   first n above each one's small-state plan, K6 also at the largest n of
+   its cluster plan and the first n above it (the device-memory tier; K2's
+   and K5's plan edges run in ``tools/large_state_probe.py``, and
+   ``tests/test_torch_cuda.py`` holds every tier edge), K3 at n = 65, 104,
+   130 and at n = 40, k = 33 (k = 7 otherwise; n = 104 on the sweep's and
    value+grad's own inputs, the rest synthetic from a seed), each with its
-   time, bound and share, at n = 104 also the device-memory K2 and K5 on
-   the same inputs; then the cluster K2 and K5 with float32 I/O at
-   n = 104 (within 5e-4 of the plain version's float64 outputs on the
-   same rounded inputs), on more draws than the card's resident clusters,
-   and with a NaN draw among them that poisons only itself.  16d two
+   time, bound and share, at n = 104 also the device-memory K2, K5 and K6
+   on the same inputs and the largest difference between the two tiers'
+   outputs; then the cluster K2, K5 and K6 with float32 I/O at n = 104
+   (within 5e-4 of the plain version's float64 outputs on the same rounded
+   inputs), on more draws than the card's resident clusters, and with a
+   NaN draw among them that poisons only itself.  16d two
    SW-2007 economies (phase 17's fixture) with year-on-year inflation in
    each, a filter state of 4 x 52 = 208 above the cluster plan: the
    ``"pallas"`` and ``"fused"`` sweeps at batch 512, float32, each
@@ -372,15 +377,18 @@ Phases, one line each (plus one line per kernel in phase 3):
    calls; K1's time on the ``"pallas"`` sweep's own inputs (CUDA events)
    under the on-chip and the device-memory tier, its bound and its share
    of the call.  17b ``build_batched_logpost_and_grad(settle="pallas")``
-   (stationary filter) at batch 512: K4 once, the on-chip tier, and K6;
+   (stationary filter) at batch 512: K4 once, the on-chip tier, and K6
+   (small-state);
    >= 99% finite, every gradient finite; of 64 draws the card rejects those
    the CPU rejects, the rest within 5e-4 / 1e-3 of the float64 CPU path;
    us/draw.  17c each tier against its plain version (the cluster tier's in
    panels) at batch 256, in the tier each size takes (the counters say
    which): float64 (``hold_to_plain``, rel 1e-9, success flags equal) and
    float32 I/O (rel 5e-4 to the plain float64 outputs, success equal on >=
-   99%), K1 at n = 49, 52, 64, 104, 130 with m = 7 and 14 and at each
-   tier's largest n and the next (printed) with m = 14, K4 at each n (n =
+   99%), K1 at n = 49, 52, 64, 104, 130 with m = 7 and 14 (each tier's
+   largest n and the next, printed, run in ``tools/large_pencil_probe.py``
+   with m = 14, and ``tests/test_torch_cuda.py`` holds them), K4 at each
+   n (n =
    52 on 17a's and
    17b's own inputs, the rest synthetic, ``tools/cr_variants.py::
    stable_pencil``), K4 at batch 128 (phase 7's chains) on 17b's inputs;
@@ -396,7 +404,10 @@ Phases, one line each (plus one line per kernel in phase 3):
    parameters, 35 observables), the device-memory tier's: each through the
    ``policy="pallas", settle="xla"`` sweep at batch 512 and the stationary
    ``settle="pallas"`` value+grad at 128, each launching its tier's K1 or
-   K4 once; >= 99% finite, every gradient finite, the card rejecting the
+   K4 once (and K6 once, in the tier its filter state and observables
+   take: the cluster tier at four economies, n = 104 with k = 28, the
+   device-memory tier at five, n = 130 with k = 35); >= 99% finite, every
+   gradient finite, the card rejecting the
    draws the CPU rejects of 2 held to the float64 CPU path (5e-4, and 1e-3
    for the gradient); then each kernel on its path's own inputs (batch 256
    and 128) against its plain version, with its time, bound and share (the
@@ -410,9 +421,12 @@ it: K1 and K5 the sweep's plus 15b's SMC under a mesh, K2 and K3 the
 ``"pallas"`` sweep's, K6 the ``"pallas"`` value+grad's, K4 the NUTS
 fit's), error, times and bound; the large-state variants of K2, K3, K5
 and K6 are rows of their own (``*_large``: launches on 16a, 16b and 16d,
-error, times and bound at 16c's n = 104; for K2 and K5 the device-memory
-tier, whose path is 16d), so is the cluster tier of K2 and K5
-(``*_cluster``: launches on 16a, the rest at 16c's n = 104), and so are
+error, times and bound at 16c's n = 104; for K2 and K5 the
+device-memory tier, whose path is 16d, for K6 the device-memory tier,
+whose path is 17d's five economies),
+so is the cluster tier of K2, K5 and K6 (``*_cluster``: launches on 16a,
+and K6's on 16b and 17d's four economies, the rest at 16c's n = 104), and
+so are
 the three tiers of K1 and K4 above their small-state plan (``*_onchip``:
 launches on 17a and 17b, error, times and bound at 17c's n = 52 on the
 path's own inputs; ``*_cluster``: launches on 17d's four economies, the
@@ -611,7 +625,7 @@ SW_YOY_EQS = {"dy": "y[] - y[-1]", "dc": "c[] - c[-1]",
 # rejected, as the reference rejects it
 LARGE_ME_STD = 0.002
 LARGE_SETTLE_N = (66, 104)
-LARGE_CLUSTER_N = (130,)   # K2 and K5 only
+LARGE_CLUSTER_N = (130,)
 LARGE_TAIL_NK = ((65, 7), (104, 7), (130, 7), (40, 33))
 LARGE_BATCH, LARGE_REPS, LARGE_BUDGET_S = 256, 3, 90
 # 16d: two SW-2007 economies (phase 17's fixture) with year-on-year
@@ -620,13 +634,14 @@ LARGE_BATCH, LARGE_REPS, LARGE_BUDGET_S = 256, 3, 90
 # LARGE_PATH_BATCH, LARGE_PATH_CHECK draws held to the CPU
 LARGE_PATH_BATCH, LARGE_PATH_CHECK = 512, 8
 # the large-state variants in the kernels' JSON line: wrapper name -> entry
-# (K2 and K5: the device-memory tier, beside it the cluster tier)
+# (K2, K5 and K6: the device-memory tier, beside it the cluster tier)
 LARGE_KERNELS = {"settle_parts": "settle_parts_large",
                  "filter_tail": "filter_tail_large",
                  "settle_filter_loglik": "settle_filter_loglik_large",
                  "dare_settle": "dare_settle_large"}
 CLUSTER_KERNELS = {"settle_parts": "settle_parts_cluster",
-                   "settle_filter_loglik": "settle_filter_loglik_cluster"}
+                   "settle_filter_loglik": "settle_filter_loglik_cluster",
+                   "dare_settle": "dare_settle_cluster"}
 
 # phase 17: two SW-2007 economies side by side (a test fixture: the second
 # economy is the first with every name suffixed _b), whose dynamic core of
@@ -661,10 +676,16 @@ PENCIL_KERNELS = {
                         "cluster": "cycle_reduction_cluster",
                         "workspace": "cycle_reduction_large"}}
 PENCIL_TIERS = ("onchip", "cluster", "workspace")
-# the two middle tiers' source (the other K1/K4 rows: KERNELS's)
-PENCIL_SOURCES = {row: "geconpy_torch/csrc/cycle_reduction_tiers.cu"
-                  for rows in PENCIL_KERNELS.values()
-                  for tier, row in rows.items() if tier != "workspace"}
+# the rows whose source is not KERNELS's: K1/K4's two middle tiers, and
+# K2/K5's tiers above the small-state plan
+ROW_SOURCES = {
+    **{row: "geconpy_torch/csrc/cycle_reduction_tiers.cu"
+       for rows in PENCIL_KERNELS.values()
+       for tier, row in rows.items() if tier != "workspace"},
+    **{table[name]: f"geconpy_torch/csrc/settle_{tier}.cu"
+       for table, tier in ((CLUSTER_KERNELS, "cluster"),
+                           (LARGE_KERNELS, "large"))
+       for name in ("settle_parts", "settle_filter_loglik")}}
 
 # NVIDIA H100 SXM data sheet peaks (dense): float64 on the tensor cores and
 # float32 outside them, and the HBM3 rate.  Of the float64 kernels only the
@@ -3647,6 +3668,7 @@ def kernel_resources(lib, build_dir: pathlib.Path, n: int, m: int,
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4245,6 +4267,14 @@ def main() -> int:
     # ---- phase 17: the large-state K1 and K4 at a core of 52 states
     pencil_launches, pencil_report = large_pencil_phase(
         card, reset_counts, read_counts)
+    # 17d's value+grad runs K6 in its cluster tier (four economies) and its
+    # device-memory tier (five)
+    for row in (*LARGE_KERNELS.values(), *CLUSTER_KERNELS.values()):
+        large_launches[row] += pencil_launches.get(row, 0)
+    # the device-memory K6 runs on the main path in 17d alone, whose
+    # five economies measure its row
+    large_report[LARGE_KERNELS["dare_settle"]] = pencil_report.pop(
+        LARGE_KERNELS["dare_settle"])
 
     kernels = []
     for name, (_label, src, tpu) in KERNELS.items():
@@ -4258,11 +4288,13 @@ def main() -> int:
         for row_name, entry, launches in rows:
             kernels.append({
                 "name": row_name, "route": "cuda",
-                "source": PENCIL_SOURCES.get(row_name, src),
+                "source": ROW_SOURCES.get(row_name, src),
                 "replaces": tpu, "launches": launches,
                 "max_abs_err": entry["abs_f64"], "ms": entry["ms"],
                 "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
                 "bound_by": entry["bound_by"], "library_ms": None})
+    print(f"chip_smoke seconds: {time.perf_counter() - t_script:.1f} (the "
+          f"limit 1200)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -4270,16 +4302,65 @@ def main() -> int:
     return 0
 
 
-def settle_workspace_call(name: str, args):
-    """K2 (``name`` ``"settle_parts"``) or K5 (``"settle_filter_loglik"``)
-    on ``args`` through the large-state kernel's C entry point
-    (``gcp_settle_large``, ``gcp_settle_filter_large``), each draw's buffers
-    in a device-memory workspace, whatever tier the wrappers would take for
-    that shape: the device-memory tier beside the cluster tier on the same
-    inputs.  Returns the wrapper's outputs; counts no launch."""
+def card_dare_system(n: int, k: int, batch: int, seed: int, dev):
+    """float64 (T, R Q R', Z, H) of a stable system made on the card from
+    ``seed``: T = S D S^-1 with D block diagonal, its eigenvalues in
+    conjugate pairs (2 x 2 rotation blocks) and one real if n is odd, of
+    moduli uniform in (0, 0.9] with the largest 0.9, so T's spectral radius
+    is 0.9 without an eigenvalue solve on the host; S = I + 0.5 G / sqrt(n);
+    R Q R' and H positive definite as in ``tools/tail_dare_variants.py::
+    dare_inputs``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+
+    pairs = n // 2
+    r = 0.9 * torch.rand((batch, pairs + n % 2), generator=g, device=dev,
+                         dtype=torch.float64)
+    r[:, 0] = 0.9
+    theta = math.pi * torch.rand((batch, pairs), generator=g, device=dev,
+                                 dtype=torch.float64)
+    D = torch.zeros((batch, n, n), device=dev, dtype=torch.float64)
+    i = torch.arange(pairs, device=dev)
+    c, s_ = r[:, :pairs] * torch.cos(theta), r[:, :pairs] * torch.sin(theta)
+    D[:, 2 * i, 2 * i], D[:, 2 * i, 2 * i + 1] = c, -s_
+    D[:, 2 * i + 1, 2 * i], D[:, 2 * i + 1, 2 * i + 1] = s_, c
+    if n % 2:
+        D[:, n - 1, n - 1] = r[:, pairs]
+    eye = torch.eye(n, device=dev, dtype=torch.float64)
+    S = eye + 0.5 * normal(batch, n, n) / math.sqrt(n)
+    T = torch.linalg.solve(S, S @ D, left=False)   # X S = S D
+    # T is dense: off D's 2 x 2 blocks lies ~0.6 of its Frobenius norm (a
+    # block-diagonal T would leave a cluster's peer rows out of its products)
+    pair = torch.arange(n, device=dev) // 2
+    off = (T * (pair[:, None] != pair[None, :])).flatten(1).norm(dim=1)
+    share = float((off / T.flatten(1).norm(dim=1)).min())
+    if share < 0.25:
+        raise AssertionError(f"card_dare_system at n = {n}: T is near block "
+                             f"diagonal ({share:.3e} of it off the blocks)")
+    G = normal(batch, n, n)
+    E = normal(batch, k, k)
+    return (T.contiguous(), G @ G.mT / n + 0.1 * eye, normal(batch, k, n),
+            E @ E.mT / k + 0.1 * torch.eye(k, device=dev, dtype=torch.float64))
+
+
+def workspace_call(name: str, args):
+    """K2 (``name`` ``"settle_parts"``), K5 (``"settle_filter_loglik"``) or
+    K6 (``"dare_settle"``) on ``args`` through the large-state kernel's C
+    entry point (``gcp_settle_large``, ``gcp_settle_filter_large``,
+    ``gcp_dare_large``), each draw's buffers in a device-memory workspace,
+    whatever tier the wrappers would take for that shape: the device-memory
+    tier beside the cluster tier on the same inputs.  Returns the wrapper's
+    outputs; counts no launch."""
     from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops import batched_dare
     from geconpy_torch.ops.batched_settle import LYAP_ITERS, _launch
 
+    if name == "dare_settle":
+        return batched_dare._launch(_cuda.library(), "workspace", *args)
     fused = name == "settle_filter_loglik"
     n_obs = args[0].shape[0]
     return _launch(_cuda.library(), "workspace", fused, *args,
@@ -4287,7 +4368,7 @@ def settle_workspace_call(name: str, args):
 
 
 def large_state_phase(card, reset_counts, read_counts, sw_model,
-                      constant) -> tuple[dict, dict]:
+                      constant, edges: bool = False) -> tuple[dict, dict]:
     """Phase 16: the kernels above their small-state plans (K2 and K5 in
     two tiers, the cluster kernel and the device-memory one; K3, K6) at the
     filter state of 104 of SW-2007 with year-on-year inflation (16a the
@@ -4310,7 +4391,7 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
 
     sys.path.insert(0, str(ROOT / "tools"))
     from settle_variants import stable_system
-    from tail_dare_variants import dare_inputs, tail_inputs
+    from tail_dare_variants import tail_inputs
 
     dev = torch.device("cuda", 0)
     t_phase = time.perf_counter()
@@ -4337,26 +4418,38 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
         return n
 
     def last_cluster(name) -> int:
+        if name == "dare_settle":
+            n = first_large(lambda m: lib.gcp_dare_fits(m, 7))
+            while lib.gcp_dare_cluster_fits(n + 1, 7):
+                n += 1
+            return n
         n = first_large(lambda m: lib.gcp_settle_fits(1, m, 7,
                                                       n_obs_of[name]))
         while lib.gcp_settle_cluster_fits(1, n + 1, 7, n_obs_of[name]):
             n += 1
         return n
 
-    # 16c's synthetic systems (numpy eigenvalues on the host, ~15 s at
-    # n = 193) are made on a thread of their own while 16a and 16b run;
-    # K2 reads the first N_SETTLE rows of K5's y
-    top = {name: last_cluster(name) for name in settles}
+    # 16c's synthetic systems for K2 and K5 (numpy eigenvalues on the host,
+    # ~15 s at n = 193) are made on a thread of their own while 16a and 16b
+    # run; K2 reads the first N_SETTLE rows of K5's y.  K6's are made on the
+    # card (card_dare_system), which keeps the host's cores for the CPU
+    # paths of 16a and 16b.  K2's and K5's cluster-plan edges (the largest
+    # n and the next), which tests/test_torch_cuda.py also holds, run with
+    # ``edges`` alone (tools/large_state_probe.py); K6's run always
+    top = {name: last_cluster(name) for name in (*settles, "dare_settle")}
     synth_n = sorted({*LARGE_SETTLE_N, *LARGE_CLUSTER_N,
                       *(first_large(lambda m, o=o: lib.gcp_settle_fits(
                           1, m, 7, o)) for o in n_obs_of.values()),
-                      *top.values(), *(t + 1 for t in top.values())} - {104})
+                      *((top[name] for name in settles) if edges else ()),
+                      *((top[name] + 1 for name in settles) if edges
+                        else ())} - {104})
     pool = concurrent.futures.ThreadPoolExecutor(1)
     systems = {n: pool.submit(stable_system, n, 7, LARGE_BATCH, PERIODS, n,
                               dev, torch.float64) for n in synth_n}
     resident = {name: lib.gcp_settle_cluster_resident(
         1, int(name == "settle_filter_loglik"), 104, 7, n_obs_of[name])
         for name in settles}
+    resident["dare_settle"] = lib.gcp_dare_cluster_resident(1, 104, 7)
     over = max(resident.values()) + 64
     systems["over"] = pool.submit(stable_system, 104, 7, over, PERIODS, 1041,
                                   dev, torch.float64)
@@ -4454,7 +4547,7 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
             sweep(batch, record=rec32)
             args32 = rec32[name]
             ms_c = cuda_time_ms(lambda: kernel[name](*args32), 1)
-            ms_w = cuda_time_ms(lambda: settle_workspace_call(name, args32), 1)
+            ms_w = cuda_time_ms(lambda: workspace_call(name, args32), 1)
             b_ms, b_by = bound(name, args32, CR_ITERS, LYAP_ITERS)
             call_ms = wall * 1e3
             tiers = (f"; {KERNELS[name][0]} on the call's own inputs "
@@ -4470,7 +4563,20 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
               f"{BATCH / wall:.1f} evals/s (2 calls of batch {BATCH}, "
               f"{wall * 1e3:.1f} ms a call){tiers} [{card}]", flush=True)
 
-    # ---- 16b: value+grad on the stationary filter, K4 and the large K6,
+    def k6_tier(label: str, launches: dict, large: dict) -> str:
+        """K6's launches since the last reset were one, of the cluster
+        tier; counts it on its JSON row."""
+        work6 = dare_settle.workspace_launches
+        if launches["dare_settle"] != 1 or large["dare_settle"] != 1 \
+                or work6 != 0:
+            raise AssertionError(f"{label}: expected the cluster K6 once, got "
+                                 f"{launches['dare_settle']} launches, "
+                                 f"{large['dare_settle']} above the "
+                                 f"small-state plan, {work6} device-memory")
+        row_launches[CLUSTER_KERNELS["dare_settle"]] += 1
+        return "cluster tier"
+
+    # ---- 16b: value+grad on the stationary filter, K4 and the cluster K6,
     # with measurement error (LARGE_ME_STD), then without
     me = {o: LARGE_ME_STD for o in SW_YOY_OBS}
     ss_vg = DSGEStateSpace(sw_model, device="cuda").configure(
@@ -4484,11 +4590,9 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     vals, grads = vag(vg_batch)
     torch.cuda.synchronize()
     launches, large = read_counts(), large_counts()
-    if launches["cycle_reduction"] < 1 or launches["dare_settle"] < 1 \
-            or large["dare_settle"] != launches["dare_settle"]:
-        raise AssertionError(f"16b: expected K4 and the large K6, got "
-                             f"{launches}, large {large}")
-    row_launches["dare_settle_large"] += large["dare_settle"]
+    if launches["cycle_reduction"] < 1:
+        raise AssertionError(f"16b: expected K4, got {launches}")
+    k6_path = k6_tier("16b", launches, large)
     frac = float(torch.isfinite(vals).float().mean())
     if vals.shape != (VG_BATCH,) or frac < 0.99 \
             or not bool(torch.isfinite(grads).all()):
@@ -4519,33 +4623,47 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     for _ in range(2):
         vag(vg_batch)
     torch.cuda.synchronize()
-    us = (time.perf_counter() - t0) / (2 * VG_BATCH) * 1e6
+    call_ms = (time.perf_counter() - t0) / 2 * 1e3
+    us = call_ms * 1e3 / VG_BATCH
     vg_rec: dict = {}
     ss_vg.build_batched_logpost(data, settle="pallas")(
         vg_batch[:LARGE_BATCH].double(), record=vg_rec)
+    # K6 on the call's own 512 draws (float64, as the path runs it): the
+    # cluster tier through the wrapper, the device-memory tier through its
+    # C entry point
+    rec512: dict = {}
+    ss_vg.build_batched_logpost(data, settle="pallas")(
+        vg_batch.double(), record=rec512)
+    args6 = rec512["dare_settle"]
+    ms_c = cuda_time_ms(lambda: dare_settle(*args6), 1)
+    ms_w = cuda_time_ms(lambda: workspace_call("dare_settle", args6), 1)
+    b_ms, b_by = bound("dare_settle", args6, CR_ITERS, LYAP_ITERS)
     print(f"phase 16b value+grad settle=pallas, measurement error std "
           f"{LARGE_ME_STD} on each observable: launches K4 "
           f"{launches['cycle_reduction']}, K6 {launches['dare_settle']} "
-          f"(large-state variant); finite {frac:.4f}, every "
+          f"({k6_path}); finite {frac:.4f}, every "
           f"gradient finite; vs float64 CPU path on {int(both.sum())}/"
           f"{VG_CHECK} (the same {rejected[0]} rejected on both): value rel "
           f"{rel_v:.3e}, gradient rel {rel_g:.3e} (CPU {cpu_s:.1f} s); "
-          f"{us:.2f} us/draw (2 calls of batch {VG_BATCH}) [{card}]",
-          flush=True)
+          f"{us:.2f} us/draw (2 calls of batch {VG_BATCH}, {call_ms:.1f} ms "
+          f"a call); K6 on the call's own {VG_BATCH} draws (float64): "
+          f"cluster tier {ms_c:.3f} ms ({ms_c / call_ms:.3f} of the call), "
+          f"device-memory tier {ms_w:.3f} ms ({ms_w / call_ms:.3f}), bound "
+          f"{b_ms:.3f} ms ({b_by}), shares {b_ms / ms_c:.4f} and "
+          f"{b_ms / ms_w:.4f} [{card}]", flush=True)
     ss_h0 = DSGEStateSpace(sw_model, device="cuda").configure(
         filter_type="stationary", **kw)
     reset_counts()
     vals0, grads0 = ss_h0.build_batched_logpost_and_grad(
         data, settle="pallas")(vg_batch)
     torch.cuda.synchronize()
-    large = large_counts()
-    row_launches["dare_settle_large"] += large["dare_settle"]
-    if large["dare_settle"] < 1 or not bool(torch.isfinite(grads0).all()):
-        raise AssertionError(f"16b without measurement error: large K6 "
-                             f"{large['dare_settle']}, gradients finite "
-                             f"{bool(torch.isfinite(grads0).all())}")
+    k6_path = k6_tier("16b without measurement error", read_counts(),
+                      large_counts())
+    if not bool(torch.isfinite(grads0).all()):
+        raise AssertionError("16b without measurement error: a gradient is "
+                             "not finite")
     print(f"phase 16b the same without measurement error (H = 0): K6 "
-          f"{large['dare_settle']} (large-state variant); settled and "
+          f"1 ({k6_path}); settled and "
           f"accepted {int(torch.isfinite(vals0).sum())}/{VG_BATCH} (the "
           f"reference's fixed schedule of 8 Hewer polishes; the rest -inf, "
           f"as the reference gives them) [{card}]", flush=True)
@@ -4565,10 +4683,11 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     edge = {name: first_large(fn) for name, fn in fits.items()}
 
     def tier_of(name, n) -> str:
-        if name not in settles:
-            return "large-state" if not fits[name](n) else "small-state"
         if fits[name](n):
             return "small-state"
+        if name == "dare_settle":
+            return "cluster" if lib.gcp_dare_cluster_fits(n, 7) \
+                else "device-memory"
         return "cluster" if lib.gcp_settle_cluster_fits(
             1, n, 7, n_obs_of[name]) else "device-memory"
 
@@ -4576,6 +4695,8 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                    lib.gcp_settle_cluster_smem_bytes(1, 104, 7,
                                                      n_obs_of[name]))
             for name in settles}
+    plan["dare_settle"] = (lib.gcp_dare_cluster_ctas(104, 7),
+                           lib.gcp_dare_cluster_smem_bytes(104, 7))
     print(f"phase 16c cluster plan at n = 104, k = 7, float64: K2 "
           f"{plan['settle_parts'][0]} CTAs of "
           f"{lib.gcp_settle_cluster_block_threads()} threads, "
@@ -4587,12 +4708,17 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
           f"the cluster plan K2 {top['settle_parts']}, K5 "
           f"{top['settle_filter_loglik']}; first n above the small-state "
           f"plan K2 {edge['settle_parts']}, K5 "
-          f"{edge['settle_filter_loglik']} [{card}]", flush=True)
+          f"{edge['settle_filter_loglik']}; K6 {plan['dare_settle'][0]} "
+          f"CTAs of {lib.gcp_dare_cluster_block_threads()} threads, "
+          f"{plan['dare_settle'][1]} B a CTA, {resident['dare_settle']} "
+          f"resident, the largest n of its cluster plan {top['dare_settle']}, "
+          f"first n above its small-state plan {edge['dare_settle']} "
+          f"[{card}]", flush=True)
     cases = []   # (wrapper name, shape label, args, accepted)
     for name in ("settle_parts", "settle_filter_loglik", "dare_settle"):
-        ns = {*LARGE_SETTLE_N, edge[name]}
-        if name in settles:
-            ns |= {*LARGE_CLUSTER_N, top[name], top[name] + 1}
+        ns = {*LARGE_SETTLE_N, edge[name], *LARGE_CLUSTER_N}
+        if edges or name == "dare_settle":
+            ns |= {top[name], top[name] + 1}
         for n in sorted(ns):
             notes = [note for cond, note in (
                 (n == edge[name], "the first n above the small-state plan"),
@@ -4609,7 +4735,7 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                               recs["accepted"]))
                 continue
             if name == "dare_settle":
-                args = f64(dare_inputs(n, 7, LARGE_BATCH, seed=n))
+                args = card_dare_system(n, 7, LARGE_BATCH, n, dev)
             else:
                 y, *mats = systems[n].result()
                 args = (y[:N_SETTLE] if name == "settle_parts" else y, *mats)
@@ -4663,9 +4789,9 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                 # the device-memory tier on the same inputs, and the
                 # largest difference between the two tiers' outputs
                 report[CLUSTER_KERNELS[name]] = entry
-                ms_w = cuda_time_ms(lambda: settle_workspace_call(name, args),
+                ms_w = cuda_time_ms(lambda: workspace_call(name, args),
                                     LARGE_REPS)
-                got_w = settle_workspace_call(name, args)
+                got_w = workspace_call(name, args)
                 err_w = abs_err(got_w)
                 got_c = kernel[name](*args)
                 pairs = zip(got_c if isinstance(got_c, tuple) else (got_c,),
@@ -4682,6 +4808,10 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                          f"differ by at most {gap:.3e}")
             else:
                 report[LARGE_KERNELS[name]] = entry
+        elif name == "dare_settle" and variant == "cluster":
+            ms_w = cuda_time_ms(lambda: workspace_call(name, args), LARGE_REPS)
+            part += (f"; the device-memory tier on the same inputs "
+                     f"{ms_w:.3f} ms")
         print(f"phase 16c {part} at {label}, batch {args[1].shape[0]}, "
               f"{variant} kernel: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}), share "
@@ -4691,16 +4821,18 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
     # those rounded inputs; more draws than the resident clusters; a NaN
     # draw among them
     y, *mats = systems["over"].result()
-    for name in settles:
+    own = {**{name: recs[name] for name in settles},
+           "dare_settle": vg_rec["dare_settle"]}
+    for name in (*settles, "dare_settle"):
         label = KERNELS[name][0]
-        args32 = tuple(X.float() for X in recs[name])
+        args32 = tuple(X.float() for X in own[name])
         before = (wrappers[name].large_launches,
                   wrappers[name].workspace_launches)
         got = kernel[name](*args32)
         want = plain[name](*(X.double() for X in args32))
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        acc = recs["accepted"]
+        acc = recs["accepted"] if name != "dare_settle" else every
         agree = all(compare(g[acc].double(), w[acc])[1] == 1.0
                     for g, w in zip(got, want))
         rel32 = max(compare(g[acc].double(), w[acc])[0]
@@ -4710,15 +4842,18 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                 or not agree or rel32 > 5e-4:
             raise AssertionError(f"16c {label} float32 I/O at n = 104: rel "
                                  f"{rel32:.3e}, finite agree {agree}")
-        args = (y[:N_SETTLE] if name == "settle_parts" else y, *mats)
+        args = {"settle_parts": (y[:N_SETTLE], *mats),
+                "settle_filter_loglik": (y, *mats),
+                "dare_settle": tuple(mats[:4])}[name]
         every_over = torch.ones(over, dtype=torch.bool, device=dev)
         before = (wrappers[name].large_launches,
                   wrappers[name].workspace_launches)
         part = hold_to_plain(name, args, every_over, phase="16c")
-        T_bad = args[1].clone()
+        t_at = 0 if name == "dare_settle" else 1   # T's place in args
+        T_bad = args[t_at].clone()
         T_bad[1, 0, 0] = float("nan")
         clean = kernel[name](*args)
-        bad = kernel[name](args[0], T_bad, *args[2:])
+        bad = kernel[name](*args[:t_at], T_bad, *args[t_at + 1:])
         if (wrappers[name].large_launches - before[0],
                 wrappers[name].workspace_launches - before[1]) != (3, 0):
             raise AssertionError(f"16c {label} at batch {over}: not the "
@@ -4728,7 +4863,7 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
         keep = torch.arange(over, device=dev) != 1
         confined = all(torch.equal(b_[keep], c_[keep])
                        for b_, c_ in zip(bad, clean)) \
-            and not bool(torch.isfinite(bad[0][1]))
+            and not bool(torch.isfinite(bad[0][1]).all())
         if not confined:
             raise AssertionError(f"16c {label}: the NaN draw reaches others")
         print(f"phase 16c {label} cluster tier, float32 I/O at n = 104 on "
@@ -4821,8 +4956,8 @@ def large_state_phase(card, reset_counts, read_counts, sw_model,
                                                      BATCH),
               "K6": lib.gcp_dare_large_work_bytes(1, 104, 7, VG_BATCH)}
     print(f"phase 16 device-memory workspaces at n = 104 (16a's batch "
-          f"{BATCH}, 16b's {VG_BATCH}; K2 and K5 there run the cluster tier "
-          f"and take none): {work_b} B", flush=True)
+          f"{BATCH}, 16b's {VG_BATCH}; K2, K5 and K6 there run the cluster "
+          f"tier and take none): {work_b} B", flush=True)
     print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f} (budget "
           f"{LARGE_BUDGET_S})", flush=True)
     return row_launches, report
@@ -4871,15 +5006,17 @@ def cr_tier_call(name: str, tier: str, args):
     return _launch(_cuda.library(), tier, A, B, C, D, CR_ITERS)
 
 
-def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
+def large_pencil_phase(card, reset_counts, read_counts,
+                       edges: bool = False) -> tuple[dict, dict]:
     """Phase 17: K1 and K4 above their small-state plan.  17a the sweep
     and 17b the value+grad at the dynamic core of 52 states of two SW-2007
     economies (the on-chip tier), 17c each tier against its plain version at
     17c's pencils and its edges, 17d four economies (a core of 104, the
-    device-memory tier) (see the module docstring).  Returns ({JSON row
-    name: launches on 17a, 17b and 17d}, {JSON row name: its entry's
-    numbers: the on-chip rows at n = 52 on 17a's and 17b's own inputs, the
-    device-memory rows at n = 104 on 17d's}); raises on a failure."""
+    cluster tier) and five (130, the device-memory tier) (see the module
+    docstring).  Returns ({JSON row name: launches on 17a, 17b and 17d,
+    K6's tier rows among them}, {JSON row name: its entry's numbers: the
+    on-chip rows at n = 52 on 17a's and 17b's own inputs, the cluster and
+    device-memory rows on 17d's}); raises on a failure."""
     import torch
 
     import geconpy_torch
@@ -4887,6 +5024,7 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
     from geconpy_torch.ops.batched_cycle_reduction import (
         CR_PANEL, _cr_plain, _cr_policy_plain, cr_tier, cycle_reduction,
         cycle_reduction_policy)
+    from geconpy_torch.ops.batched_dare import dare_settle, dare_tier
     from geconpy_torch.ops.batched_settle import LYAP_ITERS
     from geconpy_torch.stats.statespace import CR_ITERS, DSGEStateSpace
 
@@ -4948,12 +5086,17 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
     # made on a thread of their own while 17a and 17b run on the card (not
     # beside the CPU path above, whose threads they would slow)
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    pencil_n = sorted({*PENCIL_N, *top.values(),
-                       *(t + 1 for t in top.values())})
+    # each tier's largest n and the next, which tests/test_torch_cuda.py
+    # also holds, with ``edges`` alone (tools/large_pencil_probe.py)
+    pencil_n = sorted({*PENCIL_N, *((*top.values(),
+                                     *(t + 1 for t in top.values()))
+                                    if edges else ())})
     pencils = {n: pool.submit(stable_pencil, n, max(PENCIL_M), PENCIL_BATCH,
                               n) for n in pencil_n}
     row_launches = {row: 0 for rows in PENCIL_KERNELS.values()
                     for row in rows.values()}
+    row_launches.update({LARGE_KERNELS["dare_settle"]: 0,
+                         CLUSTER_KERNELS["dare_settle"]: 0})
 
     def expect_tier(label, name, want):
         """The counted launches of ``name`` since the last reset took the
@@ -5329,6 +5472,8 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
         vals, grads = vag_m(vb)
         torch.cuda.synchronize()
         expect_tier(f"17d {t_} value+grad", "cycle_reduction", t_)
+        k6_counts = (dare_settle.launches, dare_settle.large_launches,
+                     dare_settle.workspace_launches)
         t0 = time.perf_counter()
         v_ref, g_ref = ssm_vg_cpu.build_batched_logpost_and_grad(
             data_m, settle="pallas")(vb[:MANY_SW_CHECK].double().cpu())
@@ -5359,8 +5504,22 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
         vg_rec_m: dict = {}
         ssm_vg.build_batched_logpost(data_m, settle="pallas")(
             vb.double(), record=vg_rec_m)
+        # K6 (filter state n6, k6 observables) once, in the tier its size
+        # takes: the cluster tier for four economies, the device-memory
+        # tier for five
+        n6 = vg_rec_m["dare_settle"][0].shape[-1]
+        k6 = vg_rec_m["dare_settle"][2].shape[-2]
+        tier6 = dare_tier(lib, n6, k6)
+        if tier6 == "small" or k6_counts != {
+                "cluster": (1, 1, 0), "workspace": (1, 1, 1)}[tier6]:
+            raise AssertionError(f"17d {t_} value+grad: K6 at n = {n6}, k = "
+                                 f"{k6} takes the {tier6} tier, launches "
+                                 f"(all, large, device-memory) {k6_counts}")
+        row_launches[(CLUSTER_KERNELS if tier6 == "cluster"
+                      else LARGE_KERNELS)["dare_settle"]] += 1
         print(f"phase 17d value+grad settle=pallas at batch "
-              f"{MANY_SW_VG_BATCH} (phase 7's chains): K4 the {t_} tier once; "
+              f"{MANY_SW_VG_BATCH} (phase 7's chains): K4 the {t_} tier once, "
+              f"K6 (n = {n6}, k = {k6}) the {tier6} tier once; "
               f"finite {frac:.4f}, every gradient finite; vs float64 CPU path "
               f"on {int(both.sum())}/{MANY_SW_CHECK}: value rel {rel_v:.3e}, "
               f"gradient rel {rel_g:.3e} (CPU {cpu_s:.1f} s); {us:.2f} "
@@ -5395,6 +5554,33 @@ def large_pencil_phase(card, reset_counts, read_counts) -> tuple[dict, dict]:
                   f"ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                   f"share {bound_ms / ms:.4f}{extra} [{card}]", flush=True)
+        # K6 on the value+grad's own inputs, in the tier it took there (k =
+        # 28 and 35: S eliminated in shared memory); the device-memory
+        # tier's row of the kernels line is this five-economy reading
+        args6 = vg_rec_m["dare_settle"]
+        ref6 = plain["dare_settle"](*args6)
+        part = hold_to_plain("dare_settle", args6, phase="17d", ref=ref6)
+        ms = cuda_time_ms(lambda: kernel["dare_settle"](*args6), PENCIL_REPS)
+        plain_ms = cuda_time_ms(lambda: plain["dare_settle"](*args6), 1)
+        bound_ms, bound_by = bound("dare_settle", args6, CR_ITERS, LYAP_ITERS)
+        got6 = kernel["dare_settle"](*args6)   # P
+        abs_err = float((got6 - ref6)[torch.isfinite(got6)
+                                      & torch.isfinite(ref6)].abs().max())
+        extra = ""
+        if tier6 == "workspace":
+            report[LARGE_KERNELS["dare_settle"]] = {
+                "abs_f64": abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        else:
+            ws_ms = cuda_time_ms(lambda: workspace_call("dare_settle", args6),
+                                 PENCIL_REPS)
+            extra = (f"; device-memory tier {ws_ms:.3f} ms, share "
+                     f"{bound_ms / ws_ms:.4f}")
+        print(f"phase 17d {part} at n = {n6}, k = {k6}, batch "
+              f"{args6[0].shape[0]}, 17d's own inputs, {tier6} tier: "
+              f"{ms:.3f} ms (abs err {abs_err:.3e}), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / ms:.4f}{extra} [{card}]", flush=True)
     pool.shutdown()
     wall = time.perf_counter() - t_phase
     print(f"phase 17 seconds: {wall:.1f} (budget {PENCIL_BUDGET_S})",

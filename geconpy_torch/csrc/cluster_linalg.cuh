@@ -1,5 +1,6 @@
 // Thread-block cluster helpers for kernels that spread one draw over the
-// CTAs of a cluster (settle.cu's and cycle_reduction.cu's cluster tiers):
+// CTAs of a cluster (the cluster tiers of settle_cluster.cu, dare.cu and
+// cycle_reduction_tiers.cu):
 // the cluster's barriers, the address of a location in a peer CTA's shared
 // memory (distributed shared memory), and cluster_mm, tile_mm's products
 // (small_linalg.cuh) on row panels spread over the cluster.
@@ -91,8 +92,11 @@ __device__ __forceinline__ PanelProduct panel_product(
 // transposed, the inner dimension walks the CTAs' panels in order (each a
 // whole number of 8-wide steps, so the sums run as in tile_mm).  A peer's
 // rows are read through distributed shared memory (generic loads of mapa
-// addresses).  G and O are indexed by the global row.
-template <typename S, int kTiles = 2>
+// addresses).  G and O are indexed by the global row.  With kOneChain each
+// row tile's sums run as tile_mm's kTall items sum them (every 4-wide step
+// of the inner dimension into one set of accumulators, in order) instead of
+// in two sets of alternate steps added at the end.
+template <typename S, int kTiles = 2, bool kOneChain = false>
 __device__ __forceinline__ void cluster_mm(const PanelProduct& p, int rows,
                                            const S* G, int ldg, S* O, int ldo,
                                            WarpCtx w) {
@@ -128,8 +132,8 @@ __device__ __forceinline__ void cluster_mm(const PanelProduct& p, int rows,
         for (int rt = 0; rt < kTiles; ++rt) {
           dmma_16x8x4(acc[0][rt][0], x[rt][0], x[rt][1], y0);
           dmma_16x8x4(acc[0][rt][1], x[rt][0], x[rt][1], y1);
-          dmma_16x8x4(acc[1][rt][0], x[rt][2], x[rt][3], y2);
-          dmma_16x8x4(acc[1][rt][1], x[rt][2], x[rt][3], y3);
+          dmma_16x8x4(acc[kOneChain ? 0 : 1][rt][0], x[rt][2], x[rt][3], y2);
+          dmma_16x8x4(acc[kOneChain ? 0 : 1][rt][1], x[rt][2], x[rt][3], y3);
         }
       }
     };
@@ -179,7 +183,9 @@ __device__ __forceinline__ void cluster_mm(const PanelProduct& p, int rows,
           for (int e = 0; e < 2; ++e) {
             const int j = j0 + 8 * q + 2 * t + e;
             const int f = 2 * h + e;
-            double val = p.sign * (acc[0][rt][q][f] + acc[1][rt][q][f]);
+            double val = p.sign * (kOneChain ? acc[0][rt][q][f]
+                                             : acc[0][rt][q][f] +
+                                                   acc[1][rt][q][f]);
             if (p.E) val += p.E[il * p.lde + j];
             if (bounded) {
               if (i < p.r && j < p.m) {

@@ -538,7 +538,7 @@ int launch_cr_onchip(const void* A, const void* B, const void* C,
 // The eliminations (cr_cluster_eliminate) go in panels of kCrPanel pivots,
 // ops/linalg.py::gj_eliminate_panels's schedule, so that the cluster meets
 // at a barrier twice a panel, not once or twice a pivot (a cluster barrier
-// costs ~4k clocks on an H100, settle.cu's note).  Rows never move, as in
+// costs ~4k clocks on an H100, settle.cuh's note).  Rows never move, as in
 // the on-chip tier: logical positions follow the swaps.  A panel: every CTA
 // gathers the panel's columns of all rows and factors them on its own (the
 // same arithmetic in every CTA, so the same pivots), gathers the panel's

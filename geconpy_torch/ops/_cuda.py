@@ -83,6 +83,13 @@ _SIGNATURES = {
                         _I, _P], ctypes.c_int),
     "gcp_dare_fits": ([_I, _I], ctypes.c_int),
     "gcp_dare_large_work_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    "gcp_dare_cluster": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P], ctypes.c_int),
+    "gcp_dare_cluster_ctas": ([_I, _I], ctypes.c_int),
+    "gcp_dare_cluster_fits": ([_I, _I], ctypes.c_int),
+    "gcp_dare_cluster_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "gcp_dare_cluster_resident": ([_I, _I, _I], ctypes.c_int),
+    "gcp_dare_cluster_block_threads": ([], ctypes.c_int),
     "gcp_settle": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gcp_settle_filter": ([_I, _P, _P, _P, _P, _P, _P, _P,
@@ -227,8 +234,9 @@ def dtype_code(dtype: torch.dtype) -> int:
 def count_launch(wrapper, large: bool, workspace: bool = False) -> None:
     """Count one launch of ``wrapper``'s kernel: ``wrapper.launches``
     counts every variant, ``wrapper.large_launches`` those above the
-    small-state plan, and ``wrapper.workspace_launches`` (the settle
-    wrappers') the large-state kernel on its device-memory workspace."""
+    small-state plan, and ``wrapper.workspace_launches`` (the settle and
+    DARE wrappers') the large-state kernel on its device-memory
+    workspace."""
     wrapper.launches += 1
     if large:
         wrapper.large_launches += 1

@@ -25,15 +25,24 @@ P += (A P) A' in the next), S⁻¹ is one warp's Gauss-Jordan elimination
 epilogue, so that a draw needs five n × n buffers (52,224 B at n = 26,
 k = 7: four draws an SM).  That small-state kernel runs wherever one
 draw's buffers fit the device's shared memory (``gcp_dare_fits``: n <= 64
-at k = 7); the reference's kernel takes any n, so beyond that a
-large-state kernel runs the same schedule with each block's buffers in a
-float64 workspace in device memory, allocated by the wrapper
-(``torch.empty``) for the resident blocks of a persistent grid
-(``chip_smoke.py`` phase 16 prints its size), its products reading their
-operands through L1 and L2.  ``dare_settle.large_launches`` counts those
-launches among ``launches``.  The TPU wrapper's lane padding (H = I in
-the padded slots) has no counterpart: the small-state grid is exactly one
-block per draw, and the large-state grid strides over the draws.
+at k = 7); the reference's kernel takes any n, so two more tiers run the
+same schedule, chosen by size alone (:func:`dare_tier`, which asks the
+kernel library).  Where a draw split in 32-row panels over a thread-block
+cluster of at most 8 CTAs fits their shared memory
+(``gcp_dare_cluster_fits``), the cluster kernel runs it with each CTA
+holding its rows of T, P, the doubling matrix and the two work buffers and
+reading its peers' rows through distributed shared memory; no draw buffer
+lives in device memory, and the sums run in the other tiers' order.
+Beyond that, the device-memory kernel keeps each draw's buffers in a
+float64 workspace, allocated by the wrapper (``torch.empty``) for the
+resident blocks of a persistent grid (``chip_smoke.py`` phase 16 prints
+its size), its products reading their operands through L1 and L2.
+``dare_settle.large_launches`` counts the launches above the small-state
+plan among ``launches``, and ``workspace_launches`` those of the
+device-memory tier alone.  A launch the card refuses raises; no tier
+stands in for another.  The TPU wrapper's lane padding (H = I in the
+padded slots) has no counterpart: the small-state grid is exactly one
+block per draw, and the larger tiers' grids stride over the draws.
 It takes and returns the caller's dtype but runs the recursion in float64,
 as the settle kernel K2 does, and so does the plain version.
 
@@ -94,8 +103,44 @@ def _dare_plain(T, RQR, Z, H, lyap_iters: int = LYAP_ITERS,
     return P.to(T.dtype)
 
 
+def dare_tier(lib, n: int, k: int) -> str:
+    """The tier of K6 that the wrapper takes for n states and k observables
+    on the current device, asked of the kernel library ``lib``:
+    ``"small"`` (one draw a block fits the device's shared memory),
+    ``"cluster"`` (one draw a thread-block cluster fits) or
+    ``"workspace"`` (the draw's buffers in device memory)."""
+    if lib.gcp_dare_fits(n, k):
+        return "small"
+    return "cluster" if lib.gcp_dare_cluster_fits(n, k) else "workspace"
+
+
+def _launch(lib, tier: str, T, RQR, Z, H):
+    """Launch K6 of ``tier`` through its C entry point in ``lib`` on
+    checked inputs, with the device-memory tier's workspace; returns P.
+    The wrapper chooses the tier (:func:`dare_tier`) and counts the
+    launch; this does neither."""
+    Bn, n, _ = T.shape
+    k = Z.shape[1]
+    P = torch.empty((Bn, n, n), dtype=T.dtype, device=T.device)
+    if Bn:
+        code = _cuda.dtype_code(T.dtype)
+        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, P)]
+        sched = (LYAP_ITERS, HEWER_ITERS, INNER_ITERS)
+        stream = _cuda.stream_handle(T.device)
+        if tier == "workspace":
+            nbytes = lib.gcp_dare_large_work_bytes(code, n, k, Bn)
+            work = _cuda.workspace(nbytes, T.device)
+            rc = lib.gcp_dare_large(code, *ptrs, work.data_ptr(), nbytes, Bn,
+                                    n, k, *sched, stream)
+        else:
+            rc = {"small": lib.gcp_dare, "cluster": lib.gcp_dare_cluster}[
+                tier](code, *ptrs, Bn, n, k, *sched, stream)
+        _cuda.check(rc, "dare_settle")
+    return P
+
+
 def _dare_cuda(T, RQR, Z, H):
-    """Launch the K6 kernel with the fixed schedule."""
+    """Launch the K6 kernel of the tier the shape takes."""
     Bn, n, _ = T.shape
     k = Z.shape[1]
     _cuda.require_cuda_inputs(
@@ -103,26 +148,10 @@ def _dare_cuda(T, RQR, Z, H):
         {"T": (T, (Bn, n, n)), "RQR": (RQR, (Bn, n, n)), "Z": (Z, (Bn, k, n)),
          "H": (H, (Bn, k, k))}, T.dtype, T.device)
     lib = _cuda.library()
-    # the small-state kernel where one draw fits the device's shared
-    # memory, else the large-state one with its workspace in device memory
-    large = not lib.gcp_dare_fits(n, k)
-    P = torch.empty((Bn, n, n), dtype=T.dtype, device=T.device)
+    tier = dare_tier(lib, n, k)
+    P = _launch(lib, tier, T, RQR, Z, H)
     if Bn:
-        ptrs = [X.data_ptr() for X in (T, RQR, Z, H, P)]
-        sched = (LYAP_ITERS, HEWER_ITERS, INNER_ITERS)
-        stream = _cuda.stream_handle(T.device)
-        if large:
-            nbytes = lib.gcp_dare_large_work_bytes(
-                _cuda.dtype_code(T.dtype), n, k, Bn)
-            work = _cuda.workspace(nbytes, T.device)
-            code = lib.gcp_dare_large(
-                _cuda.dtype_code(T.dtype), *ptrs, work.data_ptr(), nbytes, Bn,
-                n, k, *sched, stream)
-        else:
-            code = lib.gcp_dare(_cuda.dtype_code(T.dtype), *ptrs, Bn, n, k,
-                                *sched, stream)
-        _cuda.check(code, "dare_settle")
-        _cuda.count_launch(dare_settle, large)
+        _cuda.count_launch(dare_settle, tier != "small", tier == "workspace")
     return P
 
 
@@ -137,7 +166,9 @@ def dare_settle(T, RQR, Z, H) -> torch.Tensor:
     raise ValueError(f"dare_settle: no kernel for {T.device}")
 
 
-#: launches of the CUDA kernel (either variant) since the count was last
-#: set to 0, and of its large-state variant alone
+#: launches of the CUDA kernel (any tier) since the count was last set to
+#: 0, of the tiers above the small-state plan, and of the device-memory
+#: tier alone
 dare_settle.launches = 0
 dare_settle.large_launches = 0
+dare_settle.workspace_launches = 0

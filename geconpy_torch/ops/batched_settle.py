@@ -11,9 +11,10 @@ const) of the constant-gain tail.  Fully observed data only.
 constant-gain tail over the rest of the sample, returning each draw's whole
 log-likelihood; M, TK and F^{-1} never reach device memory.
 
-Kernel source note.  ``csrc/settle.cu`` replaces the TPU kernels
-``_settle_kernel`` (``ops/pallas_settle.py:40``) and, compiled with
-``kFused``, ``_fused_kernel`` (``:108``).  On the H100 the work is bound on
+Kernel source note.  ``csrc/settle.cu`` (with ``settle.cuh``, and the
+larger tiers in ``settle_cluster.cu`` and ``settle_large.cu``) replaces the
+TPU kernels ``_settle_kernel`` (``ops/pallas_settle.py:40``) and, compiled
+with ``kFused``, ``_fused_kernel`` (``:108``).  On the H100 the work is bound on
 paper by its operations (~3.5 MFMA per draw at n = 26, k = 7, 32 steps) and
 in fact by the chain of ~290 dependent small products and eliminations per
 draw.  The design: four warps per draw and several draws per block, each
@@ -21,7 +22,7 @@ draw with a barrier of its own; every matrix in shared memory, zero-padded
 to whole 16 x 8 tiles, so that the products run as ``mma.sync m16n8k4`` in
 float64 on the tensor cores with no bounds test; the k-sized Gauss-Jordan
 elimination in one warp's registers; ``y`` staged once per block in shared
-memory; the fused tail spread over the draw's warps.  ``csrc/settle.cu``
+memory; the fused tail spread over the draw's warps.  ``csrc/settle.cuh``
 has the whole note.  The kernel takes and returns the caller's dtype but
 runs the recursion in float64, and so does the plain version: without
 measurement error F is ill-conditioned, and two float32 recursions differed

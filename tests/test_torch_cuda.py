@@ -17,7 +17,11 @@ filter state of 104, k > 32 for K3), at the same bars, and a NaN draw
 there poisons only itself, also where its workspace slot serves later
 draws; so do K1 and K4 beyond their small-state plan (n = 49 to 130, the
 two-economy SW-2007 core of 52 among them) in each of their three tiers
-there (on-chip, cluster, device-memory), each held to its plain version.  The
+there (on-chip, cluster, device-memory), each held to its plain version,
+and K6 at the edges of its three tiers (small-state, cluster,
+device-memory) with k = 7 and 14, float64 within 1e-9 with the same draws
+settled and float32 I/O within 5e-4, its cluster tier equal to its
+device-memory tier to the bit.  The
 numeric steady state of ``open_rbc`` runs on the card as on the CPU (the
 same iterations and flags, x_ss at rel 1e-10), and its implicit gradient
 is finite inside the value+grad path at batch 512.
@@ -570,8 +574,9 @@ def _cr_slots(n, m, tier="workspace") -> int:
 
 
 # the large-state K1 and K4: the first n above the small-state plan (49),
-# the two-economy SW-2007 core (52), 64, 104 and 130
-LARGE_CR_NM = [(n, m) for n in (49, 52, 64, 104, 130) for m in (7, 14)]
+# the two-economy SW-2007 core (52), 64, 104, 108 (the cluster tier's cut
+# of seven CTAs of 16 rows on an H100) and 130
+LARGE_CR_NM = [(n, m) for n in (49, 52, 64, 104, 108, 130) for m in (7, 14)]
 
 
 @pytest.mark.parametrize("tier", ["onchip", "cluster", "workspace"])
@@ -847,14 +852,43 @@ def test_dare_kernel_nan_draw_poisons_only_itself(device):
     assert torch.equal(got[keep], clean[keep])
 
 
+def _dare_tier(call):
+    """The tier of K6 that ``call()`` launched through ``dare_settle``, read
+    from its counters, and the call's result."""
+    fn = dare_settle
+    before = (fn.launches, fn.large_launches, fn.workspace_launches)
+    out = call()
+    after = (fn.launches, fn.large_launches, fn.workspace_launches)
+    delta = tuple(a - b for a, b in zip(after, before))
+    tiers = {(1, 0, 0): "small", (1, 1, 0): "cluster", (1, 1, 1): "workspace"}
+    assert delta in tiers, delta
+    return out, tiers[delta]
+
+
+def _dare_edges(k) -> dict:
+    """The n where K6's tiers meet at k observables: the last small-state
+    n, the first and the last n of the cluster plan, the first n of the
+    device-memory tier; and 104, SW-2007's filter state with year-on-year
+    inflation."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    small = _last_small_n(lambda m: lib.gcp_dare_fits(m, k))
+    last = small + 1
+    assert lib.gcp_dare_cluster_fits(last, k)
+    while lib.gcp_dare_cluster_fits(last + 1, k):
+        last += 1
+    return {"last small": small, "first cluster": small + 1, "n = 104": 104,
+            "last cluster": last, "first workspace": last + 1}
+
+
 def test_dare_kernel_refuses_more_shared_memory_than_the_device_has(device):
-    """n = 80, whose float64 layout exceeds the device's shared memory (this
-    shape raised before the large-state kernel): it runs the large-state
-    variant, within rel 1e-11 of the plain version."""
+    """n = 80, whose float64 layout exceeds a block's shared memory (this
+    shape raised before the large-state tiers): it runs the cluster tier,
+    as its counters show, within rel 1e-11 of the plain version."""
     args = _dare_inputs(device, 80, 7, 2, seed=1)
-    before = dare_settle.large_launches
-    P = dare_settle(*args)
-    assert dare_settle.large_launches == before + 1
+    P, tier = _dare_tier(lambda: dare_settle(*args))
+    assert tier == "cluster"
     assert _rel(P, _dare_plain(*args)) < 1e-11
     assert torch.equal(P, P.mT)
 
@@ -874,9 +908,9 @@ def test_dare_kernel_at_the_edge_of_the_small_state_plan(device, edge):
 
 
 def test_large_dare_kernel_nan_draw_poisons_only_itself(device):
-    """The large-state K6 (n = 70) on more draws than the persistent grid
-    holds at once: the NaN draw's workspace slot serves later draws, which
-    are bitwise what they are without it."""
+    """K6 above its small-state plan (n = 70, the cluster tier) on more
+    draws than the persistent grid holds at once: the NaN draw's cluster
+    serves later draws, which are bitwise what they are without it."""
     args = _dare_inputs(device, 70, 7, 1100, seed=5)
     bad = [a.clone() for a in args]
     bad[0][1, 0, 0] = float("nan")      # T of draw 1
@@ -884,6 +918,82 @@ def test_large_dare_kernel_nan_draw_poisons_only_itself(device):
     clean, got = dare_settle(*args), dare_settle(*bad)
     assert dare_settle.large_launches == before + 2
     keep = torch.arange(1100, device=device) != 1
+    assert not torch.isfinite(got[1]).all()
+    assert torch.equal(got[keep], clean[keep])
+
+
+DARE_TIER_OF_EDGE = {"last small": "small", "first cluster": "cluster",
+                     "n = 104": "cluster", "last cluster": "cluster",
+                     "first workspace": "workspace"}
+
+
+@pytest.mark.parametrize("batch", ["3", "above the resident clusters"])
+@pytest.mark.parametrize("k", [7, 14])
+@pytest.mark.parametrize("edge", list(DARE_TIER_OF_EDGE))
+def test_dare_tiers_match_plain(device, edge, k, batch):
+    """K6 at the n where its three tiers meet (small-state, cluster,
+    device-memory) and at n = 104, k = 7 and 14, on 3 draws or on more
+    draws than the cluster plan's resident clusters (the persistent grid
+    strides over the batch): the tier the counters record is the one the
+    size takes, float64 within rel 1e-9 of the plain version with the same
+    draws settled (``dare_residual_settled``) and P exactly symmetric, and
+    float32 I/O within 5e-4 of the plain version on the same rounded
+    inputs."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    n = _dare_edges(k)[edge]
+    want = DARE_TIER_OF_EDGE[edge]
+    bn = 3 if batch == "3" else (
+        lib.gcp_dare_cluster_resident(1, n, k) + 5 if want == "cluster"
+        else 67)
+    args = _dare_inputs(device, n, k, bn, seed=n + k)
+    P, tier = _dare_tier(lambda: dare_settle(*args))
+    assert tier == want, (n, k)
+    P0 = _dare_plain(*args)
+    assert P.shape == P0.shape and _rel(P, P0) < 1e-9, (n, k)
+    assert torch.equal(P, P.mT)
+    assert torch.equal(dare_residual_settled(*args, P),
+                       dare_residual_settled(*args, P0))
+    args32 = [a.float() for a in args]
+    P32, tier32 = _dare_tier(lambda: dare_settle(*args32))
+    assert tier32 == want
+    assert P32.dtype == torch.float32
+    assert _rel(P32, _dare_plain(*(a.double() for a in args32))) < 5e-4
+
+
+def test_dare_cluster_tier_equals_the_device_memory_tier(device):
+    """The cluster kernel and the device-memory kernel on the same inputs
+    (n = 104, k = 7): the same sums in the same order, so the same P to the
+    bit, without measurement error too (H = 0)."""
+    from geconpy_torch.ops import _cuda
+    from geconpy_torch.ops.batched_dare import _launch
+
+    lib = _cuda.library()
+    for h_scale in (1.0, 0.0):
+        args = _dare_inputs(device, 104, 7, 9, seed=3, h_scale=h_scale)
+        assert torch.equal(_launch(lib, "cluster", *args),
+                           _launch(lib, "workspace", *args))
+
+
+def test_dare_workspace_tier_nan_draw_poisons_only_itself(device):
+    """K6 at the first n of its device-memory tier (k = 3) on more draws
+    than the persistent grid holds at once: the NaN draw's workspace slot
+    serves later draws, which are bitwise what they are without it."""
+    from geconpy_torch.ops import _cuda
+
+    lib = _cuda.library()
+    n = _dare_edges(3)["first workspace"]
+    slots = lib.gcp_dare_large_work_bytes(1, n, 3, 1 << 20) \
+        // lib.gcp_dare_large_work_bytes(1, n, 3, 1)
+    bn = slots + 40
+    args = _dare_inputs(device, n, 3, bn, seed=9)
+    bad = [a.clone() for a in args]
+    bad[0][1, 0, 0] = float("nan")      # T of draw 1
+    clean, t1 = _dare_tier(lambda: dare_settle(*args))
+    got, t2 = _dare_tier(lambda: dare_settle(*bad))
+    assert t1 == t2 == "workspace"
+    keep = torch.arange(bn, device=device) != 1
     assert not torch.isfinite(got[1]).all()
     assert torch.equal(got[keep], clean[keep])
 

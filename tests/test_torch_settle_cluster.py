@@ -1,7 +1,7 @@
 """Port parity at the shapes the cluster tier of K2 and K5 adds on the card.
 
 On the card the settle wrappers send a draw too large for one block's
-shared memory to the cluster kernel (``csrc/settle.cu``: the draw's
+shared memory to the cluster kernel (``csrc/settle_cluster.cu``: the draw's
 buffers in row panels over a thread-block cluster), which runs the
 schedule of the plain versions ``_settle_plain`` and ``_settle_filter_plain``
 (``tests/test_torch_cuda.py`` holds it to them).  Here the plain versions

@@ -9,9 +9,10 @@ It builds the kernels and runs ``chip_smoke.large_pencil_phase``: on two
 SW-2007 economies side by side (a dynamic core of 52 states) 17a the sweep
 with each settle and 17b the value+grad, both through the on-chip K1 or
 K4; 17c each tier above the small-state plan against its plain version at
-n = 49 to 130 and at the on-chip tier's edges; 17d four economies (a core
-of 104) through the device-memory K1 and K4.  It prints the phase's lines
-and then the JSON rows of the four tier rows.
+n = 49 to 130 and, beyond what ``chip_smoke.py`` runs, at each tier's
+largest n and the next (``edges=True``); 17d four economies (a core of
+104, the cluster tier) and five (130, the device-memory tier).  It prints
+the phase's lines and then the JSON rows of the tier rows.
 """
 
 import json
@@ -56,7 +57,7 @@ def main() -> int:
 
     _cuda.library()
     launches, report = chip_smoke.large_pencil_phase(
-        chip_smoke.card_line(), reset_counts, read_counts)
+        chip_smoke.card_line(), reset_counts, read_counts, edges=True)
     print(json.dumps({row: dict(report[row], launches=launches[row])
                       for row in report}))
     return 0

@@ -8,10 +8,12 @@ Run from the root of a checkout on a GPU:
 It builds the kernels, makes SW-2007's model and runs
 ``chip_smoke.large_state_phase`` (16a the sweep with each settle and 16b
 the value+grad at a filter state of 104, 16c each kernel above its
-small-state plan against its plain version, 16d the device-memory K2 and
-K5 on two such economies side by side, filter state 208), printing its
-lines and then the JSON rows of the large-state variants and of the
-cluster tier of K2 and K5.
+small-state plan against its plain version, and beyond what
+``chip_smoke.py`` runs, K2 and K5 at the largest n of their cluster plan
+and the next (``edges=True``), 16d the device-memory K2 and K5 on two
+such economies side by side, filter state 208), printing its lines and
+then the JSON rows of the large-state variants and of the cluster tier of
+K2, K5 and K6.
 """
 
 import json
@@ -60,7 +62,8 @@ def main() -> int:
     constant = [p for p in model.param_names
                 if p not in chip_smoke.SW_ESTIMATED]
     launches, report = chip_smoke.large_state_phase(
-        chip_smoke.card_line(), reset_counts, read_counts, model, constant)
+        chip_smoke.card_line(), reset_counts, read_counts, model, constant,
+        edges=True)
     print(json.dumps({k: dict(report[k], launches=launches[k])
                       for k in report}))
     return 0

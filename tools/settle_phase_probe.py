@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with one GPU:
 
     python3 tools/settle_phase_probe.py [--batch 132 4096]
 
-It writes an instrumented copy of ``geconpy_torch/csrc/settle.cu`` into
+It writes an instrumented copy of ``geconpy_torch/csrc/settle.cu`` (the
+small-state tier, with ``settle.cuh`` written in) into
 ``build/settle_phase_probe/``: after every barrier of a draw, thread 0 of
 the first draw of block 0 reads ``clock64()`` and adds the clocks since its
 last reading to that phase's counter (in registers; written to device memory
@@ -45,11 +46,14 @@ PROBE = ("if (probe_on) { const long long c_ = clock64(); "
 
 
 def instrumented_source() -> str:
-    src = (ROOT / "geconpy_torch" / "csrc" / "settle.cu").read_text()
+    csrc = ROOT / "geconpy_torch" / "csrc"
+    src = (csrc / "settle.cu").read_text().replace(
+        '#include "settle.cuh"', (csrc / "settle.cuh").read_text(), 1)
     count = len(re.findall(r"draw_barrier\(draw\);", src))
     if count != len(SLOT_OF_BARRIER):
         raise SystemExit(f"settle_phase_probe: expected "
-                         f"{len(SLOT_OF_BARRIER)} draw barriers in settle.cu, "
+                         f"{len(SLOT_OF_BARRIER)} draw barriers in settle.cuh "
+                         f"and settle.cu, "
                          f"found {count}: bring SLOT_OF_BARRIER up to date")
     order = iter(SLOT_OF_BARRIER)
     src = re.sub(r"draw_barrier\(draw\);",
@@ -63,7 +67,7 @@ def instrumented_source() -> str:
     end = "      if (lane == 0) gll[b] = S(ll);"
     if src.count(end) != 1:
         raise SystemExit("settle_phase_probe: the end of the fused tail has "
-                         "moved in settle.cu")
+                         "moved in settle.cuh")
     src = src.replace(end, "      " + PROBE % (n - 1) + "\n" + end + "\n"
                       f"      if (probe_on) for (int q = 0; q < {n}; ++q) "
                       "g_probe[q] = pacc[q];")

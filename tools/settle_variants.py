@@ -6,7 +6,9 @@ Run from the root of a checkout:
     python3 tools/settle_variants.py [--n 26] [--batch 4096] VARIANT [...]
 
 A variant is a comma-separated list of settings of the compile-time
-constants ``GCP_SETTLE_<NAME>`` of ``geconpy_torch/csrc/settle.cu``, for
+constants ``GCP_SETTLE_<NAME>`` of ``geconpy_torch/csrc/settle.cuh`` and
+the three tiers' sources ``settle.cu``, ``settle_cluster.cu`` and
+``settle_large.cu`` (built together), for
 example ``DRAWS=2``, ``DRAWS=1,MIN_BLOCKS=5`` or, for the cluster kernel,
 ``PROBE=1`` (one draw's clocks by phase; the probe build puts a CTA barrier
 between T P and x_pred, so its schedule differs slightly from the one that
@@ -117,7 +119,9 @@ def main() -> int:
             f"-DGCP_SETTLE_{item}" for item in variant.split(",")]
         lib_path = out_dir / f"v{idx}.so"
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-I", str(_cuda.CSRC),
-               "-o", str(lib_path), str(_cuda.CSRC / "settle.cu")]
+               "-o", str(lib_path),
+               *(str(_cuda.CSRC / f"settle{tier}.cu")
+                 for tier in ("", "_cluster", "_large"))]
         procs.append((variant, lib_path, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
